@@ -1,0 +1,205 @@
+// One online-softmax (flash) update of a block's query vectors against a
+// key/value tile staged in shared memory. Shared by all three attention
+// kernels of the port (paged decode, packed verify, prefill):
+//
+//   s[qi, t]  = scale * <q[qi], k[t]>          (f32, masked to -1e30)
+//   m_new     = max(m[qi], max_t s[qi, t])
+//   p[qi, t]  = exp(s[qi, t] - m_new)
+//   l[qi]     = l[qi] * exp(m[qi] - m_new) + sum_t p[qi, t]
+//   acc[qi,:] = acc[qi,:] * exp(m[qi] - m_new) + sum_t p[qi, t] v[t,:]
+//
+// Every value of one query vector is computed by a fixed sequence of
+// operations that does not depend on how many other query vectors the
+// block holds: each score is one thread's sequential dot product over d,
+// each row's max/sum is one warp's lane-strided fold plus a fixed
+// butterfly, each accumulator element is one thread's sequential sum over
+// t. So the packed-verify kernel (R rows of one sequence per block) gives
+// every row the same bits as the decode kernel (one row per block) for the
+// same query and context: the property PEARL's draft/verify agreement at
+// the layer-share ceiling rests on.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace npt {
+
+constexpr int kThreads = 256;   // threads per block, all kernels
+constexpr int kTile = 64;       // keys per staged shared-memory tile
+constexpr float kNegInf = -1e30f;
+constexpr float kMFloor = -1e29f;  // running-max floor: masked rows give 0
+constexpr int kMaxSmem = 232448;   // bytes a block may opt into on sm_90
+
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+
+// 8 consecutive elements: one 16-byte load for bf16, two for f32.
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void copy8(float* dst, const float* src) {
+  reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
+  reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
+}
+__device__ __forceinline__ void zero8(__nv_bfloat16* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+}
+__device__ __forceinline__ void zero8(float* dst) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  float4 a = reinterpret_cast<const float4*>(p)[0];
+  float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// Shared-memory pitch of a staged K/V row, in elements: 16 bytes of
+// padding keep neighbouring rows off the same banks.
+__host__ __device__ __forceinline__ int kv_pitch(int d) { return d + 8; }
+
+// Running statistics and operands of one block, all in shared memory.
+template <typename T>
+struct Flash {
+  T* ks;         // [kTile, pitch] staged keys of one KV head
+  T* vs;         // [kTile, pitch] staged values
+  float* qs;     // [nq, D] query vectors in f32
+  float* acc;    // [nq, D] unnormalised output
+  float* s;      // [nq, kTile] scores, then probabilities
+  float* m;      // [nq] running max
+  float* l;      // [nq] running sum
+  float* alpha;  // [nq] rescale of the current tile
+  int nq, d, pitch;
+};
+
+// Bytes of shared memory a Flash of nq query vectors needs, plus `extra`.
+template <typename T>
+__host__ __device__ inline size_t flash_smem_bytes(int nq, int d, size_t extra) {
+  return 2 * sizeof(T) * kTile * kv_pitch(d) +
+         sizeof(float) * (2 * (size_t)nq * d + (size_t)nq * kTile + 3 * (size_t)nq) + extra;
+}
+
+// Carve the dynamic shared memory; returns the first byte after it.
+template <typename T>
+__device__ inline unsigned char* flash_carve(Flash<T>& f, int nq, int d) {
+  f.nq = nq;
+  f.d = d;
+  f.pitch = kv_pitch(d);
+  f.ks = reinterpret_cast<T*>(smem_raw);
+  f.vs = f.ks + kTile * f.pitch;
+  f.qs = reinterpret_cast<float*>(f.vs + kTile * f.pitch);
+  f.acc = f.qs + nq * d;
+  f.s = f.acc + nq * d;
+  f.m = f.s + nq * kTile;
+  f.l = f.m + nq;
+  f.alpha = f.l + nq;
+  return reinterpret_cast<unsigned char*>(f.alpha + nq);
+}
+
+template <typename T>
+__device__ inline void flash_init_stats(Flash<T>& f) {
+  for (int i = threadIdx.x; i < f.nq * f.d; i += blockDim.x) f.acc[i] = 0.f;
+  for (int i = threadIdx.x; i < f.nq; i += blockDim.x) {
+    f.m[i] = kMFloor;
+    f.l[i] = 0.f;
+  }
+}
+
+// One flash update over the staged tile. `visible(qi, t)` says whether
+// key t of the tile is visible to query vector qi. Must be called by all
+// threads of the block; ends with a barrier.
+template <typename T, typename Mask>
+__device__ void flash_tile_update(Flash<T>& f, float scale, const Mask& visible) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nq = f.nq, d = f.d;
+
+  for (int idx = tid; idx < nq * kTile; idx += blockDim.x) {
+    const int qi = idx / kTile, t = idx - qi * kTile;
+    float sc = kNegInf;
+    if (visible(qi, t)) {
+      const float* qv = f.qs + qi * d;
+      const T* kv = f.ks + t * f.pitch;
+      float dot = 0.f;
+      for (int c = 0; c < d; c += 8) {
+        float kf[8];
+        load8(kv + c, kf);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dot = fmaf(qv[c + j], kf[j], dot);
+      }
+      sc = dot * scale;
+    }
+    f.s[idx] = sc;
+  }
+  __syncthreads();
+
+  for (int qi = warp; qi < nq; qi += nwarps) {
+    float* srow = f.s + qi * kTile;
+    float mx = kNegInf;
+    for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, srow[t]);
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_prev = f.m[qi];
+    const float m_new = fmaxf(m_prev, mx);
+    float sum = 0.f;
+    for (int t = lane; t < kTile; t += 32) {
+      const float p = expf(srow[t] - m_new);
+      srow[t] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    __syncwarp();
+    if (lane == 0) {
+      const float a = expf(m_prev - m_new);
+      f.alpha[qi] = a;
+      f.l[qi] = fmaf(f.l[qi], a, sum);
+      f.m[qi] = m_new;
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < nq * d; idx += blockDim.x) {
+    const int qi = idx / d, c = idx - qi * d;
+    const float* prow = f.s + qi * kTile;
+    float pv = 0.f;
+    for (int t = 0; t < kTile; ++t) pv = fmaf(prow[t], to_f32(f.vs[t * f.pitch + c]), pv);
+    f.acc[idx] = fmaf(f.acc[idx], f.alpha[qi], pv);
+  }
+  __syncthreads();
+}
+
+// acc / max(l, 1e-30), rounded once to the output type.
+template <typename T>
+__device__ __forceinline__ T flash_out(const Flash<T>& f, int idx) {
+  return from_f32<T>(f.acc[idx] / fmaxf(f.l[idx / f.d], 1e-30f));
+}
+
+// Opt the kernel into `bytes` of dynamic shared memory.
+template <typename K>
+inline cudaError_t flash_set_smem(K kernel, size_t bytes) {
+  if (bytes > (size_t)kMaxSmem) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace npt

@@ -1,0 +1,98 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` (with the shared headers it includes) compiles
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface under ``build/torch_kernels/`` at the repository root, and is
+loaded with ``ctypes``. The library's file name carries a hash of the
+sources and flags, so a source change rebuilds and an unchanged tree
+reuses the library. Libraries build at first use; ``build_all`` starts
+one ``nvcc`` per source at once. A missing compiler or a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+SOURCES = ("paged_attention", "prefill_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process or None, temp path, final path)."""
+    out = library_path(name)
+    if out.exists():
+        return None, None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp: Path, out: Path) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel library at once; returns nvcc's output per source
+    (the ptxas register and shared-memory report; empty when reused)."""
+    started = {name: _start(name) for name in SOURCES}
+    return {name: _finish(name, *started[name]) for name in SOURCES}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        out = library_path(name)
+        if not out.exists():
+            _finish(name, *_start(name))
+        lib = ctypes.CDLL(str(out))
+        lib.npt_error_string.argtypes = [ctypes.c_int]
+        lib.npt_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.npt_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

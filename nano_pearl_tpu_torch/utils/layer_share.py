@@ -1,0 +1,38 @@
+"""The weightless layer-share model pair (counterpart of
+``build_layer_share_pair`` in bench.py).
+
+The draft has ``Ld`` random layers. The target holds the draft's
+embedding, head and layers, followed by ``Lt - Ld`` layers whose output
+projections (``wo``, ``wdown``) are zero, so they pass the residual
+stream through unchanged. At T=0 the two models then propose the same
+tokens, which puts PEARL at its acceptance ceiling.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from nano_pearl_tpu_torch.config import ModelConfig
+from nano_pearl_tpu_torch.models.transformer import init_layers_numpy, init_params_numpy
+
+
+def build_layer_share_pair(mc_draft: ModelConfig, mc_target: ModelConfig, seed: int):
+    """(draft, target) parameter pytrees as f32 numpy arrays in the JAX
+    package's layout, from ``numpy.random.default_rng(seed)``."""
+    ld, lt = mc_draft.num_hidden_layers, mc_target.num_hidden_layers
+    if lt <= ld:
+        raise ValueError(f"target layers {lt} must exceed draft layers {ld}")
+    rng = np.random.default_rng(seed)
+    dp = init_params_numpy(mc_draft, rng)
+    ext = init_layers_numpy(mc_target, rng, lt - ld)
+    layers = {}
+    for k, v in dp["layers"].items():
+        extension = np.zeros_like(ext[k]) if k in ("wo", "wdown") else ext[k]
+        layers[k] = np.concatenate([v, extension], axis=0)
+    tp = {
+        "embed": dp["embed"],
+        "layers": layers,
+        "final_ln": dp["final_ln"],
+        "lm_head": dp["lm_head"],
+    }
+    return dp, tp

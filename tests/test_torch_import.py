@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, and no source file of the port (or chip_smoke.py) imports
+them. tests/conftest.py imports JAX into every test process, so the
+import check runs in a fresh subprocess."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "nano_pearl_tpu_torch"
+
+
+def test_import_loads_no_jax_in_fresh_process():
+    code = (
+        "import json, sys\n"
+        "import nano_pearl_tpu_torch\n"
+        "from nano_pearl_tpu_torch.engine import engine, fused, pearl, runner\n"
+        "from nano_pearl_tpu_torch.ops.cuda import build, paged_attention, prefill_attention\n"
+        "from nano_pearl_tpu_torch.utils import layer_share\n"
+        "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nano_pearl_tpu.'))"
+        " or m == 'nano_pearl_tpu']\n"
+        "print(json.dumps(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_source_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "nano_pearl_tpu"), f"{path.name} imports {mod}"
