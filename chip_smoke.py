@@ -11,20 +11,33 @@ script exits non-zero without its last line):
 2. build: nvcc builds every kernel source under nano_pearl_tpu_torch/csrc
    for sm_90a, one process per source, all at once;
 3. kernels: K1 (paged decode), K2 (packed verify) and K3 (causal prefill)
-   at the main path's shapes against their plain PyTorch versions (bf16,
-   within one rounding of the output to bf16: rtol 8e-3, atol 1e-3),
-   K2's rows against K1 bit for bit, and kernel / plain / library
+   at the main path's shapes (8x128 heads) and at the serving path's
+   (16x64 heads: 128 decode rows, verify chunks of 16 groups x 8 rows,
+   8 prompts in a 128-row bucket), and K4 (prefill over a cached prefix)
+   at the serve pair's prefix hit, a chunked-prefill pass and the bench
+   pair's head width, against their plain PyTorch versions (bf16, within one
+   rounding of the output to bf16: rtol 8e-3, atol 1e-3), K2's rows
+   against K1 bit for bit, and kernel / plain / library
    (scaled_dot_product_attention, a yardstick the port never calls)
    times from CUDA events with the L2 cache flushed before each launch;
-4. exactness: an f32 layer-share pair (2L/6L, B=4, gamma=4) at full width
+4. decode_verify_bitwise: the draft's decode and the target's verify
+   chunk re-score one position at the main path's and the serve pair's
+   shapes (batches below and above one verify chunk's rows); the first
+   op whose outputs differ is printed, and the engine's decode must give
+   bitwise-equal logits;
+5. exactness: an f32 layer-share pair (2L/6L, B=4, gamma=4) at full width
    must give PEARL tokens == AR tokens;
-5. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
+6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
-   prompt 64, greedy: 145 PEARL rounds, then AR over the same window,
-   with every launch counter set to 0 just before and read just after.
+   prompt 64, greedy: 145 PEARL rounds, then AR over the same window;
+7. serving_exactness: the f32 2L/6L serve pair served through serve_step
+   with prefix hits and chunked passes must equal AR;
+8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
+   port's HTTP server, 65 requests of bench_serve.py's traffic.
 
-Then one {"kernels": [...]} line, the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.
+Each path (main path, serving) sets every launch counter to 0 just
+before it and reads them just after. Then one {"kernels": [...]} line,
+the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -113,19 +126,24 @@ def gathered(cache, layer, bt, hkv, d):
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
-def kernel_phase(dev, flush) -> dict:
+def lib_yardstick(fn, layout, want, real=None):
+    """``fn`` (an SDPA call), put in the kernel's layout by ``layout``,
+    checked once against the plain output at LIB_TOL; returns ``fn`` for
+    timing (the layout change is not timed)."""
+    out = layout(fn())
+    if real is not None:
+        out, want = out[real], want[real]
+    torch.testing.assert_close(out.float(), want.float(), **LIB_TOL)
+    return fn
+
+
+def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> dict:
+    """K1 on one decode row per context in ``ctx0``."""
     import torch.nn.functional as F
 
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
-    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
-    gen = torch.Generator(dev).manual_seed(0)
-    hq, hkv, d, layer = 8, 2, 128, 1
-    results = {}
-
-    # K1: B=32 decode rows, contexts spread over 65..2300
-    ctx0 = np.random.default_rng(0).permutation(np.linspace(65, 2300, 32).astype(int))
-    q, cache, bt, ctx, scale = paged_inputs(gen, dev, 32, 1, ctx0)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), 1, ctx0, nb=nb, hq=hq, hkv=hkv, d=d)
     args = (q, cache, layer, bt, ctx, scale)
     got, want = kpa.paged_decode(*args), kpa.plain_decode(*args)
     torch.cuda.synchronize()
@@ -135,24 +153,33 @@ def kernel_phase(dev, flush) -> dict:
     k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
     mask = (torch.arange(k.shape[2], device=dev)[None, :] < ctx[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib = lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, scale=scale)  # noqa: E731
-    torch.testing.assert_close(lib()[:, :, 0].float(), want.float(), **LIB_TOL)
+    lib = lib_yardstick(
+        lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, scale=scale),
+        lambda o: o[:, :, 0], want,
+    )
     sum_ctx = float(ctx.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + sum_ctx * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * sum_ctx * hq * d)
-    results["paged_decode"] = dict(
-        name="paged_decode", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
+    return dict(
+        name=name, kernel="paged_decode", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
         replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:389",
         max_abs_err=err, ms=time_ms(lambda: kpa.paged_decode(*args), 50, flush),
         plain_ms=time_ms(lambda: kpa.plain_decode(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
-        shape=dict(rows=32, hq=hq, hkv=hkv, d=d, block=256, ctx_min=int(ctx.min()), ctx_max=int(ctx.max())),
+        shape=dict(rows=len(ctx0), hq=hq, hkv=hkv, d=d, block=256, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
     )
 
-    # K2: one verify chunk, 16 groups x 14 staircase rows
-    rows = 14
-    ctx0 = np.random.default_rng(1).permutation(np.linspace(65, 2300, 16).astype(int))
-    q, cache, bt, ctx, scale = paged_inputs(gen, dev, 16, rows, ctx0)
+
+def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
+    """K2 on one verify chunk: a group of ``rows`` staircase rows per
+    context in ``ctx0``; its rows must equal K1's bit for bit."""
+    import torch.nn.functional as F
+
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    groups = len(ctx0)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d)
     args = (q, cache, layer, bt, ctx, scale, rows)
     got, want = kpa.paged_verify(*args), kpa.plain_verify(*args)
     torch.cuda.synchronize()
@@ -160,29 +187,37 @@ def kernel_phase(dev, flush) -> dict:
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     single = kpa.paged_decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
     if not torch.equal(single, got):
-        raise AssertionError("K2 rows differ from K1 on the same query and context")
+        raise AssertionError(f"{name}: K2 rows differ from K1 on the same query and context")
     k, v = gathered(cache, layer, bt, hkv, d)
     k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
-    qg = q.reshape(16, rows, hq, d).transpose(1, 2)
-    cr = ctx.reshape(16, rows)
+    qg = q.reshape(groups, rows, hq, d).transpose(1, 2)
+    cr = ctx.reshape(groups, rows)
     mask = (torch.arange(k.shape[2], device=dev)[None, None, :] < cr[:, :, None])[:, None]
-    lib = lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale)  # noqa: E731
-    torch.testing.assert_close(lib().transpose(1, 2).reshape(-1, hq, d).float(), want.float(), **LIB_TOL)
+    lib = lib_yardstick(
+        lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale),
+        lambda o: o.transpose(1, 2).reshape(-1, hq, d), want,
+    )
     kv_tokens = float(cr.max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    results["paged_verify"] = dict(
-        name="paged_verify", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
+    return dict(
+        name=name, kernel="paged_verify", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
         replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:510",
         max_abs_err=err, ms=time_ms(lambda: kpa.paged_verify(*args), 50, flush),
         plain_ms=time_ms(lambda: kpa.plain_verify(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
         k2_row_equals_k1=True,
-        shape=dict(groups=16, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()), ctx_max=int(ctx.max())),
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
     )
 
-    # K3: the prefill of B=32 prompts of 64 tokens in the 128-row bucket
-    b, lq, n = 32, 128, 64
+
+def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
+    """K3 on ``b`` prompts of ``n`` tokens in an ``lq``-row bucket."""
+    import torch.nn.functional as F
+
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
     q = torch.randn((b * lq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -195,26 +230,128 @@ def kernel_phase(dev, flush) -> dict:
     err = (got[real].float() - want[real].float()).abs().max().item()
     torch.testing.assert_close(got[real].float(), want[real].float(), **TOL)
     if not bool((got[~real] == 0).all()):
-        raise AssertionError("K3: fully masked rows must give 0")
+        raise AssertionError(f"{name}: fully masked rows must give 0")
     qs = q.reshape(b, lq, hq, d).transpose(1, 2)
     ks = k.reshape(b, lq, hkv, d).transpose(1, 2).repeat_interleave(hq // hkv, 1)
     vs = v.reshape(b, lq, hkv, d).transpose(1, 2).repeat_interleave(hq // hkv, 1)
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d**-0.5)  # noqa: E731
-    lib_out = lib().transpose(1, 2).reshape(b * lq, hq, d)
-    torch.testing.assert_close(lib_out[real].float(), want[real].float(), **LIB_TOL)
+    lib = lib_yardstick(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d**-0.5),
+        lambda o: o.transpose(1, 2).reshape(b * lq, hq, d), want, real,
+    )
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + pos.numel() * 4
     b_ms, b_by = bound(nbytes, 4.0 * hq * d * b * n * (n + 1) / 2)
-    results["prefill_self"] = dict(
-        name="prefill_self", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
+    return dict(
+        name=name, kernel="prefill_self", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
         replaces="nano_pearl_tpu/ops/pallas/prefill_attention.py:43",
         max_abs_err=err, ms=time_ms(lambda: kpf.prefill_self(*args), 50, flush),
         plain_ms=time_ms(lambda: kpf.plain_prefill(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
         shape=dict(batch=b, rows=lq, real_rows=n, hq=hq, hkv=hkv, d=d),
     )
-    for r in results.values():
+
+
+def kernel_phase(dev, flush) -> list[dict]:
+    """Every kernel at the shapes each path gives it, first the row that
+    stands for it in the kernels line: K1-K3 at the main path's (bench
+    pair, 8x128 heads) and at the serving path's (serve pair, 16x64
+    heads), K4 at the serving path's prefix hit, a chunked pass and the
+    bench pair's heads."""
+    gen = torch.Generator(dev).manual_seed(0)
+    spread = lambda n, hi, seed: np.random.default_rng(seed).permutation(  # noqa: E731
+        np.linspace(65, hi, n).astype(int))
+    rows = [
+        # main path: B=32 decode rows; one verify chunk of 16 groups x 14
+        # rows; the prefill of 32 prompts of 64 tokens in the 128-row bucket
+        decode_row(gen, dev, flush, "paged_decode", spread(32, 2300, 0), hq=8, d=128),
+        verify_row(gen, dev, flush, "paged_verify", spread(16, 2300, 1), 14, hq=8, d=128),
+        prefill_row(gen, dev, flush, "prefill_self", 32, 128, 64, hq=8, d=128),
+        # serving path: the gamma-scan's 128-row decode calls, a verify
+        # chunk of 16 groups x 8 rows, contexts up to the 3,000-token
+        # prompt's; 8 fresh prompts of 64 tokens in the 128-row bucket
+        decode_row(gen, dev, flush, "paged_decode_serve", spread(128, 3200, 2), hq=16, d=64, nb=1100),
+        verify_row(gen, dev, flush, "paged_verify_serve", spread(16, 3200, 3), 8, hq=16, d=64),
+        prefill_row(gen, dev, flush, "prefill_self_serve", 8, 128, 64, hq=16, d=64),
+        *prefix_kernel_rows(gen, dev, flush),
+    ]
+    for r in rows:
         emit({"phase": "kernel", **r})
-    return results
+    return rows
+
+
+def prefix_inputs(gen, dev, b, n_cached, lq, n_new, hq, hkv, d, nl=3, nb=64, bs=256):
+    """K4's arguments: a random bf16 cache, each sequence's prefix on its
+    own pages (the table padded with the garbage block to a power of two,
+    as the runner pads it), and q/k/v of ``lq`` bucket rows of which the
+    first ``n_new`` are real."""
+    cache = torch.randn((nl, 2, nb + 1, bs, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
+    pages = -(-n_cached // bs)
+    mpre = 1 << max(0, (pages - 1).bit_length())
+    perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    bt = torch.full((b, mpre), nb, dtype=torch.int32, device=dev)
+    for i in range(b):
+        bt[i, :pages] = perm[i * pages : (i + 1) * pages]
+    q = torch.randn((b * lq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    nc = torch.full((b,), n_cached, dtype=torch.int32, device=dev)
+    nn = torch.full((b,), n_new, dtype=torch.int32, device=dev)
+    return q, k, v, cache, nl - 1, bt, nc, nn, d**-0.5
+
+
+def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
+    """K4 at the serve pair's prefix hit (8 x 512 cached + 64 new rows in
+    the 128-row bucket, 16x64 heads), at a chunked-prefill pass (1 x 2048
+    cached + 1024 new) and at the bench pair's 8x128 heads."""
+    import torch.nn.functional as F
+
+    from nano_pearl_tpu_torch.ops.attention import _gather_kv
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
+    cases = {
+        "prefill_prefix": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=2, d=64),
+        "prefill_prefix_chunked_pass": dict(b=1, n_cached=2048, lq=1024, n_new=1024, hq=16, hkv=2, d=64),
+        "prefill_prefix_d128": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=128),
+    }
+    rows = []
+    for name, c in cases.items():
+        args = prefix_inputs(gen, dev, **c)
+        q, k, v, cache, layer, bt, nc, nn, scale = args
+        got, want = kpf.prefill_prefix(*args), kpf.plain_prefix(*args)
+        torch.cuda.synchronize()
+        b, lq, hq, hkv, d = c["b"], c["lq"], c["hq"], c["hkv"], c["d"]
+        real = (torch.arange(lq, device=dev)[None, :] < nn[:, None]).reshape(-1)
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        if not bool((got[~real] == 0).all()):
+            raise AssertionError(f"K4 {name}: padded rows must give 0")
+        # yardstick: SDPA over the gathered prefix + fresh K/V, explicit mask
+        pk, pv = _gather_kv(cache, layer, bt, d)  # [B, S_pre, Hkv, D]
+        keys = torch.cat([pk, k.reshape(b, lq, hkv, d)], 1).transpose(1, 2).repeat_interleave(hq // hkv, 1)
+        vals = torch.cat([pv, v.reshape(b, lq, hkv, d)], 1).transpose(1, 2).repeat_interleave(hq // hkv, 1)
+        i = torch.arange(lq, device=dev)
+        s = torch.arange(pk.shape[1], device=dev)
+        rr = i[None, :, None] < nn[:, None, None]
+        mask = torch.cat([rr & (s[None, None, :] < nc[:, None, None]),
+                          rr & (i[None, None, :] <= i[None, :, None])], dim=2)[:, None]
+        qs = q.reshape(b, lq, hq, d).transpose(1, 2)
+        lib = lib_yardstick(
+            lambda: F.scaled_dot_product_attention(qs, keys, vals, attn_mask=mask, scale=scale),  # noqa: B023
+            lambda o: o.transpose(1, 2).reshape(b * lq, hq, d), want, real,  # noqa: B023
+        )
+        n_real, n_c = float(nn.sum()), float(nc.sum())
+        nbytes = (n_real * (hq + 2 * hkv) * d + n_c * 2 * hkv * d + b * lq * hq * d) * 2 \
+            + bt.numel() * 4 + 2 * b * 4
+        flops = 4.0 * hq * d * float((nn * nc + nn * (nn + 1) // 2).sum())
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            name=name, kernel="prefill_prefix", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
+            replaces="nano_pearl_tpu/ops/pallas/prefill_attention.py:259",
+            max_abs_err=err, ms=time_ms(lambda: kpf.prefill_prefix(*args), 20, flush),  # noqa: B023
+            plain_ms=time_ms(lambda: kpf.plain_prefix(*args), 5, flush),  # noqa: B023
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20, flush),
+            shape=c,
+        ))
+    return rows
 
 
 # ------------------------------------------------------------- engine runs
@@ -255,6 +392,192 @@ def add_requests(engine, rng, batch, prompt_len, max_tokens):
         engine.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
 
 
+def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_layers: int):
+    """``models.transformer.forward`` + ``compute_logits`` op by op, keeping
+    the output of every op of the first ``trace_layers`` layers, the final
+    norm and the logits as (name, tensor). The caller checks that it
+    reproduces the real forward bit for bit."""
+    import torch.nn.functional as F
+
+    from nano_pearl_tpu_torch.models.transformer import compute_logits, rms_norm
+    from nano_pearl_tpu_torch.ops.kv_cache import write_kv
+    from nano_pearl_tpu_torch.ops.rope import apply_rope
+
+    cfg, p, lay = runner.cfg, runner.params, runner.params["layers"]
+    d, hq, hkv, eps = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.rms_norm_eps
+    ops = []
+    x = p["embed"][tokens.long()]
+    rope_rows = runner.rope_table[torch.clamp(positions.long(), max=runner.rope_table.shape[0] - 1)]
+    res = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for li in range(lay["wq"].shape[0]):
+        rec = (lambda name, t: ops.append((f"layer{li}.{name}", t))) if li < trace_layers \
+            else (lambda name, t: None)
+        res2 = x.float() + res
+        rec("residual_add", res2)
+        h1 = rms_norm(res2, lay["input_ln"][li], eps, out_dtype=x.dtype)
+        rec("input_rms_norm", h1)
+        q, k, v = h1 @ lay["wq"][li], h1 @ lay["wk"][li], h1 @ lay["wv"][li]
+        rec("q_gemm", q), rec("k_gemm", k), rec("v_gemm", v)
+        q = apply_rope(q.reshape(-1, hq, d), rope_rows)
+        k = apply_rope(k.reshape(-1, hkv, d), rope_rows)
+        rec("q_rope", q), rec("k_rope", k)
+        write_kv(runner.kv, k, v.reshape(-1, hkv, d), slots, li)
+        o = attn_fn(q, runner.kv, li, *attn_args)
+        rec("attention", o)
+        attn_out = o.reshape(-1, hq * d) @ lay["wo"][li]
+        rec("o_gemm", attn_out)
+        res3 = attn_out.float() + res2
+        rec("attn_residual_add", res3)
+        h2 = rms_norm(res3, lay["post_ln"][li], eps, out_dtype=x.dtype)
+        rec("post_rms_norm", h2)
+        gate, up = h2 @ lay["wgate"][li], h2 @ lay["wup"][li]
+        rec("gate_gemm", gate), rec("up_gemm", up)
+        act = F.silu(gate.float()).to(x.dtype) * up
+        rec("silu_mul", act)
+        x = act @ lay["wdown"][li]
+        rec("down_gemm", x)
+        res = res3
+    hidden = rms_norm(x.float() + res, p["final_ln"], eps, out_dtype=x.dtype)
+    ops.append(("final_rms_norm", hidden))
+    logits = compute_logits(cfg, p, hidden)
+    ops.append(("lm_head", logits))
+    return ops
+
+
+def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> dict:
+    """One PEARL round re-scored op by op: the draft's gamma decode steps
+    from each sequence's last committed token, then the target's packed
+    verify of the same window (its tokens teacher-forced from the draft's
+    picks). Decode step j of sequence g and verify row g * gamma + j see
+    the same token, position and context, so every op of the first 3
+    layers and the logits should agree bit for bit. Probes the decode
+    unpadded (one call over the batch's rows) and as engine/fused.py runs
+    it (``decode_chunking``: calls of one verify chunk's rows); returns,
+    per variant, the first op whose outputs differ and the (sequence,
+    step) pairs whose logits differ. With ``system_len`` every prompt
+    starts with one shared prefix of that many tokens, which all but the
+    first request read from the prefix cache (kernel K4), and contexts
+    span several key chunks of K1/K2."""
+    from nano_pearl_tpu_torch.engine.fused import _row_slots
+    from nano_pearl_tpu_torch.ops.attention import paged_attention, paged_attention_grouped
+    from nano_pearl_tpu_torch.ops.sampling import greedy
+
+    from nano_pearl_tpu_torch import SamplingParams
+
+    rng = np.random.default_rng(batch + gamma + system_len)
+    system = rng.integers(2, 32767, system_len).tolist()
+    for _ in range(batch):
+        engine.add_request(system + rng.integers(2, 32767, 64).tolist(),
+                           SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True))
+    orch = engine.orchestrator
+    orch.prefill_all()
+    seqs = engine.scheduler.schedule_decode(lookahead=2 * gamma + 2)
+    state = orch._build_fused_state(seqs)
+    dr, tr = engine.draft, engine.target
+    bs = tr.block_size
+    length, tokens, b_pad = state["length"], state["tokens"], state["length"].shape[0]
+    last = torch.gather(tokens, 1, (length - 1)[:, None].long())[:, 0]
+    dev = length.device
+    n_draft = dr.cfg.num_hidden_layers  # the target's first layers are the draft's
+
+    def gamma_scan(calls, rows):
+        """Traced decode steps in ``calls`` calls of ``rows`` rows (padding
+        as _draft_gamma)."""
+        pad = calls * rows - b_pad
+        z = torch.zeros(pad, dtype=torch.int32, device=dev)
+        bt = torch.cat([state["bt_d"], torch.full((pad, state["bt_d"].shape[1]), dr.garbage_block,
+                                                  dtype=torch.int32, device=dev)])
+        tok, pos, ctx = torch.cat([last, z]), torch.cat([length - 1, z]), torch.cat([length, z + 1])
+        steps, picks = [], []
+        for _ in range(gamma):
+            sl = _row_slots(bt, pos[:, None], bs)[:, 0]
+            per_call, logits = [], []
+            for c in range(calls):
+                t, p, s_, b_, c_ = (x[c * rows : (c + 1) * rows] for x in (tok, pos, sl, bt, ctx))
+                logits.append(dr.decode_step(t, p, s_, b_, c_))
+                per_call.append(traced_forward(dr, t, p, s_, paged_attention, (b_, c_, dr.scale), n_draft))
+                if not torch.equal(per_call[-1][-1][1], logits[-1]):
+                    raise AssertionError("the traced decode does not reproduce the real one")
+            steps.append([(name, torch.cat([ops[i][1] for ops in per_call]))
+                          for i, (name, _) in enumerate(per_call[0])])
+            tok = greedy(torch.cat(logits))
+            picks.append(tok[:b_pad])
+            pos, ctx = pos + 1, ctx + 1
+        return steps, torch.stack(picks, 1)
+
+    engine_chunking = orch.fused.decode_chunking(b_pad, gamma)
+    variants = {}
+    for variant, (calls, rows) in (("unpadded", (1, b_pad)), ("engine", engine_chunking)):
+        if variant == "engine" and (calls, rows) == (1, b_pad):
+            variants[variant] = variants["unpadded"]
+            continue
+        steps, picks = gamma_scan(calls, rows)
+        # the target's verify of this window, the draft's picks as its tokens
+        j = torch.arange(gamma, dtype=torch.int32, device=dev)[None, :]
+        vt = torch.cat([last[:, None], picks[:, :-1]], 1)
+        vp = length[:, None] - 1 + j
+        vs = _row_slots(state["bt_t"], vp, bs)
+        flat = [x.reshape(-1).contiguous() for x in (vt, vp, vs, vp + 1)]
+        want = tr.packed_verify_forward(flat[0], flat[1], flat[2], state["bt_t"], flat[3], gamma)
+        per_chunk = [
+            traced_forward(tr, t, p, sl, paged_attention_grouped, (bt, c, tr.scale, gamma), n_draft)
+            for t, p, sl, bt, c in tr.verify_chunks(*flat[:3], state["bt_t"], flat[3], gamma)
+        ]
+        v_ops = [(name, torch.cat([ch[i][1] for ch in per_chunk])[: b_pad * gamma])
+                 for i, (name, _) in enumerate(per_chunk[0])]
+        if not torch.equal(v_ops[-1][1], want):
+            raise AssertionError("the traced verify does not reproduce the real one")
+        first, diff_there = None, 0.0
+        for i, (name, v) in enumerate(v_ops):
+            a = torch.stack([st[i][1][:batch] for st in steps], 1)  # [B, gamma, ...]
+            b = v.reshape(b_pad, gamma, *v.shape[1:])[:batch]
+            if first is None and not torch.equal(a, b):
+                first, diff_there = name, (a.float() - b.float()).abs().max().item()
+        a = torch.stack([st[-1][1][:batch] for st in steps], 1)
+        b = v_ops[-1][1].reshape(b_pad, gamma, -1)[:batch]
+        variants[variant] = {
+            "decode_calls": calls, "decode_rows_per_call": rows,
+            "first_differing_op": first, "max_abs_diff_there": diff_there,
+            "logits_bitwise_equal": first is None,
+            "logit_rows_differing": int((a != b).any(-1).sum()),
+            "argmax_differing": int((a.argmax(-1) != b.argmax(-1)).sum()),
+        }
+    engine.scheduler.clear()
+    return {"batch": batch, "batch_bucket": b_pad, "gamma": gamma, "system_prefix": system_len,
+            "verify_chunk_rows": tr.verify_chunk_rows(b_pad, gamma), "variants": variants}
+
+
+def decode_verify_bitwise_phase(dev) -> None:
+    """Guard of the layer-share pair's acceptance ceiling: at the main
+    path's shapes (bf16 3L/36L bench pair, B=32, gamma=14) and at the
+    serve pair's (16x64 heads, gamma=8, B = 8, 16, 32, 16 behind one
+    512-token cached prefix, and 136 in the 256-row bucket, past one
+    128-row verify chunk), the engine's decode must give logits bitwise
+    equal to the verify's."""
+    from nano_pearl_tpu_torch import PearlConfig, PearlEngine, serve
+    from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
+
+    probes = []
+    engine = pair_engine(3, 36, "bfloat16", 32, 14, 4, 64, dev)
+    probes.append({"pair": "bench 3L/36L, 8x128 q heads", **probe_decode_verify(engine, 32, 14)})
+    del engine
+    args = serve_args()
+    md, mt = serve.layer_share_models(args)
+    dp, tp = build_layer_share_pair(md, mt, args.seed)
+    cfg = PearlConfig(draft_model=md, target_model=mt, max_model_len=args.max_model_len,
+                      gamma=args.gamma, num_kvcache_blocks=200, dtype=md.dtype)
+    engine = PearlEngine(cfg, dp, tp, device=dev)
+    for batch, system_len in ((8, 0), (16, 0), (32, 0), (16, 512), (136, 0)):
+        probes.append({"pair": "serve 3L/36L, 16x64 q heads",
+                       **probe_decode_verify(engine, batch, args.gamma, system_len)})
+    del engine, dp, tp
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_verify_bitwise", "dtype": "bfloat16", "probes": probes})
+    bad = [p for p in probes if not p["variants"]["engine"]["logits_bitwise_equal"]]
+    if bad:
+        raise AssertionError(f"decode and verify logits differ at the engine's shapes: {bad}")
+
+
 def exactness_phase(dev) -> None:
     """f32 layer-share pair: the PEARL stream must equal the AR stream."""
     batch, gamma, prompt_len = 4, 4, 64
@@ -278,11 +601,7 @@ def exactness_phase(dev) -> None:
 
 
 def main_path_phase(dev, steps: int = 145) -> dict:
-    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
-    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
-
-    counters = {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
-                "prefill_self": kpf.prefill_self}
+    counters = kernel_counters()
     batch, gamma, prompt_len = 32, 14, 64
     ar_max_tokens = steps * (gamma + 1)
     ar_steps = ar_max_tokens - 1  # prefill commits one token per sequence
@@ -322,10 +641,8 @@ def main_path_phase(dev, steps: int = 145) -> dict:
         next((j for j, (x, y) in enumerate(zip(p, a)) if x != y), min(len(p), len(a)))
         for p, a in zip(pearl_toks, ar_toks)
     ]
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in ("paged_decode", "paged_verify", "prefill_self")):
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-    if not mat > 1:
-        raise AssertionError(f"MAT {mat} <= 1")
     out = {
         "phase": "main_path",
         "config": "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, "
@@ -342,6 +659,231 @@ def main_path_phase(dev, steps: int = 145) -> dict:
         "cuda_peak_memory_gib": peak / 2**30,
     }
     emit(out)
+    if mat != gamma:  # the layer-share ceiling: the draft's decode and the verify round alike
+        raise AssertionError(f"MAT {mat} below the layer-share ceiling {gamma}")
+    return launches
+
+
+def kernel_counters() -> dict:
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
+    return {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
+            "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix}
+
+
+def serve_args(*extra: str):
+    """The port's server's arguments for the layer-share serve pair."""
+    from nano_pearl_tpu_torch import serve
+
+    return serve.parse_args(["--layer-share", "--gamma", "8", "--fused-rounds", "4", *extra])
+
+
+def serving_exactness_phase(dev) -> None:
+    """f32 cut of the serve pair (2L/6L, 16x64 heads, full width) served
+    through serve_step: 8 requests in two waves, half behind one shared
+    512-token prefix, and one 1,500-token prompt under a 512-token prefill
+    budget (chunked passes). Every served completion must equal the AR
+    output of the same prompt; K4 must have run and the prefix cache hit."""
+    import dataclasses
+
+    from nano_pearl_tpu_torch import PearlConfig, PearlEngine, SamplingParams, serve
+    from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
+
+    args = serve_args("--draft-layers", "2", "--target-layers", "6")
+    md, mt = (dataclasses.replace(m, dtype="float32") for m in serve.layer_share_models(args))
+    dp, tp = build_layer_share_pair(md, mt, seed=0)
+    cfg = PearlConfig(
+        draft_model=md, target_model=mt, max_model_len=args.max_model_len, gamma=args.gamma,
+        max_num_batched_tokens=512, num_kvcache_blocks=96, max_num_seqs=32, dtype="float32",
+    )
+    engine = PearlEngine(cfg, dp, tp, device=dev)
+    rng = np.random.default_rng(5)
+    system = rng.integers(2, 32767, 512).tolist()
+    prompts = [(system if i % 2 == 0 else []) + rng.integers(2, 32767, 64).tolist() for i in range(8)]
+    prompts.append(rng.integers(2, 32767, 1500).tolist())
+    params = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    k4 = kernel_counters()["prefill_prefix"]
+    k4_before = k4.launches
+    ids, served = [], {}
+    for wave in (prompts[:4], prompts[4:]):
+        ids += [engine.submit(p, params) for p in wave]
+        for _ in range(2):  # the second wave joins a running batch
+            served.update({sid: toks for sid, toks, _ in engine.serve_step(4)})
+    while engine.has_work:
+        served.update({sid: toks for sid, toks, _ in engine.serve_step(4)})
+    stats = engine.stats()
+    k4_launches = k4.launches - k4_before
+    for p in prompts:
+        engine.add_request(p, params)
+    ar, _, _, _ = engine.AR_generate_token_ids()
+    # PEARL commits whole windows, so its last one may run up to gamma - 1
+    # tokens past max_tokens (as in the JAX package); AR stops at max_tokens
+    bad = [i for i, sid in enumerate(ids)
+           if len(ar[i]) != params.max_tokens or served[sid][: len(ar[i])] != ar[i]]
+    if bad:
+        raise AssertionError(f"served != AR for requests {bad}")
+    if not (k4_launches > 0 and stats["prefix_hit_tokens"] > 0 and stats["chunked_prefill_passes"] > 0):
+        raise AssertionError(f"K4 {k4_launches}, stats {stats}: no prefix hit or chunked pass")
+    emit({"phase": "serving_exactness", "served_equals_ar": True, "requests": len(ids),
+          "tokens_each": 32, "prefill_prefix_launches": k4_launches,
+          "prefix_hit_tokens": stats["prefix_hit_tokens"],
+          "chunked_prefill_passes": stats["chunked_prefill_passes"],
+          "config": "f32 serve pair 2L/6L, 16x64 q heads, 2 kv heads, gamma=8, "
+                    "max_num_batched_tokens=512, two waves through serve_step"})
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _post(port: int, path: str, payload: dict, timeout: float = 600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def serving_phase(dev) -> dict:
+    """The bf16 3L/36L serve pair behind the port's HTTP server on
+    127.0.0.1, in this process, with bench_serve.py's traffic: 64 requests
+    of 64 own tokens arriving as a seeded Poisson process at 8 req/s, half
+    behind one shared 512-token system prefix, max_tokens 128, gamma 8, 4
+    fused rounds, max_num_seqs 32; 4 of them stream; one more request is
+    cancelled mid-flight and one 3,000-token prompt runs as chunked passes
+    under max_num_batched_tokens=2048. Both KV pools are sized from the
+    card's free memory (num_kvcache_blocks=-1). Returns the launch counts."""
+    import gc
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from nano_pearl_tpu_torch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve_args()
+    t0 = time.perf_counter()
+    engine = serve.build_engine(args, max_num_seqs=32, max_num_batched_tokens=2048)
+    engine.warmup(batches=(1, 8, 32))
+    build_s = time.perf_counter() - t0
+    if engine.draft.num_blocks != engine.target.num_blocks:
+        raise AssertionError("the two KV pools of a shared card must hold equal block counts")
+    free0 = (engine.scheduler.draft_bm.num_free_blocks, engine.scheduler.target_bm.num_free_blocks)
+    server = serve.PearlServer(engine, fused_rounds=args.fused_rounds)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
+    port = httpd.server_address[1]
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+
+    rng = np.random.default_rng(0)
+    system = rng.integers(2, 32767, 512).tolist()
+    n_req = 64
+    prompts = [(system if i % 2 else []) + rng.integers(2, 32767, 64).tolist() for i in range(n_req)]
+    arrivals = np.cumsum(rng.exponential(1.0 / 8.0, n_req))
+    streaming = {3, 17, 31, 45}
+    long_prompt = rng.integers(2, 32767, 3000).tolist()
+    results, streams, errors = {}, {}, []
+
+    def request(i, prompt, start):
+        time.sleep(max(0.0, start - (time.perf_counter() - t_traffic)))
+        body = {"prompt": prompt, "max_tokens": 128, "temperature": 0.0, "ignore_eos": True}
+        try:
+            if i in streaming:
+                chunks, final = [], None
+                with _post(port, "/generate", {**body, "stream": True}) as r:
+                    for raw in r:
+                        rec = json.loads(raw)
+                        if rec.get("done"):
+                            final = rec
+                        elif "token_ids" in rec:
+                            chunks += rec["token_ids"]
+                streams[i] = chunks
+                results[i] = final
+            else:
+                with _post(port, "/generate", body) as r:
+                    results[i] = json.loads(r.read())
+        except Exception as e:  # reported by the assertion below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t_traffic = time.perf_counter()
+    threads = [threading.Thread(target=request, args=(i, p, a)) for i, (p, a) in
+               enumerate(zip(prompts, arrivals))]
+    threads.append(threading.Thread(target=request, args=("long", long_prompt, 1.0)))
+    for t in threads:
+        t.start()
+    # one request cancelled mid-flight
+    with _post(port, "/generate", {"prompt": prompts[0][:32], "max_tokens": 2048, "temperature": 0.0,
+                                    "ignore_eos": True, "blocking": False}) as r:
+        rid = json.loads(r.read())["request_id"]
+    time.sleep(2.0)
+    with _post(port, "/cancel", {"request_id": rid}) as r:
+        cancelled = json.loads(r.read())["cancelled"]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/result?request_id={rid}", timeout=60) as r:
+        cancel_result = json.loads(r.read())
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t_traffic
+    launches = {k: fn.launches for k, fn in counters.items()}
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+        health = json.loads(r.read())
+    httpd.shutdown()
+    httpd.server_close()
+    server.stop()
+    http_thread.join(timeout=30)
+
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"requests failed or hung: {errors[:5]}")
+    if not (cancelled and cancel_result.get("cancelled")):
+        raise AssertionError(f"the mid-flight cancel failed: {cancelled}, {cancel_result}")
+    # PEARL's finish test counts the window not verified yet: its last
+    # window may commit up to gamma - 1 tokens past max_tokens, or, after a
+    # late rejection, stop up to gamma - 1 short of it (as the JAX package)
+    g = args.gamma
+    answered = [r for r in results.values() if r and 128 - g < r.get("num_tokens", 0) < 128 + g]
+    if len(answered) != n_req + 1:
+        got = sorted(r.get("num_tokens") if r else None for r in results.values())
+        raise AssertionError(f"{len(answered)} of {n_req + 1} requests answered in full: {got}")
+    for i, chunks in streams.items():
+        if chunks != results[i]["token_ids"]:
+            raise AssertionError(f"stream {i}: chunks do not concatenate to the final tokens")
+    free1 = (health["draft_free_blocks"], health["target_free_blocks"])
+    if free1 != free0:
+        raise AssertionError(f"free KV blocks {free1} after serving, {free0} before")
+    if not (launches["prefill_prefix"] > 0 and health["chunked_prefill_passes"] > 0):
+        raise AssertionError(f"no K4 launch or no chunked pass: {launches}, {health}")
+    tokens = sum(r["num_tokens"] for r in answered)
+    out = {
+        "phase": "serving",
+        "config": "bf16 serve pair 3L/36L, hidden 1024, ffn 4096, 16x64 q heads, 2 kv heads, "
+                  "vocab 32768, gamma 8, 4 fused rounds, ceiling profile, greedy; settings beside "
+                  "serve.py's defaults: max_num_seqs 32, max_num_batched_tokens 2048",
+        "traffic": "64 requests x (64 own tokens, half behind one 512-token prefix), Poisson 8 req/s "
+                   "(seed 0), max_tokens 128, 4 streaming, 1 cancelled, 1 x 3000-token prompt",
+        "completed_requests": len(answered), "committed_tokens": tokens, "wall_s": wall,
+        # a request whose every round accepted has one accepted-token emit
+        # (mat ~ its length); a rejection splits it into several
+        "requests_with_a_rejection": sorted(
+            (str(i) for i, r in results.items() if r and r["mat"] < 64),
+        ),
+        "committed_tok_s": tokens / wall,
+        **{k: health.get(k) for k in ("mat", "ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+                                      "e2e_p50_s", "e2e_p95_s", "prefix_hit_tokens",
+                                      "chunked_prefill_passes")},
+        "prefill_prefix_launches": launches["prefill_prefix"], "launches": launches,
+        "kv_blocks_each_pool": engine.target.num_blocks, "engine_build_and_warmup_s": build_s,
+        "cancelled_mid_flight": True, "streams_concatenate": True, "free_blocks_restored": True,
+    }
+    emit(out)
+    if health["mat"] != args.gamma:  # after the line above, which names the requests
+        raise AssertionError(f"serving MAT {health['mat']} below the layer-share ceiling {args.gamma}")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -371,14 +913,23 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     kernels = kernel_phase(dev, flush)
     del flush
+    decode_verify_bitwise_phase(dev)
     exactness_phase(dev)
-    launches = main_path_phase(dev)
+    by_path = {"main_path": main_path_phase(dev)}
+    serving_exactness_phase(dev)
+    by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for name, r in kernels.items():
-        r["launches"] = launches[name]
-    emit({"kernels": [{k: r[k] for k in keys} for r in kernels.values()]})
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = []
+    for name in kernel_counters():  # one row per kernel; its other shapes beside it
+        first, *others = [r for r in kernels if r["kernel"] == name]
+        first["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
+        first["launches"] = sum(first["launches_by_path"].values())
+        line.append({**{k: first[k] for k in keys},
+                     "other_shapes": [{k: r[k] for k in shape_keys} for r in others]})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

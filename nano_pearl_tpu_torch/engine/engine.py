@@ -7,16 +7,27 @@
     ... = engine.AR_generate_token_ids()
     ... = engine.bench_generate(num_pearl_steps=100)
 
-The port runs the fused path on one device: draft and target share it.
-Its entry points run on CUDA unless the caller asks for the CPU; with no
-CUDA device and no explicit ``device="cpu"`` the engine raises.
+    # continuous serving (nano_pearl_tpu_torch/serve.py drives these)
+    seq_id = engine.submit(token_ids, SamplingParams(...))
+    done, deltas = engine.serve_step(fused_rounds=4, with_deltas=True)
+    engine.cancel(seq_id); engine.stats()
+
+The port runs the fused path on one device: draft and target share it,
+and with ``num_kvcache_blocks=-1`` their KV pools are sized together
+from one budget. Its entry points run on CUDA unless the caller asks
+for the CPU; with no CUDA device and no explicit ``device="cpu"`` the
+engine raises.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
+
 import torch
 
 from nano_pearl_tpu_torch.config import PearlConfig, SamplingParams
+from nano_pearl_tpu_torch.engine import runner as runner_mod
 from nano_pearl_tpu_torch.engine.pearl import PearlOrchestrator
 from nano_pearl_tpu_torch.engine.runner import GroupRunner
 from nano_pearl_tpu_torch.engine.scheduler import Scheduler
@@ -49,7 +60,6 @@ def _check_config(config: PearlConfig) -> None:
         "execution_mode='overlap'": config.execution_mode == "overlap",
         "acceptance-adaptive gamma (gamma=-1)": config.gamma <= 0,
         "the 'throughput' perf profile": config.perf_profile != "ceiling",
-        "engine warmup": bool(config.warmup),
         "an explicit device list": config.devices is not None,
     }
     missing = [k for k, v in unsupported.items() if v]
@@ -79,11 +89,26 @@ class PearlEngine:
             config, config.target_config, self.device, name="target",
             params=target_params, seed=config.seed + 1,
         )
+        if self.draft.kv is None:
+            # both caches from one budget, measured with both models' weights
+            # on the device: the pools share the card
+            budget = runner_mod.device_kv_budget(self.device, config.hbm_utilization)
+            num = runner_mod.kv_num_blocks(
+                config, [self.draft.block_bytes, self.target.block_bytes], budget
+            )
+            self.draft.allocate_kv(num)
+            self.target.allocate_kv(num)
         self.scheduler = Scheduler(config, self.draft.num_blocks, self.target.num_blocks)
         self.generator = torch.Generator(self.device).manual_seed(config.seed)
         self.orchestrator = PearlOrchestrator(
             config, self.draft, self.target, self.scheduler, self.generator
         )
+        self._completed_requests = 0
+        self._completed_tokens = 0
+        self._completed_rounds = 0
+        self._lat = deque(maxlen=512)  # recent completions' (ttft, tpot, e2e)
+        if config.warmup:
+            self.warmup(batches=config.warmup if isinstance(config.warmup, tuple) else (1,))
         logger.info(f"PearlEngine ready on {self.device}.", color="green")
 
     def add_request(self, prompt, sampling_params: SamplingParams | None = None) -> int:
@@ -96,6 +121,7 @@ class PearlEngine:
         if len(prompt) + sampling_params.max_tokens > self.config.max_model_len:
             raise ValueError("prompt + max_tokens exceeds max_model_len")
         seq = Sequence(list(prompt), sampling_params, self.config.kvcache_block_size)
+        seq.t_submit = time.perf_counter()
         self.scheduler.add(seq)
         return seq.seq_id
 
@@ -139,3 +165,119 @@ class PearlEngine:
         )
         self.scheduler.clear()
         return token_ids, num_tokens, None, elapsed
+
+    def warmup(self, batches=(1,), prompt_len: int = 16, rounds: int = 2) -> None:
+        """Drive dummy requests through real serve rounds at each batch size
+        in ``batches`` (cuBLAS handles, kernel libraries, the allocator's
+        pools), then discard every trace of them, prefix cache included."""
+        t0 = time.perf_counter()
+        for b in batches:
+            for i in range(min(b, self.config.max_num_seqs)):
+                self.add_request(
+                    [2 + (i % 7)] * prompt_len,
+                    SamplingParams(
+                        temperature=0.0, max_tokens=rounds * max(self.config.gamma, 1) + 2,
+                        ignore_eos=True,
+                    ),
+                )
+            while self.has_work:
+                self.orchestrator.serve_round()
+            self.scheduler.finished.clear()
+        self.scheduler.clear()
+        logger.info(f"warmup({batches}) took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------- continuous serving
+
+    def submit(self, prompt, sampling_params: SamplingParams | None = None) -> int:
+        """Queue a request for continuous serving: it joins the running
+        batch at the next ``serve_step``."""
+        return self.add_request(prompt, sampling_params)
+
+    def serve_step(self, fused_rounds: int = 8, with_deltas: bool = False):
+        """Admit what fits and advance the batch by up to ``fused_rounds``
+        rounds; returns the requests that finished, as (seq_id,
+        completion_token_ids, num_acc_tokens).
+
+        With ``with_deltas`` returns ``(done, deltas)``, deltas being
+        (seq_id, new_token_ids, finished). Only the rollback-proof prefix
+        is streamed: after an accepted round the last gamma committed
+        tokens are unverified (the next verdict may cut them and put a
+        revise token in their place), so the stable frontier is
+        len(target) - gamma; after a rejected round (pre-verify) the whole
+        stream is verified. A consumer never sees a token taken back."""
+        self.orchestrator.serve_round(fused_rounds)
+        done, deltas = [], []
+        now = time.perf_counter()
+        for seq in self.scheduler.finished:
+            comp = seq.completion_token_ids
+            done.append((seq.seq_id, comp, list(seq.num_acc_tokens)))
+            if with_deltas:
+                deltas.append((seq.seq_id, comp[seq.num_streamed :], True))
+                seq.num_streamed = len(comp)
+            self._completed_requests += 1
+            self._completed_tokens += len(comp)
+            self._completed_rounds += seq.num_rounds
+            if seq.t_submit is not None and seq.t_first is not None:
+                self._lat.append((
+                    seq.t_first - seq.t_submit,  # TTFT
+                    (now - seq.t_first) / max(1, len(comp) - 1),  # TPOT
+                    now - seq.t_submit,  # end to end
+                ))
+        self.scheduler.finished.clear()
+        if not with_deltas:
+            return done
+        g = self.orchestrator.last_gamma
+        for seq in self.scheduler.running:
+            stable = len(seq.target) - (0 if seq.pre_verify else g)
+            new = seq.target.token_ids[seq.num_prompt_tokens + seq.num_streamed : stable]
+            if new:
+                deltas.append((seq.seq_id, new, False))
+                seq.num_streamed += len(new)
+        return done, deltas
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a queued or running request; its KV blocks are freed and
+        its partial output is dropped. Safe between serve_steps: the round
+        loop's state is rebuilt from the scheduler every step."""
+        return self.scheduler.cancel(request_id)
+
+    def stats(self) -> dict:
+        """Queue and batch occupancy, free KV blocks of both pools,
+        completion counters, MAT of the completed requests (committed
+        tokens per PEARL round, the prefill's token left out, as bench.py
+        counts it), prefix-cache and chunked-prefill counters, and latency
+        percentiles."""
+        sch, orch = self.scheduler, self.orchestrator
+        rounds = self._completed_rounds
+        return {
+            "waiting": len(sch.waiting),
+            "running": len(sch.running),
+            "draft_free_blocks": sch.draft_bm.num_free_blocks,
+            "target_free_blocks": sch.target_bm.num_free_blocks,
+            "completed_requests": self._completed_requests,
+            "completed_tokens": self._completed_tokens,
+            "mat": (self._completed_tokens - self._completed_requests) / rounds if rounds else None,
+            "prefix_hit_tokens": orch.prefix_hit_tokens,
+            "chunked_prefill_passes": orch.chunked_passes,
+            **self._latency_stats(),
+        }
+
+    def _latency_stats(self) -> dict:
+        """TTFT / TPOT / end-to-end p50 and p95 (seconds) over the last 512
+        completions. TTFT: submit to the first committed token (the prefill
+        sample); TPOT: mean time per token after it. HTTP handler threads
+        read this while the driver thread appends: ``list()`` copies the
+        deque in one call, where iterating it could see it change."""
+        lat = list(self._lat)
+        if not lat:
+            return {}
+        out = {}
+        for i, name in enumerate(("ttft", "tpot", "e2e")):
+            vals = sorted(v[i] for v in lat)
+            out[f"{name}_p50_s"] = round(vals[len(vals) // 2], 4)
+            out[f"{name}_p95_s"] = round(vals[min(len(vals) - 1, int(len(vals) * 0.95))], 4)
+        return out
+
+    @property
+    def has_work(self) -> bool:
+        return not self.scheduler.is_finished()

@@ -14,6 +14,19 @@ streams are identical after every verify-apply:
 - reject at n: both end as [C P[:n+1] r] with the same revise token r
 
 so one token buffer and one length vector represent both views.
+
+The draft's decode runs in calls of exactly the row count of one
+packed-verify chunk (``GroupRunner.verify_chunk_rows``,
+``verify_group_cap`` groups whatever the batch): a smaller batch is
+padded up to it, a larger one padded to a multiple of it and decoded
+chunk by chunk. So the draft's decode and the target's verify of the
+same position run every matrix product at one shape and round alike on
+the card, at any batch size and also when the batch changes between the
+round that drafts a window and the round that verifies it. cuBLAS picks
+its kernel by shape: on an H100, 32 decode rows against a 224-row verify
+chunk already round the FFN's down projection differently
+(chip_smoke.py's decode_verify_bitwise phase). The layer-share pair's
+acceptance ceiling rests on this.
 """
 
 from __future__ import annotations
@@ -22,8 +35,7 @@ import torch
 
 from nano_pearl_tpu_torch.config import PearlConfig
 from nano_pearl_tpu_torch.engine.runner import GroupRunner
-from nano_pearl_tpu_torch.models.transformer import compute_logits
-from nano_pearl_tpu_torch.ops.sampling import greedy, sample
+from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
 from nano_pearl_tpu_torch.ops.verify import verify_verdict
 
 
@@ -45,12 +57,13 @@ def _write_at(tokens: torch.Tensor, vals: torch.Tensor, start: torch.Tensor) -> 
     return tokens.scatter(1, cols, vals.to(tokens.dtype))
 
 
-def _greedy_only(state: dict) -> bool:
-    """True when every row decodes at T=0; raises on top-k/top-p rows."""
+def _filter_args(state: dict) -> tuple[bool, bool]:
+    """(greedy_only, filtered): every row at T=0, and whether any sampled
+    batch row carries top-k/top-p (a greedy batch skips the filter: its
+    argmax always survives it)."""
     greedy_only = bool((state["temps"] == 0).all())
-    if not greedy_only and (bool((state["tk"] > 0).any()) or bool((state["tp"] < 1).any())):
-        raise NotImplementedError("top-k/top-p filtering is not ported yet")
-    return greedy_only
+    filtered = not greedy_only and bool(((state["tk"] > 0) | (state["tp"] < 1)).any())
+    return greedy_only, filtered
 
 
 class FusedPearl:
@@ -64,14 +77,34 @@ class FusedPearl:
 
     # ------------------------------------------------------------ PEARL
 
+    def decode_chunking(self, b: int, gamma: int) -> tuple[int, int]:
+        """(calls, rows per call) of each gamma-scan decode step over b
+        rows: calls of one verify chunk's row count (module doc)."""
+        rows = self.target.verify_chunk_rows(b, gamma)
+        return -(-b // rows), rows
+
     def _draft_gamma(self, tokens_last, positions, bt, ctx, gamma: int) -> torch.Tensor:
-        """gamma greedy draft decode steps; returns [B, gamma] int32."""
+        """gamma greedy draft decode steps; returns [B, gamma] int32. The
+        rows are padded to ``decode_chunking``'s calls x rows; padded rows
+        sit at position 0 with context 1 in the garbage block."""
+        b = tokens_last.shape[0]
+        calls, r = self.decode_chunking(b, gamma)
+        pad = calls * r - b
         toks, pos, cl = tokens_last, positions, ctx
+        if pad > 0:
+            zeros = torch.zeros(pad, dtype=torch.int32, device=pos.device)
+            toks, pos, cl = torch.cat([toks, zeros]), torch.cat([pos, zeros]), torch.cat([cl, zeros + 1])
+            garbage = torch.full((pad, bt.shape[1]), self.draft.garbage_block, dtype=bt.dtype, device=bt.device)
+            bt = torch.cat([bt, garbage])
         out = []
         for _ in range(gamma):
             slots = _row_slots(bt, pos[:, None], self.block_size)[:, 0]
-            toks = greedy(self.draft.decode_step(toks, pos, slots, bt, cl))
-            out.append(toks)
+            logits = [
+                self.draft.decode_step(*(x[c * r : (c + 1) * r] for x in (toks, pos, slots, bt, cl)))
+                for c in range(calls)
+            ]
+            toks = greedy(logits[0] if calls == 1 else torch.cat(logits))
+            out.append(toks[:b])
             pos, cl = pos + 1, cl + 1
         return torch.stack(out, dim=1)
 
@@ -89,12 +122,12 @@ class FusedPearl:
         ctx = torch.where(valid, idx_c + 1, 1).to(torch.int32)
         slots = torch.where(valid, _row_slots(bt, idx_c, bs), tr.garbage_block * bs + (j % bs))
         flat = lambda x: x.reshape(b * gamma).contiguous()  # noqa: E731
-        hidden = tr.packed_verify_forward(
+        logits = tr.packed_verify_forward(
             flat(toks), flat(positions), flat(slots.to(torch.int32)), bt, flat(ctx), gamma
         )
-        return compute_logits(tr.cfg, tr.params, hidden).reshape(b, gamma, -1)
+        return logits.reshape(b, gamma, -1)
 
-    def _pearl_round(self, s: dict, gamma: int, greedy_only: bool, generator) -> None:
+    def _pearl_round(self, s: dict, gamma: int, greedy_only: bool, filtered: bool, generator) -> None:
         """One PEARL round; updates the state dict ``s`` in place."""
         tokens, length, pre, finished = s["tokens"], s["length"], s["pre"], s["finished"]
         g_j = torch.arange(gamma, device=length.device)[None, :]
@@ -109,6 +142,11 @@ class FusedPearl:
         tbv = torch.gather(tokens, 1, idx.long())
         tbv = torch.where(g_j == (num_input[:, None] - 1), G[:, :1], tbv)
 
+        if filtered:
+            # top-k/top-p shape the accept-test and revise distributions,
+            # as they shape what AR samples
+            temps = s["temps"][:, None]
+            logits = apply_top_k_top_p(logits, s["tk"][:, None], s["tp"][:, None], temps)
         res = verify_verdict(
             logits, tbv, pre, s["temps"], length - s["prompt_len"], s["max_tokens"],
             s["ignore_eos"], s["eos_ids"], gamma, greedy=greedy_only, generator=generator,
@@ -135,16 +173,17 @@ class FusedPearl:
         s["emit_cnt"] = (emit_cnt + (active & fin).to(torch.int32)).to(torch.int32)
         s["cur_acc"] = torch.where(active, torch.where(fin, 0, cur_acc2), cur_acc).to(torch.int32)
         s["length"] = torch.where(active, new_len, length)
+        s["rounds"] = s["rounds"] + active.to(torch.int32)
         s["pre"] = torch.where(active, ~acc, pre)
         s["finished"] = finished | (fin & active)
 
     def run_pearl(self, state: dict, gamma: int, num_rounds: int, generator=None) -> dict:
         """Up to ``num_rounds`` PEARL rounds, stopping early once every row
         has finished; ``state["rounds_done"]`` counts the rounds run."""
-        greedy_only = _greedy_only(state)
+        greedy_only, filtered = _filter_args(state)
         i = 0
         while i < num_rounds and not bool(state["finished"].all()):
-            self._pearl_round(state, gamma, greedy_only, generator)
+            self._pearl_round(state, gamma, greedy_only, filtered, generator)
             i += 1
         state["rounds_done"] = i
         return state
@@ -155,7 +194,7 @@ class FusedPearl:
         """Up to ``num_steps`` target-only decode steps, stopping early once
         every row has finished."""
         tr, bs = self.target, self.block_size
-        greedy_only = _greedy_only(state)
+        greedy_only, filtered = _filter_args(state)
         eos = state["eos_ids"]
         stops = eos if eos.ndim == 2 else eos[None, :]
         i = 0
@@ -168,6 +207,8 @@ class FusedPearl:
             if greedy_only:
                 nxt = greedy(logits)
             else:
+                if filtered:
+                    logits = apply_top_k_top_p(logits, state["tk"], state["tp"], state["temps"])
                 nxt = sample(logits, state["temps"], generator=generator)
             active = ~finished
             state["tokens"] = _write_at(tokens, torch.where(active, nxt, 0)[:, None], length)

@@ -7,9 +7,12 @@ the scheduler's sequences, runs chunks of rounds, and pulls the state
 back into the host ``Sequence`` objects. Rollback never touches KV
 contents: accepted and rolled-back state is length bookkeeping.
 
+Continuous serving (``serve_round``) admits whatever prefills fit and
+advances the running batch by a fixed number of fused rounds; prompts
+over ``max_num_batched_tokens`` prefill in block-aligned chunk passes.
+
 Not ported yet: the overlap mode (draft and target on separate
-devices), continuous serving, acceptance-adaptive gamma, chunked
-prefill and the parallel layouts.
+devices), acceptance-adaptive gamma and the parallel layouts.
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ class PearlOrchestrator:
         self.generator = generator
         self.device = target.device
         self.fused = FusedPearl(pcfg, draft, target)
+        self.last_gamma = pcfg.gamma
+        # serving counters (engine.stats): prompt tokens served from the
+        # prefix cache, and chunked-prefill passes run
+        self.prefix_hit_tokens = 0
+        self.chunked_passes = 0
 
     def _sync(self):
         """Wait until the device has finished all queued work."""
@@ -49,40 +57,78 @@ class PearlOrchestrator:
 
     # ------------------------------------------------------------- prefill
 
-    def prefill_all(self, target_only: bool = False):
+    def prefill_all(self, target_only: bool = False, strict: bool = True):
         """Prefill every waiting request, in as many admission batches as
         needed. The target's sample is the first committed token of BOTH
         streams, so draft and target streams stay identical after every
-        verify-apply."""
+        verify-apply. With ``strict=False`` (continuous serving) an
+        admission held back by seats or KV blocks leaves the rest waiting
+        for a later round instead of raising."""
         while self.scheduler.waiting:
             seqs = self.scheduler.schedule_prefill()
             if not seqs:
+                if not strict:
+                    return
                 raise RuntimeError("prefill admission made no progress (out of KV blocks?)")
-            budget = self.pcfg.max_num_batched_tokens
-            if any(len(s.target) > budget for s in seqs):
-                raise NotImplementedError("chunked prefill of oversized prompts is not ported yet")
+            self.prefix_hit_tokens += sum(s.target.num_cached_tokens for s in seqs)
+            self._drain_oversized(seqs, target_only)
             b = len(seqs)
             b_pad = self.pcfg.prefill_bucket_batch(b)
-            lq = max(len(s.target) for s in seqs)
-            if any(s.top_k > 0 or s.top_p < 1.0 for s in seqs):
-                raise NotImplementedError("top-k/top-p filtering is not ported yet")
+            lq_d = max(len(s.draft) - s.draft.num_cached_tokens for s in seqs)
+            lq_t = max(len(s.target) - s.target.num_cached_tokens for s in seqs)
             temps = np.zeros((b_pad,), np.float32)
             temps[:b] = [s.temperature for s in seqs]
+            tk = tp = None
+            if any(s.top_k > 0 or s.top_p < 1.0 for s in seqs):
+                tk = np.zeros((b_pad,), np.int32)
+                tp = np.ones((b_pad,), np.float32)
+                tk[:b] = [max(s.top_k, 0) for s in seqs]
+                tp[:b] = [min(s.top_p, 1.0) for s in seqs]
             if not target_only:
-                self.draft.prefill([s.draft for s in seqs], self.pcfg.bucket_tokens(lq), b_pad)
+                self.draft.prefill([s.draft for s in seqs], self.pcfg.bucket_tokens(lq_d), b_pad)
             logits_t = self.target.prefill(
-                [s.target for s in seqs], self.pcfg.bucket_tokens(lq), b_pad
+                [s.target for s in seqs], self.pcfg.bucket_tokens(lq_t), b_pad
             )
-            toks_t = self.target.sample_tokens(logits_t, temps, self.generator).cpu().numpy()
+            toks_t = self.target.sample_tokens(logits_t, temps, self.generator, tk, tp).cpu().numpy()
+            t_now = time.perf_counter()
             for i, seq in enumerate(seqs):
                 if not target_only:
                     seq.draft.append(int(toks_t[i]))
                 seq.target.append(int(toks_t[i]))
+                if seq.t_first is None:
+                    seq.t_first = t_now  # first committed token: the TTFT stamp
             for i, seq in enumerate(list(seqs)):
                 tok = int(toks_t[i])
                 stopped = is_eos(tok, self.scheduler.eos) or tok in seq.stop_token_ids
                 if (not seq.ignore_eos and stopped) or seq.num_completion_tokens == seq.max_tokens:
                     self.scheduler.finish(seq)
+
+    def _drain_oversized(self, seqs, target_only: bool):
+        """Chunked prefill: a view with more uncached tokens than
+        ``max_num_batched_tokens`` (the scheduler admits such a prompt
+        alone) prefills block-aligned passes of ``chunk`` tokens whose
+        logits are discarded, until at most ``chunk`` tokens are left for
+        the batch's sampling pass. Each non-first pass reads the passes
+        before it out of the cache, as a prefix-cache hit (kernel K4).
+        Views drain one by one: a re-admitted preempted sequence's draft
+        view may run ahead of its target view."""
+        bs = self.scheduler.block_size
+        budget = self.pcfg.max_num_batched_tokens
+        chunk = (budget // bs) * bs
+        for s in seqs:
+            pairs = [(self.target, s.target)]
+            if not target_only:
+                pairs.insert(0, (self.draft, s.draft))
+            for runner, view in pairs:
+                if len(view) - view.num_cached_tokens <= budget:
+                    continue
+                while len(view) - view.num_cached_tokens > chunk:
+                    runner.prefill(
+                        [view], self.pcfg.bucket_tokens(chunk), self.pcfg.prefill_bucket_batch(1),
+                        limit=chunk,
+                    )
+                    view.num_cached_tokens += chunk
+                    self.chunked_passes += 1
 
     # --------------------------------------------------------------- loops
 
@@ -148,6 +194,18 @@ class PearlOrchestrator:
         self._sync()
         return time.perf_counter() - start
 
+    def serve_round(self, fused_rounds: int = 8) -> None:
+        """One continuous-batching iteration: admit whatever prefills fit,
+        then advance the running batch by up to ``fused_rounds`` PEARL
+        rounds. Requests admitted between calls join the batch in
+        pre-verify state; the round loop needs no special case for them."""
+        if self.scheduler.waiting:
+            self.prefill_all(strict=False)
+        if not self.scheduler.running:
+            return
+        self.last_gamma = self.pcfg.gamma
+        self._fused_pearl_run(self.pcfg.gamma, num_steps=fused_rounds)
+
     # ------------------------------------------------------ fused execution
 
     def _tables(self, views, garbage: int, b_pad: int) -> np.ndarray:
@@ -203,7 +261,7 @@ class PearlOrchestrator:
         state = {
             "tokens": tokens, "length": length, "pre": pre, "finished": finished,
             "cur_acc": cur_acc, "emitted": np.zeros((b_pad,), np.int32),
-            "emit_cnt": np.zeros((b_pad,), np.int32),
+            "emit_cnt": np.zeros((b_pad,), np.int32), "rounds": np.zeros((b_pad,), np.int32),
             "bt_t": self._tables([s.target for s in seqs], self.target.garbage_block, b_pad),
             "temps": temps, "max_tokens": max_tokens, "ignore_eos": ignore_eos,
             "prompt_len": prompt_len, "eos_ids": eos_ids, "tk": tk, "tp": tp,
@@ -333,7 +391,7 @@ class PearlOrchestrator:
         sch = self.scheduler
         keys = ["tokens", "length", "finished"]
         if not ar_only:
-            keys += ["pre", "cur_acc", "emitted", "emit_cnt"]
+            keys += ["pre", "cur_acc", "emitted", "emit_cnt", "rounds"]
         fetched = {k: state[k].cpu().numpy() for k in keys}
         tokens, length, finished = fetched["tokens"], fetched["length"], fetched["finished"]
         for i, seq in enumerate(seqs):
@@ -343,6 +401,7 @@ class PearlOrchestrator:
                 seq.draft.token_ids = list(stream)
                 seq.pre_verify = bool(fetched["pre"][i])
                 seq.cur_acc_tokens = int(fetched["cur_acc"][i])
+                seq.num_rounds += int(fetched["rounds"][i])
                 tot, cnt = float(fetched["emitted"][i]), int(fetched["emit_cnt"][i])
                 if cnt:
                     # per-emit values are not kept on the device; a flat

@@ -4,15 +4,19 @@
 One ``GroupRunner`` owns one model's weights, rope table and KV cache on
 one device and runs its phases eagerly:
 
-- ``prefill``: fresh-KV prefill of a batch (no prefix-cache hits);
+- ``prefill``: prefill of a batch, or one block-aligned pass of a
+  chunked prefill. A batch with no prefix-cache hit attends over its
+  fresh K/V (kernel K3); a batch with hits reads the cached prefix pages
+  straight out of the cache (kernel K4);
 - ``decode_step``: one decode step over B rows (AR and the draft's
   gamma-scan, a Python loop of these steps in engine/fused.py);
 - ``packed_verify_forward``: the target's classic write-then-read packed
   verify, cut into chunks of at most ``verify_group_cap`` sequences so
   B=32 runs as two chunks of 16 groups.
 
-Prefix-cache hits and chunked prefill need the paged-prefix prefill
-kernel, which is not ported yet; they raise ``NotImplementedError``.
+The KV cache is allocated after both models' weights are on the device
+(``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
+shared card from one budget.
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ from nano_pearl_tpu_torch.models.transformer import (
 from nano_pearl_tpu_torch.ops.attention import (
     paged_attention,
     paged_attention_grouped,
+    prefill_prefix_attention,
     prefill_self_attention,
 )
 from nano_pearl_tpu_torch.ops.kv_cache import make_kv_cache
-from nano_pearl_tpu_torch.ops.sampling import greedy, sample
+from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
 from nano_pearl_tpu_torch.utils.logging import logger
 
 _DEFAULT_CPU_BLOCKS = 512
@@ -49,6 +54,35 @@ def next_pow2(n: int) -> int:
 
 def _is_numpy_tree(params: dict) -> bool:
     return isinstance(params["embed"], np.ndarray)
+
+
+def device_kv_budget(device: torch.device, hbm_utilization: float) -> int | None:
+    """Bytes the KV caches may take on ``device``: ``hbm_utilization`` of
+    the card less what is in use (the allocator's cached, unused memory
+    counts as free), as the reference's allocate_kv_cache; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(total * hbm_utilization - (total - free))
+
+
+def kv_num_blocks(pcfg: PearlConfig, block_bytes: list[int], budget: int | None) -> int:
+    """Blocks of each KV pool. Pools that share one device get the same
+    count from one budget: ``budget // sum(block_bytes)`` (the scheduler
+    can use no more than the smaller pool). ``num_kvcache_blocks > 0``
+    fixes the count; on the CPU (``budget`` None) a small default."""
+    if pcfg.num_kvcache_blocks > 0:
+        return pcfg.num_kvcache_blocks
+    if budget is None:
+        return _DEFAULT_CPU_BLOCKS
+    num = budget // sum(block_bytes)
+    if num <= 0:
+        raise RuntimeError(
+            f"not enough device memory for one KV block of each model "
+            f"({budget} bytes free for {sum(block_bytes)} bytes a block)"
+        )
+    return num
 
 
 class GroupRunner:
@@ -77,34 +111,33 @@ class GroupRunner:
             params = params_from_numpy(params, mcfg, device)
         self.params = params
         self.rope_table = make_rope_table(mcfg, device)
-        self.num_blocks = self._decide_num_blocks()
+        self.kv = None
+        self.num_blocks = 0
+        if pcfg.num_kvcache_blocks > 0:  # a fixed pool needs no shared budget
+            self.allocate_kv(pcfg.num_kvcache_blocks)
+
+    @property
+    def block_bytes(self) -> int:
+        """Bytes of one KV block over all layers (K and V)."""
+        mcfg = self.cfg
+        per_slot = mcfg.num_key_value_heads * mcfg.head_dim * torch_dtype(mcfg).itemsize
+        return mcfg.num_hidden_layers * 2 * self.block_size * per_slot
+
+    def allocate_kv(self, num_blocks: int) -> None:
+        """The paged cache of ``num_blocks`` blocks plus the garbage block."""
+        mcfg = self.cfg
+        self.num_blocks = num_blocks
         self.kv = make_kv_cache(
-            mcfg.num_hidden_layers, self.num_blocks, self.block_size,
+            mcfg.num_hidden_layers, num_blocks, self.block_size,
             mcfg.num_key_value_heads, mcfg.head_dim, dtype=torch_dtype(mcfg),
-            device=device,
+            device=self.device,
         )
-        self.garbage_block = self.num_blocks  # the extra block of make_kv_cache
+        self.garbage_block = num_blocks  # the extra block of make_kv_cache
         logger.info(
-            f"[{name}] kv cache: {self.num_blocks} blocks x {self.block_size} tokens "
+            f"[{self.name}] kv cache: {num_blocks} blocks x {self.block_size} tokens "
             f"({self.kv.numel() * self.kv.element_size() / 2**30:.2f} GiB)",
             color="green",
         )
-
-    def _decide_num_blocks(self) -> int:
-        pcfg, mcfg = self.pcfg, self.cfg
-        if pcfg.num_kvcache_blocks > 0:
-            return pcfg.num_kvcache_blocks
-        if self.device.type != "cuda":
-            return _DEFAULT_CPU_BLOCKS
-        # from the device's free memory, like the reference's allocate_kv_cache
-        free, total = torch.cuda.mem_get_info(self.device)
-        budget = total * pcfg.hbm_utilization - (total - free)
-        per_slot = mcfg.num_key_value_heads * mcfg.head_dim * torch_dtype(mcfg).itemsize
-        block_bytes = mcfg.num_hidden_layers * 2 * self.block_size * per_slot
-        num = int(budget) // block_bytes
-        if num <= 0:
-            raise RuntimeError(f"[{self.name}] not enough device memory for any KV block")
-        return num
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -112,33 +145,54 @@ class GroupRunner:
     # ------------------------------------------------------------- phases
 
     def prefill(
-        self, views: list[SeqView], lq_pad: int, b_pad: int, fresh_only: bool = True
+        self, views: list[SeqView], lq_pad: int, b_pad: int, limit: int | None = None
     ) -> torch.Tensor:
-        """Fresh-KV prefill of ``views``; returns logits [b_pad, V] at each
-        sequence's last prompt row."""
-        if not fresh_only or any(v.num_cached_tokens for v in views):
-            raise NotImplementedError(
-                "prefix-cache hits need the paged-prefix prefill kernel (not ported yet)"
-            )
+        """Prefill the uncached tokens of ``views``; returns logits [b_pad, V]
+        at each view's last processed row. A batch with no cache hit takes
+        the fresh-KV kernel K3; otherwise K4 reads the cached prefix out of
+        the cache, also where one view's cached blocks are written by
+        another view of this batch: every layer stores its K/V before its
+        attention runs. ``limit`` caps the new tokens of each view (a
+        chunked-prefill pass); the caller advances ``num_cached_tokens`` and
+        discards the logits."""
         bs = self.block_size
+        # K4 reads the first m_pre table columns, a power of two covering
+        # the longest cached prefix; the rest of each row is the garbage block
+        m_pre = next_pow2(max(1, -(-max(v.num_cached_tokens for v in views) // bs)))
         tokens = np.zeros((b_pad, lq_pad), np.int32)
         positions = np.zeros((b_pad, lq_pad), np.int32)
         q_positions = np.full((b_pad, lq_pad), -1, np.int32)
         slots = np.full((b_pad, lq_pad), self.garbage_block * bs, np.int32)
+        block_tables = np.full((b_pad, m_pre), self.garbage_block, np.int32)
+        num_cached = np.zeros((b_pad,), np.int32)
+        n_new = np.zeros((b_pad,), np.int32)
         sel_rows = np.zeros((b_pad,), np.int64)
         for i, v in enumerate(views):
-            n = len(v.token_ids)
+            start = v.num_cached_tokens
+            end = len(v) if limit is None else min(start + limit, len(v))
+            n = end - start
             if not 0 < n <= lq_pad:
-                raise ValueError(f"[{self.name}] prompt of {n} tokens does not fit {lq_pad} rows")
-            tokens[i, :n] = v.token_ids
-            positions[i, :n] = np.arange(n)
+                raise ValueError(f"[{self.name}] {n} new tokens do not fit {lq_pad} rows")
+            tokens[i, :n] = v.token_ids[start:end]
+            positions[i, :n] = np.arange(start, end)
             q_positions[i, :n] = positions[i, :n]
-            slots[i, :n] = [v.token_to_slot(t) for t in range(n)]
+            slots[i, :n] = [v.token_to_slot(t) for t in range(start, end)]
+            prefix_pages = v.block_table[:m_pre]
+            block_tables[i, : len(prefix_pages)] = prefix_pages
+            num_cached[i], n_new[i] = start, n
             sel_rows[i] = i * lq_pad + n - 1
+        if not num_cached.any():
+            attn_fn, attn_args = _fresh_prefill, (self._tensor(q_positions), self.scale)
+        else:
+            attn_fn = _prefix_prefill
+            attn_args = (
+                self._tensor(block_tables), self._tensor(num_cached), self._tensor(n_new),
+                self.scale,
+            )
         hidden = forward(
             self.cfg, self.params, self.kv, self._tensor(tokens.reshape(-1)),
             self._tensor(positions.reshape(-1)), self._tensor(slots.reshape(-1)),
-            self.rope_table, _fresh_prefill, (self._tensor(q_positions), self.scale),
+            self.rope_table, attn_fn, attn_args,
         )
         return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
 
@@ -150,47 +204,83 @@ class GroupRunner:
         )
         return compute_logits(self.cfg, self.params, hidden)
 
-    def _verify_chunks(self, b: int, gamma: int) -> int:
-        """Number of sequence chunks of the packed verify (1 = unchunked)."""
+    def _verify_chunking(self, b: int, gamma: int) -> tuple[int, int]:
+        """(chunks, sequence groups per chunk) of the packed verify of b
+        sequences: chunks of ``verify_group_cap`` groups, the last one
+        padded, so that every chunk runs its products at one row count
+        whatever the batch. The draft's decode pads to the same count, and a
+        window drafted at one batch size may be verified at another (the
+        batch changes between serving steps). Unchunked without a cap, or
+        when ``cap * gamma < 8`` rows would fall out of the GEMM shape class
+        the cap exists to hit."""
         cap = self.verify_group_cap
-        if not cap or b <= cap:
-            return 1
-        k = -(-b // cap)
-        while b % k:
-            k += 1
-        if (b // k) * gamma < 8:
-            # chunks this small fall out of the GEMM shape class the cap
-            # exists to hit: run unchunked
-            logger.warning(
-                f"[{self.name}] verify_group_cap={cap}: batch {b} only divides into "
-                f"{b // k}-group chunks ({b // k * gamma} rows < 8); verify runs unchunked"
-            )
-            return 1
-        return k
+        if not cap or cap * gamma < 8:
+            return 1, b
+        return -(-b // cap), cap
+
+    def verify_chunk_rows(self, b: int, gamma: int) -> int:
+        """Rows of one packed-verify chunk of a b-sequence batch."""
+        return self._verify_chunking(b, gamma)[1] * gamma
+
+    def verify_chunks(self, tokens, positions, slots, block_tables, context_lens, gamma: int):
+        """The packed verify's inputs cut into chunks: a list of (tokens,
+        positions, slots, block_tables, context_lens) of one chunk each,
+        the last padded with groups at position 0 with context 1 in the
+        garbage block."""
+        b = block_tables.shape[0]
+        k, groups = self._verify_chunking(b, gamma)
+        pad = k * groups - b
+        if pad:
+            dev, n = tokens.device, pad * gamma
+            zeros = torch.zeros(n, dtype=tokens.dtype, device=dev)
+            garbage = self.garbage_block * self.block_size
+            tokens, positions = torch.cat([tokens, zeros]), torch.cat([positions, zeros])
+            slots = torch.cat([slots, garbage + torch.arange(n, dtype=slots.dtype, device=dev) % gamma])
+            context_lens = torch.cat([context_lens, zeros + 1])
+            block_tables = torch.cat([block_tables, torch.full(
+                (pad, block_tables.shape[1]), self.garbage_block, dtype=block_tables.dtype, device=dev
+            )])
+        r = groups * gamma
+        return [
+            (tokens[c * r : (c + 1) * r], positions[c * r : (c + 1) * r], slots[c * r : (c + 1) * r],
+             block_tables[c * groups : (c + 1) * groups], context_lens[c * r : (c + 1) * r])
+            for c in range(k)
+        ]
 
     def packed_verify_forward(
         self, tokens, positions, slots, block_tables, context_lens, gamma: int
     ) -> torch.Tensor:
         """The target's packed verify on flat [B*gamma] rows; returns the
-        hidden [B*gamma, H]. Chunks are disjoint sequences, so the only
-        state they share is the cache, written chunk after chunk."""
-        b = block_tables.shape[0]
-        k = self._verify_chunks(b, gamma)
-        nc, bc = tokens.shape[0] // k, b // k
-        hiddens = []
-        for c in range(k):
-            rows = slice(c * nc, (c + 1) * nc)
-            hiddens.append(forward(
-                self.cfg, self.params, self.kv, tokens[rows], positions[rows], slots[rows],
-                self.rope_table, paged_attention_grouped,
-                (block_tables[c * bc : (c + 1) * bc], context_lens[rows], self.scale, gamma),
-            ))
-        return hiddens[0] if k == 1 else torch.cat(hiddens)
+        logits [B*gamma, V]. Chunks are disjoint sequences, so the only
+        state they share is the cache, written chunk after chunk. The LM
+        head runs per chunk too, so every product of the verify has the
+        chunk's row count."""
+        logits = []
+        for toks, pos, sl, bt, ctx in self.verify_chunks(
+            tokens, positions, slots, block_tables, context_lens, gamma
+        ):
+            hidden = forward(
+                self.cfg, self.params, self.kv, toks, pos, sl, self.rope_table,
+                paged_attention_grouped, (bt, ctx, self.scale, gamma),
+            )
+            logits.append(compute_logits(self.cfg, self.params, hidden))
+        out = logits[0] if len(logits) == 1 else torch.cat(logits)
+        return out[: tokens.shape[0]]
 
-    def sample_tokens(self, logits, temps: np.ndarray, generator: torch.Generator | None):
+    def sample_tokens(
+        self, logits, temps: np.ndarray, generator: torch.Generator | None,
+        top_ks: np.ndarray | None = None, top_ps: np.ndarray | None = None,
+    ):
+        """Greedy when every row is at T=0, else Gumbel-max sampling of the
+        top-k/top-p filtered logits (``top_ks``/``top_ps`` None: unfiltered)."""
         if np.all(np.asarray(temps) == 0.0):
             return greedy(logits)
-        return sample(logits, self._tensor(temps, torch.float32), generator=generator)
+        t = self._tensor(temps, torch.float32)
+        if top_ks is not None:
+            logits = apply_top_k_top_p(
+                logits, self._tensor(top_ks), self._tensor(top_ps, torch.float32), t
+            )
+        return sample(logits, t, generator=generator)
 
 
 def _fresh_prefill(q, k, v, q_positions, scale):
@@ -198,3 +288,10 @@ def _fresh_prefill(q, k, v, q_positions, scale):
 
 
 _fresh_prefill.wants_fresh_kv = True
+
+
+def _prefix_prefill(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale):
+    return prefill_prefix_attention(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)
+
+
+_prefix_prefill.wants_fresh_and_cache = True

@@ -89,6 +89,7 @@ class Sequence:
         self.pre_verify = True
         self.num_acc_tokens: list[int] = []
         self.cur_acc_tokens = 0
+        self.num_rounds = 0  # PEARL rounds this request took part in (engine MAT)
         # completion tokens already handed to a streaming consumer
         # (engine.serve_step with_deltas); never exceeds the stable
         # (rollback-proof) frontier of the committed stream

@@ -147,12 +147,15 @@ def run_layers(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The decoder layers; returns (x, res). ``attn_fn`` marked
     ``wants_fresh_kv`` is called as ``attn_fn(q, k, v, *attn_args)`` (the
-    fresh-KV prefill), otherwise as ``attn_fn(q, cache, layer, *attn_args)``
-    after this layer's K/V were written."""
+    fresh-KV prefill), one marked ``wants_fresh_and_cache`` as
+    ``attn_fn(q, k, v, cache, layer, *attn_args)`` (the prefix prefill),
+    otherwise as ``attn_fn(q, cache, layer, *attn_args)``; every layer
+    writes its K/V into the cache before its attention runs."""
     d = cfg.head_dim
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     eps = cfg.rms_norm_eps
     fresh = getattr(attn_fn, "wants_fresh_kv", False)
+    fresh_and_cache = getattr(attn_fn, "wants_fresh_and_cache", False)
     for li in range(layers["wq"].shape[0]):
         res2 = x.float() + res  # f32, exact
         h1 = rms_norm(res2, layers["input_ln"][li], eps, out_dtype=x.dtype)
@@ -174,6 +177,8 @@ def run_layers(
         write_kv(kv_cache, k, v, slots, li)
         if fresh:
             o = attn_fn(q, k, v, *attn_args)
+        elif fresh_and_cache:
+            o = attn_fn(q, k, v, kv_cache, li, *attn_args)
         else:
             o = attn_fn(q, kv_cache, li, *attn_args)
         attn_out = o.reshape(-1, n_q * d) @ layers["wo"][li]

@@ -12,9 +12,13 @@ against, and what the kernels' wrappers run for tensors on the CPU:
   ``paged_attention_grouped``); kernel K2.
 - ``prefill_self_attention_ref``: causal prefill over the batch's fresh
   K/V (``prefill_self_attention_jnp``); kernel K3.
+- ``prefill_prefix_attention_ref``: prefill over a cached prefix read
+  through the block table plus the fresh causal window
+  (``gather_prefix_kv`` + ``prefill_prefix_attention_jnp``); kernel K4.
 
-The dispatchers ``paged_attention``, ``paged_attention_grouped`` and
-``prefill_self_attention`` hand every call to the kernel's wrapper in
+The dispatchers ``paged_attention``, ``paged_attention_grouped``,
+``prefill_self_attention`` and ``prefill_prefix_attention`` hand every
+call to the kernel's wrapper in
 ``ops/cuda``, which takes the plain version only for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 """
@@ -120,6 +124,55 @@ def prefill_self_attention_ref(
     return torch.cat(outs, dim=1).reshape(n, hq, d).to(q.dtype)
 
 
+def prefill_prefix_attention_ref(
+    q: torch.Tensor,  # [N = B*Lq, Hq, D] flat new-token queries, seq-major
+    k: torch.Tensor,  # [N, Hkv, D] fresh post-rope keys of the new tokens
+    v: torch.Tensor,  # [N, Hkv, D]
+    cache: torch.Tensor,  # [L, 2, NB+1, BS, Hkv*D], the new tokens' K/V already written
+    layer_idx: int,
+    bt_pre: torch.Tensor,  # [B, Mpre] int32 pages of the cached prefix
+    num_cached: torch.Tensor,  # [B] int32 cached-prefix lengths
+    n_new: torch.Tensor,  # [B] int32 real new rows per sequence
+    scale: float,
+) -> torch.Tensor:
+    """Prefill of sequences whose first ``num_cached[b]`` positions are in
+    the paged cache (``gather_prefix_kv`` + ``prefill_prefix_attention_jnp``
+    of the JAX package, as one softmax over prefix and fresh keys). Row i
+    of sequence b sits at position ``num_cached[b] + i`` and is real iff
+    ``i < n_new[b]``; it sees every cached position and the fresh keys
+    ``j <= i``. Padded rows see nothing and give 0. Queries run in chunks
+    of 128 rows to bound the score tile."""
+    b, _ = bt_pre.shape
+    n, hq, d = q.shape
+    lq = n // b
+    hkv = k.shape[1]
+    g = hq // hkv
+    pk, pv = _gather_kv(cache, layer_idx, bt_pre, d)  # [B, S_pre, Hkv, D]
+    keys = torch.cat([pk.float(), k.reshape(b, lq, hkv, d).float()], dim=1)
+    vals = torch.cat([pv.float(), v.reshape(b, lq, hkv, d).float()], dim=1)
+    s_pre = pk.shape[1]
+    qb = q.reshape(b, lq, hkv, g, d).float()
+    dev = q.device
+    nc, nn = num_cached.to(dev).long(), n_new.to(dev).long()
+    s_idx = torch.arange(s_pre, device=dev)
+    j_idx = torch.arange(lq, device=dev)
+    outs = []
+    for c0 in range(0, lq, 128):
+        i_idx = torch.arange(c0, min(lq, c0 + 128), device=dev)
+        real = i_idx[None, :] < nn[:, None]  # [B, C]
+        vis_pre = real[:, :, None] & (s_idx[None, None, :] < nc[:, None, None])
+        vis_new = real[:, :, None] & (j_idx[None, None, :] <= i_idx[None, :, None])
+        visible = torch.cat([vis_pre, vis_new], dim=2)[:, None, :, None, :]  # [B,1,C,1,S]
+        scores = torch.einsum("blkgd,bskd->bklgs", qb[:, c0 : c0 + 128], keys) * scale
+        scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+        # rows with nothing visible: the max floor makes every p underflow to 0
+        mx = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e29)
+        p = torch.where(visible, torch.exp(scores - mx), torch.zeros_like(scores))
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        outs.append(torch.einsum("bklgs,bskd->blkgd", p, vals))
+    return torch.cat(outs, dim=1).reshape(n, hq, d).to(q.dtype)
+
+
 def paged_attention(q, cache, layer_idx, block_tables, context_lens, scale):
     """Decode attention: kernel K1 on the card, the plain version on the CPU."""
     from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_decode
@@ -145,3 +198,11 @@ def prefill_self_attention(q, k, v, q_positions, scale):
     from nano_pearl_tpu_torch.ops.cuda.prefill_attention import prefill_self
 
     return prefill_self(q, k, v, q_positions, scale)
+
+
+def prefill_prefix_attention(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale):
+    """Prefill over a cached prefix plus the fresh causal window: kernel K4
+    on the card, the plain version on the CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.prefill_attention import prefill_prefix
+
+    return prefill_prefix(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)

@@ -23,6 +23,34 @@ def mask_invalid_logits(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
     return out
 
 
+def apply_top_k_top_p(
+    logits: torch.Tensor,  # [..., V]
+    top_k: torch.Tensor,  # [...] int32; <= 0 disables
+    top_p: torch.Tensor,  # [...] float32; >= 1 disables
+    temperatures: torch.Tensor | None = None,  # [...] for the nucleus mass
+) -> torch.Tensor:
+    """Top-k then top-p (nucleus) filtering with per-row settings: kept
+    tokens keep their logits, the rest go to NEG_INF, so sampling, the
+    PEARL accept test and the revise draw all see the renormalised filtered
+    distribution. The nucleus mass is taken at the row's temperature
+    (temperature -> top_k -> top_p, as HF's warpers run); the token that
+    crosses ``top_p`` is kept and the top token always survives."""
+    lf = logits.float()
+    v = lf.shape[-1]
+    sorted_desc = torch.sort(lf, dim=-1, descending=True).values
+    iota = torch.arange(v, device=lf.device)
+    k_eff = torch.where(top_k > 0, torch.clamp(top_k, 1, v), v)[..., None]
+    in_k = iota < k_eff
+    sorted_kept = torch.where(in_k, sorted_desc, torch.full_like(sorted_desc, NEG_INF))
+    t = 1.0 if temperatures is None else torch.clamp(temperatures, min=1e-10)[..., None]
+    probs = torch.softmax(sorted_kept / t, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < torch.clamp(top_p, max=1.0)[..., None]
+    count = (keep & in_k).sum(dim=-1)
+    thresh = torch.gather(sorted_desc, -1, torch.clamp(count - 1, min=0)[..., None])
+    return torch.where(lf < thresh, torch.full_like(lf, NEG_INF), lf)
+
+
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the last dim, int32."""
     return torch.argmax(logits, dim=-1).to(torch.int32)

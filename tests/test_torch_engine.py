@@ -99,6 +99,32 @@ def test_layer_share_pair_accepts_everything():
     assert n_ar == [6] * len(PROMPTS)
 
 
+@pytest.mark.parametrize("cap", [2, 16])
+def test_decode_calls_have_the_verify_chunks_rows(weights, cap):
+    """The draft's gamma-scan decodes in calls of exactly one verify
+    chunk's rows (cap x gamma): 12 requests in the 16-row batch bucket run
+    as two calls of 8 rows at cap 2 and as one call padded to 64 rows at
+    cap 16; PEARL stays == AR."""
+    gamma = 4
+    eng = PearlEngine(_config(tcfg, gamma, max_num_seqs=16, verify_group_cap=cap), *weights, device="cpu")
+    rows, decode = [], eng.draft.decode_step
+
+    def spy(tokens, *args):
+        rows.append(tokens.shape[0])
+        return decode(tokens, *args)
+
+    eng.draft.decode_step = spy
+    for _ in range(3):
+        _add(eng)
+    pearl, *_ = eng.generate_token_ids()
+    for _ in range(3):
+        _add(eng)
+    ar, *_ = eng.AR_generate_token_ids()
+    assert pearl == ar
+    assert set(rows) == {cap * gamma}
+    assert eng.orchestrator.fused.decode_chunking(16, gamma) == (-(-16 // (cap * gamma)), cap * gamma)
+
+
 def test_device_rule(weights):
     cfg = _config(tcfg, 2)
     if torch.cuda.is_available():

@@ -16,13 +16,11 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "nano_pearl_tpu_torch"
 
 
-def test_import_loads_no_jax_in_fresh_process():
+def _modules_loaded_by(imports: str) -> list[str]:
+    """JAX and JAX-package modules loaded by ``imports`` in a fresh process."""
     code = (
         "import json, sys\n"
-        "import nano_pearl_tpu_torch\n"
-        "from nano_pearl_tpu_torch.engine import engine, fused, pearl, runner\n"
-        "from nano_pearl_tpu_torch.ops.cuda import build, paged_attention, prefill_attention\n"
-        "from nano_pearl_tpu_torch.utils import layer_share\n"
+        f"{imports}\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nano_pearl_tpu.'))"
         " or m == 'nano_pearl_tpu']\n"
         "print(json.dumps(mods))\n"
@@ -33,7 +31,20 @@ def test_import_loads_no_jax_in_fresh_process():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_import_loads_no_jax_in_fresh_process():
+    assert _modules_loaded_by(
+        "import nano_pearl_tpu_torch\n"
+        "from nano_pearl_tpu_torch.engine import engine, fused, pearl, runner\n"
+        "from nano_pearl_tpu_torch.ops.cuda import build, paged_attention, prefill_attention\n"
+        "from nano_pearl_tpu_torch.utils import layer_share"
+    ) == []
+
+
+def test_server_import_loads_no_jax_in_fresh_process():
+    assert _modules_loaded_by("import nano_pearl_tpu_torch.serve") == []
 
 
 def _imported_modules(path: Path) -> set[str]:

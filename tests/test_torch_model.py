@@ -22,7 +22,7 @@ from nano_pearl_tpu.ops.kv_cache import make_kv_cache
 from nano_pearl_tpu_torch import config as tcfg
 from nano_pearl_tpu_torch.engine.runner import GroupRunner
 from nano_pearl_tpu_torch.engine.sequence import SeqView
-from nano_pearl_tpu_torch.models.transformer import compute_logits, init_params_numpy
+from nano_pearl_tpu_torch.models.transformer import init_params_numpy
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BS, NB, GAMMA = 16, 24, 3
@@ -125,10 +125,9 @@ def test_prefill_decode_verify_match_jax(arch):
         vp[i, :n_in], vc[i, :n_in] = p, p + 1
         vs[i, :n_in] = [v.block_table[x // BS] * BS + x % BS for x in p]
     flat = [x.reshape(-1) for x in (vt, vp, vs)]
-    hidden = runner.packed_verify_forward(
+    got = runner.packed_verify_forward(
         *map(torch.from_numpy, flat), torch.from_numpy(bt), torch.from_numpy(vc.reshape(-1)), GAMMA
     )
-    got = compute_logits(runner.cfg, runner.params, hidden)
     attn = partial(jatt.paged_attention_grouped, scale=scale, rows_per_group=GAMMA, use_pallas=False)
     jkv, want = _jforward(jm, jparams, jkv, jrope, *flat, attn, (jnp.asarray(bt), jnp.asarray(vc.reshape(-1))))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
