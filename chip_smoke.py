@@ -13,31 +13,41 @@ script exits non-zero without its last line):
 3. kernels: K1 (paged decode), K2 (packed verify) and K3 (causal prefill)
    at the main path's shapes (8x128 heads) and at the serving path's
    (16x64 heads: 128 decode rows, verify chunks of 16 groups x 8 rows,
-   8 prompts in a 128-row bucket), and K4 (prefill over a cached prefix)
+   8 prompts in a 128-row bucket), K4 (prefill over a cached prefix)
    at the serve pair's prefix hit, a chunked-prefill pass and the bench
-   pair's head width, against their plain PyTorch versions (bf16, within one
+   pair's head width, and the throughput path's K5 (mono-schedule
+   attention: the B=32 decode, and 14 rows per group), K7 (cache-side
+   partials of the deferred verify, 32 groups x 14 rows) and K12 (its
+   writeback, bit for bit over the whole cache), against their plain
+   PyTorch versions (bf16, within one
    rounding of the output to bf16: rtol 8e-3, atol 1e-3), K2's rows
    against K1 bit for bit, and kernel / plain / library
-   (scaled_dot_product_attention, a yardstick the port never calls)
-   times from CUDA events with the L2 cache flushed before each launch;
+   (scaled_dot_product_attention or index_copy_, yardsticks the port
+   never calls) times from CUDA events with the L2 cache flushed before
+   each launch;
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
    op whose outputs differ is printed, and the engine's decode must give
-   bitwise-equal logits;
+   bitwise-equal logits; then decode_verify_bitwise_throughput, the same
+   probe under the throughput profile, printed and not asserted;
 5. exactness: an f32 layer-share pair (2L/6L, B=4, gamma=4) at full width
-   must give PEARL tokens == AR tokens;
+   must give PEARL tokens == AR tokens; throughput_exactness: the same
+   under the throughput profile with a noisy draft, rejections included;
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
    prompt 64, greedy: 145 PEARL rounds, then AR over the same window;
+   throughput_path: the same run with draft_noise 0.005 under the
+   throughput profile (bench.py --draft-noise 0.005);
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
-Each path (main path, serving) sets every launch counter to 0 just
-before it and reads them just after. Then one {"kernels": [...]} line,
-the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+Each path (main path, throughput path, serving) sets every launch
+counter to 0 just before it and reads them just after. Then one
+{"kernels": [...]} line, the nvidia-smi line, and the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -137,10 +147,23 @@ def lib_yardstick(fn, layout, want, real=None):
     return fn
 
 
-def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> dict:
-    """K1 on one decode row per context in ``ctx0``."""
+def grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale):
+    """One SDPA call over each group's gathered K/V with an explicit mask
+    (``rows`` query rows per group), and the layout back to [N, Hq, D]."""
     import torch.nn.functional as F
 
+    groups = bt.shape[0]
+    k, v = gathered(cache, layer, bt, hkv, d)
+    k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+    qg = q.reshape(groups, rows, hq, d).transpose(1, 2)
+    cr = ctx.reshape(groups, rows)
+    mask = (torch.arange(k.shape[2], device=q.device)[None, None, :] < cr[:, :, None])[:, None]
+    return (lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale),
+            lambda o: o.transpose(1, 2).reshape(-1, hq, d))
+
+
+def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> dict:
+    """K1 on one decode row per context in ``ctx0``."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), 1, ctx0, nb=nb, hq=hq, hkv=hkv, d=d)
@@ -149,14 +172,7 @@ def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> di
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL)
-    k, v = gathered(cache, layer, bt, hkv, d)
-    k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
-    mask = (torch.arange(k.shape[2], device=dev)[None, :] < ctx[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib = lib_yardstick(
-        lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, scale=scale),
-        lambda o: o[:, :, 0], want,
-    )
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, 1, hq, hkv, d, scale), want)
     sum_ctx = float(ctx.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + sum_ctx * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * sum_ctx * hq * d)
@@ -174,8 +190,6 @@ def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> di
 def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
     """K2 on one verify chunk: a group of ``rows`` staircase rows per
     context in ``ctx0``; its rows must equal K1's bit for bit."""
-    import torch.nn.functional as F
-
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     groups = len(ctx0)
@@ -188,16 +202,8 @@ def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict
     single = kpa.paged_decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
     if not torch.equal(single, got):
         raise AssertionError(f"{name}: K2 rows differ from K1 on the same query and context")
-    k, v = gathered(cache, layer, bt, hkv, d)
-    k, v = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
-    qg = q.reshape(groups, rows, hq, d).transpose(1, 2)
-    cr = ctx.reshape(groups, rows)
-    mask = (torch.arange(k.shape[2], device=dev)[None, None, :] < cr[:, :, None])[:, None]
-    lib = lib_yardstick(
-        lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale),
-        lambda o: o.transpose(1, 2).reshape(-1, hq, d), want,
-    )
-    kv_tokens = float(cr.max(dim=1).values.sum())
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale), want)
+    kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
     return dict(
@@ -250,12 +256,125 @@ def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
     )
 
 
+def mono_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
+    """K5 on one group of ``rows`` staircase rows per context in ``ctx0``
+    (rows 1: the throughput profile's decode)."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+
+    groups = len(ctx0)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d)
+    args = (q, cache, layer, bt, ctx, scale, rows)
+    got, want = kmo.mono_attention(*args), kmo.plain_mono(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale), want)
+    kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * 2
+    b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
+    return dict(
+        name=name, kernel="mono_attention", route="cuda", source="nano_pearl_tpu_torch/csrc/mono_attention.cu",
+        replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:612",
+        max_abs_err=err, ms=time_ms(lambda: kmo.mono_attention(*args), 50, flush),
+        plain_ms=time_ms(lambda: kmo.plain_mono(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
+    )
+
+
+def cache_partials_row(gen, dev, flush, hq=8, d=128, hkv=2, layer=1, groups=32, rows=14) -> dict:
+    """K7 at the throughput path's verify: 32 groups x 14 rows whose cache
+    side is each group's pre-round context ctx0 (its rows see ctx0 + 1 ..
+    ctx0 + 14 with the fresh window), one group a padding row of the
+    batch bucket with cache context 0. The yardstick is SDPA over the
+    gathered cache, for o only."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+
+    ctx0 = np.random.default_rng(4).permutation(np.linspace(65, 2300, groups).astype(int))
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0 + 1, hq=hq, hkv=hkv, d=d)
+    c0 = torch.as_tensor(ctx0, dtype=torch.int32, device=dev)
+    c0[0] = 0
+    ctx_cache = torch.minimum(ctx, c0.repeat_interleave(rows)).contiguous()
+    args = (q, cache, layer, bt, ctx_cache, scale, rows)
+    got, want = kmo.cache_partials(*args), kmo.plain_partials(*args)
+    torch.cuda.synchronize()
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL)
+    for g, w in zip(got[1:], want[1:]):  # f32 m and l: summation order only
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    if not bool((got[0][:rows] == 0).all() and (got[2][:rows] == 0).all()):
+        raise AssertionError("K7: rows with cache context 0 must give o = 0 and l = 0")
+    real = ctx_cache > 0
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx_cache, rows, hq, hkv, d, scale),
+                        want[0], real)
+    n = q.shape[0]
+    nbytes = 2 * q.numel() * 2 + 2 * n * hq * 4 + bt.numel() * 4 + ctx.numel() * 4 \
+        + float(c0.sum()) * 2 * hkv * d * 2
+    b_ms, b_by = bound(nbytes, 4 * float(ctx_cache.sum()) * hq * d)
+    return dict(
+        name="cache_partials", kernel="cache_partials", route="cuda",
+        source="nano_pearl_tpu_torch/csrc/mono_attention.cu",
+        replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:1799",
+        max_abs_err=err, ms=time_ms(lambda: kmo.cache_partials(*args), 50, flush),
+        plain_ms=time_ms(lambda: kmo.plain_partials(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        library="SDPA over the gathered cache, o only",
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, cache_ctx_max=int(ctx_cache.max()),
+                   zero_context_rows=int((ctx_cache == 0).sum())),
+    )
+
+
+def write_fresh_row(gen, dev, flush, nl=36, nb=520, bs=256, hkv=2, d=128, groups=32, rows=14) -> dict:
+    """K12 at the throughput path's writeback: one round's fresh K/V of 36
+    layers x 448 rows into the target's cache, each group's 14 slots from
+    its pre-round context through its own pages (crossing a page where the
+    window does), the last two groups padding rows of the batch bucket,
+    whose slots repeat in the garbage block. Held bit for bit against the
+    plain version over the whole cache; the yardstick is the port's
+    per-layer store, index_copy_, over the same rows at once."""
+    from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
+
+    hd = hkv * d
+    cache = torch.randn((nl, 2, nb + 1, bs, hd), generator=gen, device=dev).to(torch.bfloat16)
+    fresh = torch.randn((nl, 2, groups * rows, hd), generator=gen, device=dev).to(torch.bfloat16)
+    ctx0 = np.random.default_rng(5).permutation(np.linspace(64, 2300, groups).astype(int))
+    pages = np.random.default_rng(6).permutation(nb)
+    slots = np.empty((groups, rows), np.int64)
+    for g, c in enumerate(ctx0):
+        pos = c + np.arange(rows)
+        slots[g] = pages[g * 10 + pos // bs] * bs + pos % bs
+    slots[-2:] = nb * bs + np.arange(rows) % bs  # padding rows: garbage block, repeated
+    slots = torch.as_tensor(slots.reshape(-1), dtype=torch.int32, device=dev)
+    want = kkw.plain_write_fresh(cache.clone(), fresh, slots)
+    got = kkw.write_fresh_kernel(cache.clone(), fresh, slots)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K12 differs from its plain version")
+    del got, want
+    flat = cache.view(-1, hd)
+    planes = torch.arange(2 * nl, device=dev)[:, None] * ((nb + 1) * bs)
+    idx = (planes + slots.long()[None, :]).reshape(-1)
+    vals = fresh.reshape(-1, hd)
+    nbytes = 2 * fresh.numel() * 2 + slots.numel() * 4
+    b_ms, b_by = bound(nbytes, 0.0)
+    return dict(
+        name="write_fresh", kernel="write_fresh", route="cuda", source="nano_pearl_tpu_torch/csrc/kv_writeback.cu",
+        replaces="nano_pearl_tpu/ops/pallas/kv_writeback.py:44",
+        max_abs_err=0.0, ms=time_ms(lambda: kkw.write_fresh_kernel(cache, fresh, slots), 50, flush),
+        plain_ms=time_ms(lambda: kkw.plain_write_fresh(cache, fresh, slots), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: flat.index_copy_(0, idx, vals), 50, flush),
+        library="index_copy_ of all 2L x N rows", bitwise_equal=True,
+        shape=dict(layers=nl, rows=groups * rows, row_bytes=hd * 2, padding_rows=2 * rows),
+    )
+
+
 def kernel_phase(dev, flush) -> list[dict]:
     """Every kernel at the shapes each path gives it, first the row that
     stands for it in the kernels line: K1-K3 at the main path's (bench
     pair, 8x128 heads) and at the serving path's (serve pair, 16x64
     heads), K4 at the serving path's prefix hit, a chunked pass and the
-    bench pair's heads."""
+    bench pair's heads, K5, K7 and K12 at the throughput path's."""
     gen = torch.Generator(dev).manual_seed(0)
     spread = lambda n, hi, seed: np.random.default_rng(seed).permutation(  # noqa: E731
         np.linspace(65, hi, n).astype(int))
@@ -272,6 +391,13 @@ def kernel_phase(dev, flush) -> list[dict]:
         verify_row(gen, dev, flush, "paged_verify_serve", spread(16, 3200, 3), 8, hq=16, d=64),
         prefill_row(gen, dev, flush, "prefill_self_serve", 8, 128, 64, hq=16, d=64),
         *prefix_kernel_rows(gen, dev, flush),
+        # throughput path: the B=32 decode through K5; K5 at a packed
+        # verify's 14 rows per group; K7 and K12 at the deferred verify's
+        # 32 groups x 14 rows
+        mono_row(gen, dev, flush, "mono_attention", spread(32, 2300, 0), 1, hq=8, d=128),
+        mono_row(gen, dev, flush, "mono_attention_r14", spread(32, 2300, 1), 14, hq=8, d=128),
+        cache_partials_row(gen, dev, flush),
+        write_fresh_row(gen, dev, flush),
     ]
     for r in rows:
         emit({"phase": "kernel", **r})
@@ -367,19 +493,19 @@ def model_config(layers: int, dtype: str):
     )
 
 
-def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev):
+def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0):
     """The bench's engine set-up (bench.py run()) on the port."""
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
     md, mt = model_config(ld, dtype), model_config(lt, dtype)
-    dp, tp = build_layer_share_pair(md, mt, seed=0)
+    dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
     max_len = max(256, 1 << (prompt_len + steps * (gamma + 1) + 64).bit_length())
     cfg = PearlConfig(
         draft_model=md, target_model=mt, max_model_len=max_len,
         max_num_batched_tokens=max(16384, batch * prompt_len), kvcache_block_size=256,
         num_kvcache_blocks=batch * (max_len // 256) + 8, gamma=gamma,
-        max_num_seqs=max(batch, 8), seed=0, dtype=dtype,
+        max_num_seqs=max(batch, 8), seed=0, dtype=dtype, perf_profile=profile,
     )
     return PearlEngine(cfg, dp, tp, device=dev)
 
@@ -392,11 +518,14 @@ def add_requests(engine, rng, batch, prompt_len, max_tokens):
         engine.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
 
 
-def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_layers: int):
+def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_layers: int,
+                   store: bool = True):
     """``models.transformer.forward`` + ``compute_logits`` op by op, keeping
     the output of every op of the first ``trace_layers`` layers, the final
-    norm and the logits as (name, tensor). The caller checks that it
-    reproduces the real forward bit for bit."""
+    norm and the logits as (name, tensor). ``attn_fn`` is called as
+    ``run_layers`` calls it; ``store`` False leaves the cache alone, as
+    the deferred verify's layers do. The caller checks that it reproduces
+    the real forward bit for bit."""
     import torch.nn.functional as F
 
     from nano_pearl_tpu_torch.models.transformer import compute_logits, rms_norm
@@ -421,8 +550,13 @@ def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_l
         q = apply_rope(q.reshape(-1, hq, d), rope_rows)
         k = apply_rope(k.reshape(-1, hkv, d), rope_rows)
         rec("q_rope", q), rec("k_rope", k)
-        write_kv(runner.kv, k, v.reshape(-1, hkv, d), slots, li)
-        o = attn_fn(q, runner.kv, li, *attn_args)
+        v = v.reshape(-1, hkv, d)
+        if store:
+            write_kv(runner.kv, k, v, slots, li)
+        if getattr(attn_fn, "wants_fresh_and_cache", False):
+            o = attn_fn(q, k, v, runner.kv, li, *attn_args)
+        else:
+            o = attn_fn(q, runner.kv, li, *attn_args)
         rec("attention", o)
         attn_out = o.reshape(-1, hq * d) @ lay["wo"][li]
         rec("o_gemm", attn_out)
@@ -457,9 +591,15 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
     step) pairs whose logits differ. With ``system_len`` every prompt
     starts with one shared prefix of that many tokens, which all but the
     first request read from the prefix cache (kernel K4), and contexts
-    span several key chunks of K1/K2."""
+    span several key chunks of K1/K2. Under the throughput profile the
+    decode is K5's and the verify the deferred one (K7 + fresh window)."""
     from nano_pearl_tpu_torch.engine.fused import _row_slots
-    from nano_pearl_tpu_torch.ops.attention import paged_attention, paged_attention_grouped
+    from nano_pearl_tpu_torch.engine.runner import _deferred_attn
+    from nano_pearl_tpu_torch.ops.attention import (
+        paged_attention,
+        paged_attention_grouped,
+        paged_attention_mono,
+    )
     from nano_pearl_tpu_torch.ops.sampling import greedy
 
     from nano_pearl_tpu_torch import SamplingParams
@@ -479,6 +619,14 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
     last = torch.gather(tokens, 1, (length - 1)[:, None].long())[:, 0]
     dev = length.device
     n_draft = dr.cfg.num_hidden_layers  # the target's first layers are the draft's
+    decode_attn = paged_attention_mono if dr.use_mono else paged_attention
+
+    def traced_verify(t, p, sl, bt, c):
+        if not tr.deferred_verify:
+            return traced_forward(tr, t, p, sl, paged_attention_grouped, (bt, c, tr.scale, gamma), n_draft)
+        ctx0 = c.reshape(-1, gamma)[:, 0] - 1
+        return traced_forward(tr, t, p, sl, _deferred_attn, (bt, c, ctx0, tr.scale, gamma), n_draft,
+                              store=False)
 
     def gamma_scan(calls, rows):
         """Traced decode steps in ``calls`` calls of ``rows`` rows (padding
@@ -495,7 +643,7 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
             for c in range(calls):
                 t, p, s_, b_, c_ = (x[c * rows : (c + 1) * rows] for x in (tok, pos, sl, bt, ctx))
                 logits.append(dr.decode_step(t, p, s_, b_, c_))
-                per_call.append(traced_forward(dr, t, p, s_, paged_attention, (b_, c_, dr.scale), n_draft))
+                per_call.append(traced_forward(dr, t, p, s_, decode_attn, (b_, c_, dr.scale), n_draft))
                 if not torch.equal(per_call[-1][-1][1], logits[-1]):
                     raise AssertionError("the traced decode does not reproduce the real one")
             steps.append([(name, torch.cat([ops[i][1] for ops in per_call]))
@@ -520,8 +668,8 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
         flat = [x.reshape(-1).contiguous() for x in (vt, vp, vs, vp + 1)]
         want = tr.packed_verify_forward(flat[0], flat[1], flat[2], state["bt_t"], flat[3], gamma)
         per_chunk = [
-            traced_forward(tr, t, p, sl, paged_attention_grouped, (bt, c, tr.scale, gamma), n_draft)
-            for t, p, sl, bt, c in tr.verify_chunks(*flat[:3], state["bt_t"], flat[3], gamma)
+            traced_verify(*chunk)
+            for chunk in tr.verify_chunks(*flat[:3], state["bt_t"], flat[3], gamma)
         ]
         v_ops = [(name, torch.cat([ch[i][1] for ch in per_chunk])[: b_pad * gamma])
                  for i, (name, _) in enumerate(per_chunk[0])]
@@ -578,6 +726,25 @@ def decode_verify_bitwise_phase(dev) -> None:
         raise AssertionError(f"decode and verify logits differ at the engine's shapes: {bad}")
 
 
+def decode_verify_throughput_phase(dev) -> None:
+    """The same probe under the throughput profile (K5 decode at the batch
+    bucket's rows, deferred verify through K7 and the fresh window) on the
+    noiseless bench pair, B=32, gamma=14, and the MAT of 10 PEARL rounds
+    there: where the two streams first round apart, before the profile's
+    MAT is trusted. Nothing is asserted: the profile does not promise
+    bitwise agreement."""
+    batch, gamma, prompt_len, rounds = 32, 14, 64, 10
+    engine = pair_engine(3, 36, "bfloat16", batch, gamma, rounds, prompt_len, dev, profile="throughput")
+    probe = probe_decode_verify(engine, batch, gamma)
+    add_requests(engine, np.random.default_rng(1), batch, prompt_len, rounds * (gamma + 1))
+    _, num_tokens, _, _ = engine.bench_generate(num_pearl_steps=rounds)
+    mat = float(np.mean([(n - 1) / rounds for n in num_tokens]))
+    emit({"phase": "decode_verify_bitwise_throughput", "dtype": "bfloat16",
+          "pair": "bench 3L/36L, 8x128 q heads, noiseless", **probe, "mat_10_rounds": mat})
+    del engine
+    torch.cuda.empty_cache()
+
+
 def exactness_phase(dev) -> None:
     """f32 layer-share pair: the PEARL stream must equal the AR stream."""
     batch, gamma, prompt_len = 4, 4, 64
@@ -600,13 +767,51 @@ def exactness_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path_phase(dev, steps: int = 145) -> dict:
+def throughput_exactness_phase(dev, draft_noise: float = 0.005) -> None:
+    """The throughput profile on the f32 2L/6L pair at full width with a
+    noisy draft (B=4, gamma=4): rounds reject and roll back over deferred
+    writes, and every PEARL token the target verified must equal AR's at
+    its position. A request that finishes on an accepted round ends with
+    its last draft window unverified (the finish rule of the JAX package
+    and the reference), so those gamma tokens are left out; AR runs
+    2 * gamma tokens further so that it covers every PEARL stream."""
+    batch, gamma, prompt_len = 4, 4, 64
+    max_tokens = 1 + 16 * gamma
+    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, profile="throughput",
+                         draft_noise=draft_noise)
+    add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
+    pearl, n_pearl, acc, _ = engine.generate_token_ids()
+    add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens + 2 * gamma)
+    ar, _, _, _ = engine.AR_generate_token_ids()
+    verified = [len(p) - gamma for p in pearl]
+    bad = [i for i, (p, a, n) in enumerate(zip(pearl, ar, verified)) if n <= 0 or p[:n] != a[:n]]
+    if bad:
+        raise AssertionError(f"f32 throughput PEARL != AR for requests {bad}")
+    # a request whose every round accepted has one accepted-token emit
+    rejections = sum(len(a) - 1 for a in acc)
+    emit({"phase": "throughput_exactness", "pearl_equals_ar": True, "tokens": n_pearl,
+          "verified_tokens_compared": verified, "rounds_with_a_rejection": rejections,
+          "accepted_tokens": [sum(a) for a in acc],
+          "config": f"f32 layer-share 2L/6L full width, draft_noise {draft_noise}, B=4, gamma=4, "
+                    "throughput profile"})
+    if rejections < 1:
+        raise AssertionError("no round rejected: the noisy draft did not exercise rollback")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def bench_run(dev, steps: int, profile: str, draft_noise: float) -> tuple[dict, dict]:
+    """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
+    gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
+    same window on the same prompts. The launch counters are set to 0
+    just before the measured runs. Returns (the phase's line without its
+    name, launches)."""
     counters = kernel_counters()
     batch, gamma, prompt_len = 32, 14, 64
     ar_max_tokens = steps * (gamma + 1)
     ar_steps = ar_max_tokens - 1  # prefill commits one token per sequence
     t0 = time.perf_counter()
-    engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev)
+    engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise)
     build_s = time.perf_counter() - t0
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
     add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
@@ -626,6 +831,8 @@ def main_path_phase(dev, steps: int = 145) -> dict:
     launches = {k: fn.launches for k, fn in counters.items()}
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
     peak = torch.cuda.max_memory_allocated(dev)
+    del engine
+    torch.cuda.empty_cache()
 
     pearl_tps = sum(num_tokens) / pearl_t
     ar_tps = sum(ar_tokens) / ar_t
@@ -641,35 +848,58 @@ def main_path_phase(dev, steps: int = 145) -> dict:
         next((j for j, (x, y) in enumerate(zip(p, a)) if x != y), min(len(p), len(a)))
         for p, a in zip(pearl_toks, ar_toks)
     ]
-    if not all(launches[k] > 0 for k in ("paged_decode", "paged_verify", "prefill_self")):
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
     out = {
-        "phase": "main_path",
         "config": "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, "
-                  "vocab 32768, B=32, gamma=14, prompt 64, greedy, ceiling profile",
+                  f"vocab 32768, B=32, gamma=14, prompt 64, greedy, {profile} profile"
+                  + (f", draft_noise {draft_noise}" if draft_noise else ""),
         "pearl_rounds": steps, "ar_steps": ar_steps,
         "pearl_tok_s": pearl_tps, "ar_tok_s": ar_tps, "speedup": pearl_tps / ar_tps, "mat": mat,
         "pearl_s": pearl_t, "ar_s": ar_t, "engine_build_s": build_s,
         "launches": launches, "launches_pearl_run": pearl_launches, "launches_ar_run": ar_launches,
-        "paged_decode_per_pearl_round": pearl_launches["paged_decode"] / steps,
-        "paged_verify_per_pearl_round": pearl_launches["paged_verify"] / steps,
-        "paged_decode_per_ar_step": ar_launches["paged_decode"] / ar_steps,
+        "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
+        "launches_per_ar_step": {k: n / ar_steps for k, n in ar_launches.items() if n},
         "pearl_vs_ar_first_divergence_mean": float(np.mean(agree)),
         "pearl_vs_ar_identical_streams": sum(p == a for p, a in zip(pearl_toks, ar_toks)),
         "cuda_peak_memory_gib": peak / 2**30,
     }
-    emit(out)
-    if mat != gamma:  # the layer-share ceiling: the draft's decode and the verify round alike
-        raise AssertionError(f"MAT {mat} below the layer-share ceiling {gamma}")
+    return out, launches
+
+
+def main_path_phase(dev, steps: int = 145) -> dict:
+    """The bench's default run (ceiling profile, noiseless pair) on the port."""
+    gamma = 14
+    out, launches = bench_run(dev, steps, "ceiling", 0.0)
+    emit({"phase": "main_path", **out})
+    if not all(launches[k] > 0 for k in ("paged_decode", "paged_verify", "prefill_self")):
+        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    if out["mat"] != gamma:  # the layer-share ceiling: decode and verify round alike
+        raise AssertionError(f"MAT {out['mat']} below the layer-share ceiling {gamma}")
+    return launches
+
+
+def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> dict:
+    """``bench.py --draft-noise 0.005`` on the port: the throughput profile
+    (bench.py picks it for noisy drafts), decode through K5, the deferred
+    verify through K7 and one K12 writeback per round, prefill through
+    K3. Streams are not compared in bf16 (near-tied random logits fork)."""
+    out, launches = bench_run(dev, steps, "throughput", draft_noise)
+    emit({"phase": "throughput_path", **out})
+    wanted = ("prefill_self", "mono_attention", "cache_partials", "write_fresh")
+    if not all(launches[k] > 0 for k in wanted) or launches["paged_decode"] or launches["paged_verify"]:
+        raise AssertionError(f"the throughput path must run K3, K5, K7 and K12 and not K1/K2: {launches}")
     return launches
 
 
 def kernel_counters() -> dict:
+    from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
     from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
     return {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
-            "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix}
+            "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix,
+            "mono_attention": kmo.mono_attention, "cache_partials": kmo.cache_partials,
+            "write_fresh": kkw.write_fresh_kernel}
 
 
 def serve_args(*extra: str):
@@ -914,8 +1144,11 @@ def main() -> int:
     kernels = kernel_phase(dev, flush)
     del flush
     decode_verify_bitwise_phase(dev)
+    decode_verify_throughput_phase(dev)
     exactness_phase(dev)
+    throughput_exactness_phase(dev)
     by_path = {"main_path": main_path_phase(dev)}
+    by_path["throughput_path"] = throughput_path_phase(dev)
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

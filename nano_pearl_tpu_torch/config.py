@@ -4,7 +4,7 @@ A copy of ``nano_pearl_tpu/config.py`` (the port imports nothing of the
 JAX package), so both packages read the same ``ModelConfig`` /
 ``PearlConfig`` fields and the tests can build one config for both.
 Fields that only the JAX package acts on (mesh placement, parallel
-layouts, quantisation, the throughput profile) are kept so configs stay
+layouts, quantisation) are kept so configs stay
 interchangeable; the port's engine raises on the ones it does not run
 yet (engine/engine.py).
 
@@ -301,12 +301,16 @@ class PearlConfig:
     # fewer devices than draft_tp+target_tp the groups share devices
     # (still correct; concurrency degrades gracefully).
     devices: object = None
-    # Kernel-schedule profile:
+    # Kernel-schedule profile (engine/runner.py resolves it; the JAX
+    # package's NANO_PEARL_* overrides are not ported):
     # - "ceiling": per-sequence attention kernels + classic write-then-read
     #   verify: the schedule whose draft-decode and verify logits agree
-    #   most often at identical weights (the layer-share bench).
-    # - "throughput": the deferred-write verify schedule of the JAX
-    #   package. Not ported yet; the port's engine raises on it.
+    #   most often at identical weights (the layer-share bench). Kernels:
+    #   K1 decode, K2 packed verify, K3/K4 prefill.
+    # - "throughput": mono-schedule decode + deferred-write verify (fresh
+    #   K/V kept out of the cache during the layers, written back once per
+    #   round), for pairs whose acceptance comes from real divergence.
+    #   Kernels: K5 decode, K7 + K12 packed verify, K3/K4 prefill.
     perf_profile: str = "ceiling"
     # Classic-verify sequence-group chunk cap (0 = off, -1 = profile
     # default: 16 under "ceiling", 0 otherwise): packed verifies run in

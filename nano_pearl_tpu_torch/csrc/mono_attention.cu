@@ -1,0 +1,282 @@
+// Grouped paged attention on the mono schedule, for sm_90a: the
+// "throughput" profile's attention kernels.
+//
+// K5 npt_mono_attention: R query rows per group share one block table,
+//   each row with its own (staircase) context; decode is R = 1. Replaces
+//   nano_pearl_tpu/ops/pallas/paged_attention.py _grouped_kernel_db_mono
+//   (entry _mono_call, stream _mono_stream).
+// K7 npt_cache_partials: the same walk over the pre-round cache only,
+//   exporting flash partials (o normalised, m, l) per row and head instead
+//   of the normalised output: the cache half of the deferred-write verify.
+//   A row with context 0 gives o = 0, m = -1e29 and l = 0. Replaces
+//   _grouped_kernel_db_mono_partial (entry
+//   paged_attention_pallas_grouped_cache_partials).
+//
+// The TPU kernels walk one flat stream of (group, 1024-key chunk) items
+// in one grid step, counted from each group's own context, so no step
+// goes to a group's empty chunks. Here: ONE launch per call. Every block
+// computes the per-group chunk counts (ceil(max context of the group's
+// rows / kChunk), at least 1) and their prefix sum in shared memory from
+// the context array on the device, and then walks the flat work list of
+// (group, key chunk, KV head) items, item = blockIdx.x, + gridDim.x, ...
+// The grid is as many blocks as the card holds at once (or fewer), so
+// every block stays resident and the list covers exactly the real chunks.
+//
+// An item folds its chunk into the group's R * G query vectors (G = Hq /
+// Hkv) with flash_tile.cuh's tile update. A group with one chunk writes
+// its result directly. Otherwise each item writes its (acc, m, l)
+// partials, and the block that completes a (group, head) last, found with
+// an arrival counter, folds that (group, head)'s partials in chunk order
+// 0, 1, ... and writes the output; it also resets the counter to 0, so
+// the counters are zero again when the launch ends. The fold reads the
+// stored partials in a fixed order whichever block arrives last, so the
+// result does not depend on the blocks' timing. The fold order differs
+// from K1/K2's (partials of K1's separate combine launch); nothing under
+// the throughput profile relies on decode == verify bit for bit.
+//
+// Bound on the H100: bytes. A group reads its context's K/V once per KV
+// head (ctx * 2 * Hkv * D elements) and does 4 * ctx * Hq * D flops per
+// row, 4 * R flops per byte at bf16 with G = 4: 4 at decode (R = 1), 56
+// at the packed verify (R = 14), both under the card's ~295 flops per
+// byte. The tile update runs on CUDA cores (no tensor cores yet).
+#include "flash_tile.cuh"
+
+namespace npt {
+
+constexpr int kMonoChunk = 256;  // key positions per work item (4 tiles)
+
+struct MonoMask {
+  const int* ctx;  // [R] context of each row, shared memory
+  int g, c0;
+  __device__ bool operator()(int qi, int t) const { return c0 + t < ctx[qi / g]; }
+};
+
+// Chunks of group g: ceil(max row context / kMonoChunk), at least 1 (a
+// group whose rows all have context 0 still gets its floor outputs), at
+// most max_chunks (the block table's width).
+__device__ __forceinline__ int group_chunks(const int* ctx, int g, int rows, int max_chunks) {
+  int c = 0;
+  for (int r = 0; r < rows; ++r) c = max(c, ctx[g * rows + r]);
+  return min(max_chunks, max(1, (c + kMonoChunk - 1) / kMonoChunk));
+}
+
+// cum[g] = chunks of groups 0 .. g-1, cum[groups] = all chunks: a block-wide
+// exclusive scan, each thread over a contiguous run of groups. Ends with a
+// barrier.
+__device__ void chunk_prefix(const int* ctx, int groups, int rows, int max_chunks, int* cum) {
+  __shared__ int warp_sum[kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (groups + blockDim.x - 1) / blockDim.x;
+  const int lo = min(groups, tid * per), hi = min(groups, lo + per);
+  int local = 0;
+  for (int g = lo; g < hi; ++g) local += group_chunks(ctx, g, rows, max_chunks);
+  int incl = local;  // inclusive scan within the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int before = incl - local;
+  for (int w = 0; w < warp; ++w) before += warp_sum[w];
+  for (int g = lo; g < hi; ++g) {
+    cum[g] = before;
+    before += group_chunks(ctx, g, rows, max_chunks);
+  }
+  if (tid == blockDim.x - 1) cum[groups] = before;
+  __syncthreads();
+}
+
+// q, out [groups * rows, hq, d]; bt [groups, m]; ctx [groups * rows].
+// kPartial: also m_out, l_out [groups * rows, hq] f32. part_acc [pairs,
+// hkv, rows * G, d] and part_ml [pairs, hkv, rows * G, 2] f32 scratch with
+// pairs = groups * max_chunks; counters [groups * hkv], zero on entry and
+// on exit.
+template <typename T, bool kPartial>
+__global__ void __launch_bounds__(kThreads)
+mono_kernel(const T* __restrict__ q, const T* __restrict__ cache, const int* __restrict__ bt,
+            const int* __restrict__ ctx, T* __restrict__ out, float* __restrict__ m_out,
+            float* __restrict__ l_out, float* part_acc, float* part_ml, int* counters,
+            int groups, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
+            long long v_off, float scale, int max_chunks) {
+  const int tid = threadIdx.x, g_heads = hq / hkv, nq = rows * g_heads, hd = hkv * d;
+  Flash<T> f;
+  int* ctx_s = reinterpret_cast<int*>(flash_carve(f, nq, d));  // [rows]
+  int* cum = ctx_s + rows;                                      // [groups + 1]
+  __shared__ int s_last;
+
+  chunk_prefix(ctx, groups, rows, max_chunks, cum);
+  const int total = cum[groups] * hkv;
+  const int vecs = d / 8;
+
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    const int p = item / hkv, kh = item - p * hkv;
+    int lo = 0, hi = groups - 1;  // the last group with cum[g] <= p
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (cum[mid] <= p) lo = mid; else hi = mid - 1;
+    }
+    const int grp = lo, ci = p - cum[grp], nch = cum[grp + 1] - cum[grp];
+    for (int r = tid; r < rows; r += blockDim.x) ctx_s[r] = ctx[grp * rows + r];
+    for (int idx = tid; idx < nq * d; idx += blockDim.x) {
+      const int qi = idx / d, c = idx - qi * d;
+      const long long row = (long long)grp * rows + qi / g_heads;
+      f.qs[idx] = to_f32(q[(row * hq + kh * g_heads + qi % g_heads) * d + c]);
+    }
+    flash_init_stats(f);
+    __syncthreads();
+    int ctx_max = 0;
+    for (int r = 0; r < rows; ++r) ctx_max = max(ctx_max, ctx_s[r]);
+    const int c_begin = ci * kMonoChunk, c_end = min(ctx_max, c_begin + kMonoChunk);
+    const int* bt_row = bt + (long long)grp * m;
+
+    for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
+      for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
+        const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
+        T* kd = f.ks + t * f.pitch + c;
+        T* vd = f.vs + t * f.pitch + c;
+        if (pos < c_end) {
+          const int page = min(pos / bs, m - 1);
+          const long long slot = (long long)bt_row[page] * bs + pos % bs;
+          copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
+          copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
+        } else {
+          zero8(kd);
+          zero8(vd);
+        }
+      }
+      __syncthreads();
+      flash_tile_update(f, scale, MonoMask{ctx_s, g_heads, c0});
+    }
+
+    if (nch == 1) {  // the group's only chunk: write the result directly
+      for (int idx = tid; idx < nq * d; idx += blockDim.x) {
+        const int qi = idx / d, c = idx - qi * d;
+        const long long slot = ((long long)grp * rows + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
+        out[slot * d + c] = flash_out(f, idx);
+        if (kPartial && c == 0) {
+          m_out[slot] = f.m[qi];
+          l_out[slot] = f.l[qi];
+        }
+      }
+    } else {
+      const long long base = ((long long)p * hkv + kh) * nq;
+      for (int idx = tid; idx < nq * d; idx += blockDim.x) {
+        const int qi = idx / d, c = idx - qi * d;
+        part_acc[(base + qi) * d + c] = f.acc[idx];
+        if (c == 0) {
+          part_ml[(base + qi) * 2] = f.m[qi];
+          part_ml[(base + qi) * 2 + 1] = f.l[qi];
+        }
+      }
+      __threadfence();  // this block's partials are visible before its arrival
+      __syncthreads();
+      if (tid == 0) s_last = atomicAdd(counters + grp * hkv + kh, 1) == nch - 1;
+      __syncthreads();
+      if (s_last) {
+        __threadfence();
+        const long long first = (long long)cum[grp];
+        for (int idx = tid; idx < nq * d; idx += blockDim.x) {
+          const int qi = idx / d, c = idx - qi * d;
+          float mg = kMFloor;
+          for (int ch = 0; ch < nch; ++ch)
+            mg = fmaxf(mg, __ldcg(part_ml + (((first + ch) * hkv + kh) * nq + qi) * 2));
+          float l = 0.f, a = 0.f;
+          for (int ch = 0; ch < nch; ++ch) {
+            const long long at = ((first + ch) * hkv + kh) * nq + qi;
+            const float w = expf(__ldcg(part_ml + at * 2) - mg);
+            l = fmaf(__ldcg(part_ml + at * 2 + 1), w, l);
+            a = fmaf(__ldcg(part_acc + at * d + c), w, a);
+          }
+          const long long slot = ((long long)grp * rows + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
+          out[slot * d + c] = from_f32<T>(a / fmaxf(l, 1e-30f));
+          if (kPartial && c == 0) {
+            m_out[slot] = mg;
+            l_out[slot] = l;
+          }
+        }
+        if (tid == 0) counters[grp * hkv + kh] = 0;
+      }
+    }
+    __syncthreads();  // shared memory is reused by the next item
+  }
+}
+
+template <typename T, bool kPartial>
+cudaError_t launch(int groups, int rows, const void* q, const void* cache, const int* bt,
+                   const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
+                   float* part_ml, int* counters, int m, int hq, int hkv, int d, int bs,
+                   long long k_off, long long v_off, float scale, int max_chunks,
+                   cudaStream_t stream) {
+  auto kernel = mono_kernel<T, kPartial>;
+  const size_t smem =
+      flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * ((size_t)rows + groups + 1));
+  cudaError_t err = flash_set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long most = (long long)groups * max_chunks * hkv;  // items, at most
+  const long long resident = (long long)sms * per_sm;
+  const int grid = (int)(most < resident ? most : resident);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(cache), bt, ctx, static_cast<T*>(out),
+      m_out, l_out, part_acc, part_ml, counters, groups, rows, m, hq, hkv, d, bs, k_off, v_off,
+      scale, max_chunks);
+  return cudaGetLastError();
+}
+
+template <bool kPartial>
+cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, const int* bt,
+                     const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
+                     float* part_ml, int* counters, int m, int hq, int hkv, int d, int bs,
+                     long long k_off, long long v_off, float scale, int max_chunks, int is_bf16,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, kPartial>(groups, rows, q, cache, bt, ctx, out, m_out, l_out,
+                                           part_acc, part_ml, counters, m, hq, hkv, d, bs, k_off,
+                                           v_off, scale, max_chunks, s);
+  return launch<float, kPartial>(groups, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
+                                 part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                 max_chunks, s);
+}
+
+}  // namespace npt
+
+extern "C" {
+
+// Key positions per work item: the wrapper sizes the scratch with it.
+int npt_mono_chunk_tokens() { return npt::kMonoChunk; }
+
+// K5. q, out [b * rows, hq, d]; bt [b, m]; ctx [b * rows], each >= 1;
+// part_acc [b * max_chunks, hkv, rows * hq / hkv, d] and part_ml [..., 2]
+// f32 scratch, max_chunks = ceil(m * bs / npt_mono_chunk_tokens());
+// counters [b * hkv] int32, zero. Returns cudaGetLastError().
+int npt_mono_attention(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
+                       float* part_acc, float* part_ml, int* counters, int b, int rows, int m,
+                       int hq, int hkv, int d, int bs, long long k_off, long long v_off,
+                       float scale, int max_chunks, int is_bf16, void* stream) {
+  return (int)npt::dispatch<false>(b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
+                                   part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                   max_chunks, is_bf16, stream);
+}
+
+// K7. As K5, ctx >= 0, plus m_out and l_out [b * rows, hq] f32.
+int npt_cache_partials(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
+                       float* m_out, float* l_out, float* part_acc, float* part_ml, int* counters,
+                       int b, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
+                       long long v_off, float scale, int max_chunks, int is_bf16, void* stream) {
+  return (int)npt::dispatch<true>(b, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
+                                  part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                  max_chunks, is_bf16, stream);
+}
+
+const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

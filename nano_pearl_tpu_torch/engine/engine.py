@@ -12,6 +12,14 @@
     done, deltas = engine.serve_step(fused_rounds=4, with_deltas=True)
     engine.cancel(seq_id); engine.stats()
 
+Kernels by ``PearlConfig.perf_profile`` (engine/runner.py):
+
+- "ceiling" (the default): prefill K3, or K4 on prefix-cache hits; decode
+  (the draft's gamma-scan, AR) K1; the classic chunked packed verify K2;
+- "throughput": prefill K3/K4; decode K5 (mono schedule); the
+  deferred-write packed verify K7 (cache-side partials, merged with the
+  fresh window as plain ops) and one K12 writeback per round.
+
 The port runs the fused path on one device: draft and target share it,
 and with ``num_kvcache_blocks=-1`` their KV pools are sized together
 from one budget. Its entry points run on CUDA unless the caller asks
@@ -59,7 +67,6 @@ def _check_config(config: PearlConfig) -> None:
         ),
         "execution_mode='overlap'": config.execution_mode == "overlap",
         "acceptance-adaptive gamma (gamma=-1)": config.gamma <= 0,
-        "the 'throughput' perf profile": config.perf_profile != "ceiling",
         "an explicit device list": config.devices is not None,
     }
     missing = [k for k, v in unsupported.items() if v]

@@ -15,8 +15,9 @@ streams are identical after every verify-apply:
 
 so one token buffer and one length vector represent both views.
 
-The draft's decode runs in calls of exactly the row count of one
-packed-verify chunk (``GroupRunner.verify_chunk_rows``,
+While a cap chunks the packed verify (``verify_group_cap``, 16 under
+the "ceiling" profile), the draft's decode runs in calls of exactly the
+row count of one packed-verify chunk (``GroupRunner.decode_call_rows``,
 ``verify_group_cap`` groups whatever the batch): a smaller batch is
 padded up to it, a larger one padded to a multiple of it and decoded
 chunk by chunk. So the draft's decode and the target's verify of the
@@ -26,7 +27,9 @@ round that drafts a window and the round that verifies it. cuBLAS picks
 its kernel by shape: on an H100, 32 decode rows against a 224-row verify
 chunk already round the FFN's down projection differently
 (chip_smoke.py's decode_verify_bitwise phase). The layer-share pair's
-acceptance ceiling rests on this.
+acceptance ceiling rests on this. With no cap (the "throughput"
+profile's default: its deferred verify folds attention in another order
+anyway) the decode runs at the batch bucket's rows in one call.
 """
 
 from __future__ import annotations
@@ -79,8 +82,9 @@ class FusedPearl:
 
     def decode_chunking(self, b: int, gamma: int) -> tuple[int, int]:
         """(calls, rows per call) of each gamma-scan decode step over b
-        rows: calls of one verify chunk's row count (module doc)."""
-        rows = self.target.verify_chunk_rows(b, gamma)
+        rows: calls of one verify chunk's row count under a verify cap, one
+        call of b rows without (module doc)."""
+        rows = self.target.decode_call_rows(b, gamma)
         return -(-b // rows), rows
 
     def _draft_gamma(self, tokens_last, positions, bt, ctx, gamma: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Per-model device runner: weights, paged KV cache and step functions
-(counterpart of nano_pearl_tpu/engine/runner.py, "ceiling" profile).
+(counterpart of nano_pearl_tpu/engine/runner.py).
 
 One ``GroupRunner`` owns one model's weights, rope table and KV cache on
 one device and runs its phases eagerly:
@@ -10,9 +10,20 @@ one device and runs its phases eagerly:
   straight out of the cache (kernel K4);
 - ``decode_step``: one decode step over B rows (AR and the draft's
   gamma-scan, a Python loop of these steps in engine/fused.py);
-- ``packed_verify_forward``: the target's classic write-then-read packed
-  verify, cut into chunks of at most ``verify_group_cap`` sequences so
-  B=32 runs as two chunks of 16 groups.
+- ``packed_verify_forward``: the target's packed verify, cut into chunks
+  of at most ``verify_group_cap`` sequences (B=32 runs as two chunks of
+  16 groups under the "ceiling" profile, as one under "throughput").
+
+The kernel schedule follows ``PearlConfig.perf_profile``, resolved once
+here (the JAX package's ``NANO_PEARL_*`` overrides are not ported):
+
+- "ceiling": decode through K1; the classic write-then-read verify, each
+  layer storing its K/V (``write_kv``) before K2 reads them back;
+- "throughput": decode through K5 (the mono schedule); the deferred-write
+  verify: each layer collects its fresh K/V into a dense [L, 2, N,
+  Hkv*D] buffer and attends the pre-round cache through K7 merged with
+  the fresh window, and one K12 writeback stores the round after the
+  layers.
 
 The KV cache is allocated after both models' weights are on the device
 (``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
@@ -38,10 +49,12 @@ from nano_pearl_tpu_torch.models.transformer import (
 from nano_pearl_tpu_torch.ops.attention import (
     paged_attention,
     paged_attention_grouped,
+    paged_attention_grouped_fresh,
+    paged_attention_mono,
     prefill_prefix_attention,
     prefill_self_attention,
 )
-from nano_pearl_tpu_torch.ops.kv_cache import make_kv_cache
+from nano_pearl_tpu_torch.ops.kv_cache import make_kv_cache, write_fresh
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
 from nano_pearl_tpu_torch.utils.logging import logger
 
@@ -104,6 +117,7 @@ class GroupRunner:
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
         self.verify_group_cap = pcfg.verify_group_cap
+        self.use_mono = self.deferred_verify = pcfg.perf_profile == "throughput"
         if params is None:
             logger.warning(f"[{name}] no weights given; random-initializing")
             params = init_params_numpy(mcfg, np.random.default_rng(seed))
@@ -197,10 +211,12 @@ class GroupRunner:
         return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
 
     def decode_step(self, tokens, positions, slots, block_tables, context_lens) -> torch.Tensor:
-        """One decode step over B rows (device tensors); returns logits [B, V]."""
+        """One decode step over B rows (device tensors); returns logits [B, V].
+        Attention through K5 under the throughput profile, K1 otherwise."""
+        attn = paged_attention_mono if self.use_mono else paged_attention
         hidden = forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            paged_attention, (block_tables, context_lens, self.scale),
+            attn, (block_tables, context_lens, self.scale),
         )
         return compute_logits(self.cfg, self.params, hidden)
 
@@ -221,6 +237,15 @@ class GroupRunner:
     def verify_chunk_rows(self, b: int, gamma: int) -> int:
         """Rows of one packed-verify chunk of a b-sequence batch."""
         return self._verify_chunking(b, gamma)[1] * gamma
+
+    def decode_call_rows(self, b: int, gamma: int) -> int:
+        """Rows of one gamma-scan decode call over b rows: one verify chunk's
+        rows while a cap chunks the verify, so that the draft's decode and
+        the target's verify run their products at one shape (the ceiling
+        profile's bitwise agreement, engine/fused.py); without a cap (the
+        throughput profile's default) the b rows of the batch bucket, as
+        the JAX package decodes."""
+        return self.verify_chunk_rows(b, gamma) if self.verify_group_cap else b
 
     def verify_chunks(self, tokens, positions, slots, block_tables, context_lens, gamma: int):
         """The packed verify's inputs cut into chunks: a list of (tokens,
@@ -254,18 +279,52 @@ class GroupRunner:
         logits [B*gamma, V]. Chunks are disjoint sequences, so the only
         state they share is the cache, written chunk after chunk. The LM
         head runs per chunk too, so every product of the verify has the
-        chunk's row count."""
-        logits = []
-        for toks, pos, sl, bt, ctx in self.verify_chunks(
-            tokens, positions, slots, block_tables, context_lens, gamma
-        ):
-            hidden = forward(
-                self.cfg, self.params, self.kv, toks, pos, sl, self.rope_table,
-                paged_attention_grouped, (bt, ctx, self.scale, gamma),
+        chunk's row count. Each chunk runs the deferred-write forward under
+        the throughput profile, the classic write-then-read one otherwise."""
+        fwd = self._deferred_forward if self.deferred_verify else self._classic_forward
+        logits = [
+            compute_logits(self.cfg, self.params, fwd(*chunk, gamma))
+            for chunk in self.verify_chunks(
+                tokens, positions, slots, block_tables, context_lens, gamma
             )
-            logits.append(compute_logits(self.cfg, self.params, hidden))
+        ]
         out = logits[0] if len(logits) == 1 else torch.cat(logits)
         return out[: tokens.shape[0]]
+
+    def _classic_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
+        """Each layer writes its K/V into the cache, then K2 reads the
+        group's context back through the block table."""
+        return forward(
+            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
+            paged_attention_grouped, (block_tables, context_lens, self.scale, gamma),
+        )
+
+    def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
+        """Deferred-write packed verify of one chunk (``_deferred_forward``
+        of the JAX package): each layer collects its fresh K/V into a dense
+        [L, 2, N, Hkv*D] buffer and leaves the cache alone; attention reads
+        the pre-round cache plus the fresh window
+        (``paged_attention_grouped_fresh``); one writeback stores the whole
+        round after the layers (K12)."""
+        cfg = self.cfg
+        n = tokens.shape[0]
+        b = n // gamma
+        # pre-round context per group: row 0 is always a real row whose
+        # context holds exactly itself of the fresh window
+        ctx0 = context_lens.reshape(b, gamma)[:, 0] - 1
+        hd = cfg.num_key_value_heads * cfg.head_dim
+        fresh = torch.empty((cfg.num_hidden_layers, 2, n, hd), dtype=self.kv.dtype, device=self.device)
+
+        def collect(cache, k, v, slots, li):
+            torch.stack((k.reshape(n, hd), v.reshape(n, hd)), out=fresh[li])
+
+        hidden = forward(
+            cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
+            _deferred_attn, (block_tables, context_lens, ctx0, self.scale, gamma),
+            kv_write_fn=collect,
+        )
+        write_fresh(self.kv, fresh, slots)
+        return hidden
 
     def sample_tokens(
         self, logits, temps: np.ndarray, generator: torch.Generator | None,
@@ -295,3 +354,12 @@ def _prefix_prefill(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)
 
 
 _prefix_prefill.wants_fresh_and_cache = True
+
+
+def _deferred_attn(q, k, v, cache, layer_idx, group_tables, context_lens, ctx0, scale, gamma):
+    return paged_attention_grouped_fresh(
+        q, cache, layer_idx, group_tables, context_lens, ctx0, k, v, scale, gamma
+    )
+
+
+_deferred_attn.wants_fresh_and_cache = True

@@ -144,13 +144,17 @@ def run_layers(
     slots: torch.Tensor,  # [N] flat KV slots (garbage block for pads)
     attn_fn,
     attn_args: tuple,
+    kv_write_fn=write_kv,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The decoder layers; returns (x, res). ``attn_fn`` marked
     ``wants_fresh_kv`` is called as ``attn_fn(q, k, v, *attn_args)`` (the
     fresh-KV prefill), one marked ``wants_fresh_and_cache`` as
-    ``attn_fn(q, k, v, cache, layer, *attn_args)`` (the prefix prefill),
-    otherwise as ``attn_fn(q, cache, layer, *attn_args)``; every layer
-    writes its K/V into the cache before its attention runs."""
+    ``attn_fn(q, k, v, cache, layer, *attn_args)`` (the prefix prefill and
+    the deferred-write verify), otherwise as ``attn_fn(q, cache, layer,
+    *attn_args)``. Every layer hands its post-rope K/V to
+    ``kv_write_fn(cache, k, v, slots, layer)`` before its attention runs:
+    ``write_kv`` stores them in the cache; the deferred verify's hook
+    (engine/runner.py) collects them and leaves the cache alone."""
     d = cfg.head_dim
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     eps = cfg.rms_norm_eps
@@ -174,7 +178,7 @@ def run_layers(
             k = rms_norm(k, layers["k_norm"][li], eps)
         q = apply_rope(q, rope_rows)
         k = apply_rope(k, rope_rows)
-        write_kv(kv_cache, k, v, slots, li)
+        kv_write_fn(kv_cache, k, v, slots, li)
         if fresh:
             o = attn_fn(q, k, v, *attn_args)
         elif fresh_and_cache:
@@ -200,15 +204,17 @@ def forward(
     rope_table: torch.Tensor,  # [max_pos, D]
     attn_fn,
     attn_args: tuple,
+    kv_write_fn=write_kv,
 ) -> torch.Tensor:
-    """Run the decoder stack; returns the final-normed hidden [N, H]."""
+    """Run the decoder stack; returns the final-normed hidden [N, H]
+    (``kv_write_fn``: see ``run_layers``)."""
     x = params["embed"][tokens.long()]
     # positions past the table reuse its last row, as JAX's gather clamps
     # out-of-range indices (the bench's 2239-token window on a 2048-row table)
     rope_rows = rope_table[torch.clamp(positions.long(), max=rope_table.shape[0] - 1)]
     x, res = run_layers(
         cfg, params["layers"], kv_cache, x, torch.zeros(x.shape, dtype=torch.float32, device=x.device),
-        rope_rows, slots, attn_fn, attn_args,
+        rope_rows, slots, attn_fn, attn_args, kv_write_fn,
     )
     final = x.float() + res
     return rms_norm(final, params["final_ln"], cfg.rms_norm_eps, out_dtype=x.dtype)

@@ -15,10 +15,23 @@ against, and what the kernels' wrappers run for tensors on the CPU:
 - ``prefill_prefix_attention_ref``: prefill over a cached prefix read
   through the block table plus the fresh causal window
   (``gather_prefix_kv`` + ``prefill_prefix_attention_jnp``); kernel K4.
+- Kernel K5 (the "throughput" profile's mono schedule) computes what K1
+  and K2 compute, so its plain versions are ``paged_attention_ref`` and
+  ``paged_attention_grouped_ref``.
+- ``paged_attention_grouped_cache_partials_ref``: flash partials
+  (o, m, l) of grouped attention over the pre-round cache only; kernel
+  K7, the cache half of the deferred-write verify.
+- ``fresh_window_partials`` and ``merge_attn_partials``: the fresh-window
+  half of the deferred verify and the (m, l) softmax merge of the two
+  halves, plain torch ops on every device as in the JAX package.
+- ``paged_attention_grouped_fresh_ref``: the deferred verify's attention
+  as one softmax over cache and fresh keys
+  (``paged_attention_grouped_fresh_jnp``), the yardstick of the merge.
 
 The dispatchers ``paged_attention``, ``paged_attention_grouped``,
+``paged_attention_mono``, ``paged_attention_grouped_fresh``,
 ``prefill_self_attention`` and ``prefill_prefix_attention`` hand every
-call to the kernel's wrapper in
+kernel call to the kernel's wrapper in
 ``ops/cuda``, which takes the plain version only for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 """
@@ -30,6 +43,7 @@ import torch
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
 NEG_INF = -1e30
+M_FLOOR = -1e29  # running-max floor of the partials: nothing visible gives l = 0
 
 
 def _gather_kv(cache: torch.Tensor, layer_idx: int, block_tables: torch.Tensor, head_dim: int):
@@ -93,6 +107,119 @@ def paged_attention_grouped_ref(
     valid = torch.arange(s, device=q.device)[None, None, :] < ctx[:, :, None]
     p = _masked_softmax(scores, valid[:, :, None, None, :])
     out = torch.einsum("brkgs,bskd->brkgd", p, v.float())
+    return out.reshape(n, hq, d).to(q.dtype)
+
+
+def _flash_partials(scores: torch.Tensor, visible: torch.Tensor, v: torch.Tensor, dtype):
+    """(o normalised by its own sum, in ``dtype``; m, the row max floored at
+    ``M_FLOOR``; l, the sum of exp(s - m)) of scores [B, R, Hkv, G, S]
+    with ``visible`` [B, R, S] against values v [B, S, Hkv, D] f32; o is
+    [B*R, Hq, D], m and l f32 [B*R, Hq]."""
+    b, r, hkv, g, _ = scores.shape
+    vis = visible[:, :, None, None, :]
+    scores = torch.where(vis, scores, torch.full_like(scores, M_FLOOR))
+    m = scores.amax(dim=-1)  # [B, R, Hkv, G]
+    p = torch.where(vis, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
+    l = p.sum(dim=-1)  # noqa: E741
+    o = torch.einsum("brkgs,bskd->brkgd", p, v) / torch.clamp(l, min=1e-30)[..., None]
+    n, hq = b * r, hkv * g
+    return o.reshape(n, hq, -1).to(dtype), m.reshape(n, hq), l.reshape(n, hq)
+
+
+def paged_attention_grouped_cache_partials_ref(
+    q: torch.Tensor,  # [B*R, Hq, D]
+    cache: torch.Tensor,  # [L, 2, NB+1, BS, Hkv*D], read only
+    layer_idx: int,
+    group_tables: torch.Tensor,  # [B, M]
+    context_lens: torch.Tensor,  # [B*R] cache-side context per row (may be 0)
+    scale: float,
+    rows_per_group: int,
+):
+    """Flash partials of grouped attention over the cache only: (o
+    normalised by its own sum, in q's dtype; m, the row max floored at
+    ``M_FLOOR``; l, the sum of exp(s - m)), m and l f32 [B*R, Hq]. A row
+    with context 0 gives o = 0, m = M_FLOOR and l = 0, as the Pallas
+    kernel's ``_init_scratch_floor`` start does."""
+    n, hq, d = q.shape
+    b, r = group_tables.shape[0], rows_per_group
+    k, v = _gather_kv(cache, layer_idx, group_tables, d)  # [B, S, Hkv, D]
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, r, hkv, hq // hkv, d).float()
+    scores = torch.einsum("brkgd,bskd->brkgs", qg, k.float()) * scale
+    ctx = context_lens.reshape(b, r)
+    vis = torch.arange(s, device=q.device)[None, None, :] < ctx[:, :, None]
+    return _flash_partials(scores, vis, v.float(), q.dtype)
+
+
+def fresh_window_partials(
+    q: torch.Tensor,  # [B*R, Hq, D]
+    fresh_k: torch.Tensor,  # [B*R, Hkv, D] this layer's post-rope fresh keys
+    fresh_v: torch.Tensor,  # [B*R, Hkv, D]
+    context_lens: torch.Tensor,  # [B*R] per-row context incl. visible fresh rows
+    ctx0: torch.Tensor,  # [B] pre-round context per group
+    scale: float,
+    rows_per_group: int,
+):
+    """Flash partials (o normalised, m, l) of each packed-verify row over
+    its group's fresh window only: fresh row t sits at position ctx0 + t
+    and row i sees it iff that position < context_lens[i]. Dense [B, R, R]
+    scores in f32, as ``fresh_window_partials`` of the JAX package; o is
+    rounded to q's dtype there too."""
+    n, hq, d = q.shape
+    r = rows_per_group
+    b = n // r
+    hkv = fresh_k.shape[1]
+    qb = q.reshape(b, r, hkv, hq // hkv, d).float()
+    fk = fresh_k.reshape(b, r, hkv, d).float()
+    fv = fresh_v.reshape(b, r, hkv, d).float()
+    scores = torch.einsum("brkgd,bskd->brkgs", qb, fk) * scale
+    pos_f = ctx0[:, None, None] + torch.arange(r, device=q.device)[None, None, :]
+    vis = pos_f < context_lens.reshape(b, r)[:, :, None]
+    return _flash_partials(scores, vis, fv, q.dtype)
+
+
+def merge_attn_partials(o1, m1, l1, o2, m2, l2, dtype):
+    """Softmax-combine two flash partial sets (o normalised by its own sum,
+    m the row max, l the sum of exp); a side with nothing visible carries
+    l = 0 and adds nothing."""
+    m_g = torch.maximum(m1, m2)
+    w1 = l1 * torch.exp(m1 - m_g)
+    w2 = l2 * torch.exp(m2 - m_g)
+    num = o1.float() * w1[..., None] + o2.float() * w2[..., None]
+    return (num / torch.clamp(w1 + w2, min=1e-30)[..., None]).to(dtype)
+
+
+def paged_attention_grouped_fresh_ref(
+    q: torch.Tensor,  # [B*R, Hq, D]
+    cache: torch.Tensor,  # holds the pre-round context only (positions < ctx0)
+    layer_idx: int,
+    group_tables: torch.Tensor,  # [B, M]
+    context_lens: torch.Tensor,  # [B*R] per-row context incl. visible fresh rows
+    ctx0: torch.Tensor,  # [B] pre-round context per group
+    fresh_k: torch.Tensor,  # [B*R, Hkv, D]
+    fresh_v: torch.Tensor,  # [B*R, Hkv, D]
+    scale: float,
+) -> torch.Tensor:
+    """The deferred-write verify's attention as one softmax: cache position
+    p is visible iff p < min(ctx_row, ctx0), fresh row t (position ctx0 +
+    t) iff ctx0 + t < ctx_row. Equals writing the fresh rows and then
+    running ``paged_attention_grouped_ref``."""
+    n, hq, d = q.shape
+    b = group_tables.shape[0]
+    r = n // b
+    k, v = _gather_kv(cache, layer_idx, group_tables, d)  # [B, S, Hkv, D]
+    s, hkv = k.shape[1], k.shape[2]
+    k = torch.cat([k.float(), fresh_k.reshape(b, r, hkv, d).float()], dim=1)
+    v = torch.cat([v.float(), fresh_v.reshape(b, r, hkv, d).float()], dim=1)
+    qb = q.reshape(b, r, hkv, hq // hkv, d).float()
+    scores = torch.einsum("brkgd,bskd->brkgs", qb, k) * scale
+    ctx = context_lens.reshape(b, r)
+    lim_c = torch.minimum(ctx, ctx0[:, None])[:, :, None]
+    vis_c = torch.arange(s, device=q.device)[None, None, :] < lim_c
+    vis_f = ctx0[:, None, None] + torch.arange(r, device=q.device)[None, None, :] < ctx[:, :, None]
+    visible = torch.cat([vis_c, vis_f], dim=2)[:, :, None, None, :]
+    p = _masked_softmax(scores, visible)
+    out = torch.einsum("brkgs,bskd->brkgd", p, v)
     return out.reshape(n, hq, d).to(q.dtype)
 
 
@@ -190,6 +317,31 @@ def paged_attention_grouped(
     return paged_verify(
         q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
     )
+
+
+def paged_attention_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
+    """Grouped paged attention on the mono schedule (decode at
+    ``rows_per_group`` 1): kernel K5 on the card, the plain version on the
+    CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.mono_attention import mono_attention
+
+    return mono_attention(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+
+
+def paged_attention_grouped_fresh(
+    q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale, rows_per_group
+):
+    """The deferred-write verify's attention, as the JAX package's "merge"
+    mode: kernel K7's partials over the pre-round cache (cache-side context
+    ``min(ctx_row, ctx0)``), the fresh window's partials as plain ops, and
+    their (m, l) merge. The cache holds no fresh row."""
+    from nano_pearl_tpu_torch.ops.cuda.mono_attention import cache_partials
+
+    r = rows_per_group
+    ctx_cache = torch.minimum(context_lens, ctx0.repeat_interleave(r)).contiguous()
+    oc, mc, lc = cache_partials(q, cache, layer_idx, group_tables, ctx_cache, scale, r)
+    of, mf, lf = fresh_window_partials(q, fresh_k, fresh_v, context_lens, ctx0, scale, r)
+    return merge_attn_partials(oc, mc, lc, of, mf, lf, q.dtype)
 
 
 def prefill_self_attention(q, k, v, q_positions, scale):

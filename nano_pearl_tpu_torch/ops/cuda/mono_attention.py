@@ -1,0 +1,129 @@
+"""Kernels K5 (grouped attention, mono schedule) and K7 (cache-side flash
+partials of the deferred verify): wrappers of ``csrc/mono_attention.cu``.
+
+K5 ``mono_attention`` replaces ``_grouped_kernel_db_mono`` (entry
+``_mono_call``) and K7 ``cache_partials`` replaces
+``_grouped_kernel_db_mono_partial`` (entry
+``paged_attention_pallas_grouped_cache_partials``), both in
+nano_pearl_tpu/ops/pallas/paged_attention.py. K5 computes what K1 and K2
+compute, so its plain versions are ``paged_attention_ref`` (one row per
+group) and ``paged_attention_grouped_ref``; K7's is
+``paged_attention_grouped_cache_partials_ref`` (ops/attention.py).
+
+What bounds them on the H100: bytes (a group's K/V is read once per KV
+head; 4 flops per byte at decode, 4 * R in a packed verify of R rows per
+group, far under the card's ~295). The design answer, after the TPU
+kernels' flat (group, chunk) stream: one launch per call, whose resident
+blocks walk a work list of (group, 256-key chunk, KV head) items counted
+on the device from each group's own context, and the block that finishes
+a (group, head) last folds its chunks' partials in chunk order in the same
+launch (the source's header has the details).
+
+Each wrapper takes the plain version for CPU tensors, launches the kernel
+for CUDA tensors (counting the launch in ``.launches``), and raises on
+anything else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nano_pearl_tpu_torch.ops.attention import (
+    paged_attention_grouped_cache_partials_ref,
+    paged_attention_grouped_ref,
+    paged_attention_ref,
+)
+from nano_pearl_tpu_torch.ops.cuda import build
+from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_inputs
+from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+
+plain_partials = paged_attention_grouped_cache_partials_ref
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# arrival counters per device: zero between launches (each launch resets
+# the entries it used)
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def plain_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
+    """K5's plain version: K1's for one row per group, K2's otherwise."""
+    if rows_per_group == 1:
+        return paged_attention_ref(q, cache, layer_idx, group_tables, context_lens, scale)
+    return paged_attention_grouped_ref(
+        q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
+    )
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("mono_attention")
+    if not getattr(lib, "_npt_typed", False):
+        tail = [_I] * 7 + [_LL, _LL, _F, _I, _I, _P]
+        lib.npt_mono_attention.argtypes = [_P] * 8 + tail
+        lib.npt_cache_partials.argtypes = [_P] * 10 + tail
+        lib.npt_mono_attention.restype = _I
+        lib.npt_cache_partials.restype = _I
+        lib.npt_mono_chunk_tokens.restype = _I
+        lib._npt_typed = True
+    return lib
+
+
+def _scratch(lib, groups, rows, hq, hkv, d, m, bs, device):
+    """(max_chunks, f32 partial acc, f32 (m, l), int32 arrival counters)."""
+    max_chunks = -(-m * bs // lib.npt_mono_chunk_tokens())
+    nq = rows * (hq // hkv)
+    acc = torch.empty((groups * max_chunks, hkv, nq, d), dtype=torch.float32, device=device)
+    ml = torch.empty((groups * max_chunks, hkv, nq, 2), dtype=torch.float32, device=device)
+    cnt = _counters.get(device)
+    if cnt is None or cnt.numel() < groups * hkv:
+        cnt = _counters[device] = torch.zeros(max(1024, groups * hkv), dtype=torch.int32, device=device)
+    return max_chunks, acc, ml, cnt
+
+
+def _launch(fn, what, q, cache, layer_idx, group_tables, context_lens, scale, r, outs):
+    if r < 1:
+        raise ValueError(f"rows_per_group must be >= 1, got {r}")
+    b = group_tables.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, b, b * r)
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    lib = _lib()
+    max_chunks, acc, ml, cnt = _scratch(lib, b, r, hq, hkv, d, m, bs, q.device)
+    err = getattr(lib, fn)(
+        q.data_ptr(), cache.data_ptr(), group_tables.data_ptr(), context_lens.data_ptr(),
+        *(t.data_ptr() for t in outs), acc.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
+        b, r, m, hq, hkv, d, bs, k_off, v_off, float(scale), max_chunks,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, what)
+
+
+def mono_attention(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
+    """K5: q [B*R, Hq, D]; the R rows of a group share its block table row
+    and each has its own context (>= 1). R = 1 is decode."""
+    if q.device.type == "cpu":
+        return plain_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    out = torch.empty_like(q)
+    _launch("npt_mono_attention", "mono_attention", q, cache, layer_idx, group_tables,
+            context_lens, scale, int(rows_per_group), (out,))
+    mono_attention.launches += 1
+    return out
+
+
+def cache_partials(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group):
+    """K7: (o normalised in q's dtype, m, l f32 [B*R, Hq]) over the cache
+    only, with cache-side contexts (>= 0; 0 gives o = 0, m = -1e29, l = 0)."""
+    if q.device.type == "cpu":
+        return plain_partials(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    n, hq = q.shape[0], q.shape[1]
+    o = torch.empty_like(q)
+    m_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
+    l_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
+    _launch("npt_cache_partials", "cache_partials", q, cache, layer_idx, group_tables,
+            context_lens, scale, int(rows_per_group), (o, m_out, l_out))
+    cache_partials.launches += 1
+    return o, m_out, l_out
+
+
+mono_attention.launches = 0
+cache_partials.launches = 0

@@ -8,7 +8,9 @@ are the columns ``[h*D, (h+1)*D)``. The last block (index
 being skipped.
 
 Unlike the JAX package, ``write_kv`` updates the cache in place (one
-``index_copy_`` per layer, no copy of the cache) and returns it.
+``index_copy_`` per layer, no copy of the cache) and returns it, and so
+does the deferred verify's whole-round writeback ``write_fresh`` (kernel
+K12 on the card, ``write_fresh_ref`` on the CPU).
 """
 
 from __future__ import annotations
@@ -64,6 +66,35 @@ def write_kv(
     vals = torch.cat([k.reshape(n, hd), v.reshape(n, hd)]).to(cache.dtype)
     cache.view(-1, hd).index_copy_(0, idx, vals)
     return cache
+
+
+def write_fresh_ref(
+    cache: torch.Tensor,  # [L, 2, NB+1, BS, Hkv*D]
+    fresh: torch.Tensor,  # [L, 2, N, Hkv*D] one round's K/V of every layer
+    slots: torch.Tensor,  # [N] int flat slot per row
+) -> torch.Tensor:
+    """Store a round's fresh K/V of every layer at their flat slots, in
+    place: the semantics of ``write_fresh_jnp`` (L x 2 row scatters in one).
+    Where several rows name one slot (padding rows in the garbage block)
+    the last row wins, as a scatter applied in row order leaves it. Slots
+    outside ``[0, (NB+1)*BS)`` are dropped."""
+    l, two, nb1, bs, hd = cache.shape
+    n = slots.shape[0]
+    s = slots.long()
+    later = torch.arange(n, device=s.device)
+    dup = ((s[None, :] == s[:, None]) & (later[None, :] > later[:, None])).any(dim=1)
+    keep = ~dup & (s >= 0) & (s < nb1 * bs)
+    rows = cache.view(l * two, nb1 * bs, hd)
+    rows[:, s[keep]] = fresh.reshape(l * two, n, hd)[:, keep].to(cache.dtype)
+    return cache
+
+
+def write_fresh(cache: torch.Tensor, fresh: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """The deferred verify's writeback: kernel K12 on the card, the plain
+    version on the CPU. Updates ``cache`` in place and returns it."""
+    from nano_pearl_tpu_torch.ops.cuda.kv_writeback import write_fresh_kernel
+
+    return write_fresh_kernel(cache, fresh, slots)
 
 
 def garbage_slots(num_blocks: int, block_size: int, n: int, device=None) -> torch.Tensor:

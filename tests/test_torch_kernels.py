@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels K1 (paged decode), K2 (packed verify),
-K3 (causal prefill) and K4 (prefill over a cached prefix) against their
-plain PyTorch versions.
+K3 (causal prefill), K4 (prefill over a cached prefix), K5 (grouped
+attention on the mono schedule), K7 (cache-side partials of the deferred
+verify) and K12 (the deferred verify's writeback) against their plain
+PyTorch versions.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -11,12 +13,16 @@ suite's conftest:
 Tolerances: f32 1e-4 (the kernel folds 64-key tiles with an online
 softmax, the plain version one softmax over all keys); bf16 rtol 8e-3,
 atol 1e-3 (both accumulate in f32 and round the output to bf16 once, so
-they may differ by one bf16 step, at most 2^-7 of the value).
+they may differ by one bf16 step, at most 2^-7 of the value). K7's m and
+l are f32 in both dtypes and held at 1e-4; K12 moves bytes and is held
+bit for bit.
 """
 
 import pytest
 import torch
 
+from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
+from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
 from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
@@ -76,6 +82,21 @@ def prefix_case(seed, dtype, device, hq=16, hkv=2, d=64, lq=40, nb=40, bs=16, nl
     return [to(q), to(k), to(v), to(cache), nl - 1, to(bt), to(nc), to(nn), d**-0.5]
 
 
+def writeback_case(seed, dtype, device, nl=3, nb=20, bs=16, hd=256, groups=4, rows=6):
+    """K12's arguments: a cache, one round's fresh K/V of every layer, and
+    slots as the verify packs them: runs of consecutive slots, one crossing
+    a page boundary, and padding rows that share garbage-block slots."""
+    g = torch.Generator().manual_seed(seed)
+    cache = torch.randn((nl, 2, nb + 1, bs, hd), generator=g).to(dtype)
+    fresh = torch.randn((nl, 2, groups * rows, hd), generator=g).to(dtype)
+    pages = torch.randperm(nb, generator=g)
+    slots = [int(pages[i]) * bs + 3 + j for i in range(groups - 2) for j in range(rows)]
+    slots += [int(pages[groups]) * bs + bs - 2 + j if j < 2 else int(pages[groups + 1]) * bs + j - 2
+              for j in range(rows)]
+    slots += [int(pages[groups + 2]) * bs] + [nb * bs + j % 2 for j in range(1, rows)]
+    return cache.to(device), fresh.to(device), torch.tensor(slots, dtype=torch.int32, device=device)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -102,7 +123,11 @@ def test_wrappers_take_the_plain_version_on_cpu(monkeypatch):
     spy(kpa, "plain_verify")
     spy(kpf, "plain_prefill")
     spy(kpf, "plain_prefix")
-    counters = (kpa.paged_decode, kpa.paged_verify, kpf.prefill_self, kpf.prefill_prefix)
+    spy(kmo, "plain_mono")
+    spy(kmo, "plain_partials")
+    spy(kkw, "plain_write_fresh")
+    counters = (kpa.paged_decode, kpa.paged_verify, kpf.prefill_self, kpf.prefill_prefix,
+                kmo.mono_attention, kmo.cache_partials, kkw.write_fresh_kernel)
     before = [fn.launches for fn in counters]
     args = paged_case(0, 4, 1, torch.float32, "cpu")
     assert kpa.paged_decode(*args) is returned[-1]
@@ -112,7 +137,12 @@ def test_wrappers_take_the_plain_version_on_cpu(monkeypatch):
     assert kpf.prefill_self(*args) is returned[-1]
     args = prefix_case(3, torch.float32, "cpu")
     assert kpf.prefill_prefix(*args) is returned[-1]
-    assert len(returned) == 4
+    args = paged_case(4, 4, 3, torch.float32, "cpu")
+    assert kmo.mono_attention(*args, 3) is returned[-1]
+    assert kmo.cache_partials(*args, 3) is returned[-1]
+    cache, fresh, slots = writeback_case(5, torch.float32, "cpu")
+    assert kkw.write_fresh_kernel(cache, fresh, slots) is returned[-1]
+    assert len(returned) == 7
     assert [fn.launches for fn in counters] == before
 
 
@@ -206,3 +236,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kpf.prefill_prefix(q, k, v, cache, layer, bt, nc.long(), nn, s)
     with pytest.raises(ValueError):  # cache of another dtype
         kpf.prefill_prefix(q, k, v, cache.to(torch.bfloat16), layer, bt, nc, nn, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 14])
+@pytest.mark.parametrize("heads", [(8, 128), (16, 64)])
+def test_mono_attention_matches_plain(cuda, dtype, rows, heads):
+    """K5 at decode (one row per group) and at a packed verify's 14 rows;
+    contexts up to 1280 positions, so groups span several key chunks."""
+    hq, d = heads
+    args = paged_case(19, 6, rows, dtype, cuda, hq=hq, d=d, m=40)
+    n0 = kmo.mono_attention.launches
+    got = kmo.mono_attention(*args, rows)
+    assert kmo.mono_attention.launches == n0 + 1
+    torch.testing.assert_close(got.float(), kmo.plain_mono(*args, rows).float(), **TOL[dtype])
+    # the arrival counters are back to zero: a second launch agrees bit for bit
+    assert torch.equal(kmo.mono_attention(*args, rows), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_partials_match_plain(cuda, dtype):
+    """K7 with staircase cache contexts, rows at context 0 and one group
+    with no cache context at all."""
+    q, cache, layer, bt, ctx, scale = paged_case(20, 5, 14, dtype, cuda, m=40)
+    ctx = ctx.clone()
+    ctx[::5] = 0
+    ctx[14:28] = 0
+    n0 = kmo.cache_partials.launches
+    got = kmo.cache_partials(q, cache, layer, bt, ctx, scale, 14)
+    assert kmo.cache_partials.launches == n0 + 1
+    want = kmo.plain_partials(q, cache, layer, bt, ctx, scale, 14)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+    empty = ctx == 0
+    assert bool((got[0][empty] == 0).all() and (got[2][empty] == 0).all())
+    assert bool((got[1][empty] == -1e29).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_write_fresh_equals_plain_bitwise(cuda, dtype):
+    cache, fresh, slots = writeback_case(21, dtype, cuda)
+    want = kkw.plain_write_fresh(cache.clone(), fresh, slots)
+    got = cache.clone()
+    n0 = kkw.write_fresh_kernel.launches
+    assert kkw.write_fresh_kernel(got, fresh, slots) is got
+    assert kkw.write_fresh_kernel.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
+def test_throughput_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, cache, layer, bt, ctx, scale = paged_case(22, 3, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):  # cache on another device
+        kmo.mono_attention(q, cache.cpu(), layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):  # dtype mismatch
+        kmo.cache_partials(q.to(torch.bfloat16), cache, layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):  # contexts of 3 rows per group for 2
+        kmo.mono_attention(q, cache, layer, bt, ctx[:-1].contiguous(), scale, 2)
+    cache, fresh, slots = writeback_case(23, torch.float32, cuda)
+    with pytest.raises(ValueError):  # int64 slots
+        kkw.write_fresh_kernel(cache, fresh, slots.long())
+    with pytest.raises(ValueError):  # fresh of another dtype
+        kkw.write_fresh_kernel(cache, fresh.to(torch.bfloat16), slots)
+    with pytest.raises(ValueError):  # fresh rows != slots
+        kkw.write_fresh_kernel(cache, fresh[:, :, :-1].contiguous(), slots)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes on the card: the PyTorch port's main path under
+"""Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py
+    python3 tools/profile_torch_port.py [--paths main,throughput]
 
-Builds the bench's bf16 3L/36L layer-share pair at B=32, gamma=14 (as
-chip_smoke.py does) and drives chip_smoke.py's main-path window: 145 PEARL
-rounds, then 2174 AR steps, on the same prompts. Each loop runs twice:
+For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
+gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
+that path: 145 PEARL rounds, then 2174 AR steps, on the same prompts.
+"main" is the ceiling profile on the noiseless pair; "throughput" the
+throughput profile with draft_noise 0.005 (chip_smoke.py's
+throughput_path). Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -14,15 +17,22 @@ rounds, then 2174 AR steps, on the same prompts. Each loop runs twice:
   alone, between two synchronisations, so the samples spread over the
   whole window and see its growing contexts.
 
-For each loop it prints one JSON line: loop ms per round, sampled device
+For each path and loop it prints one JSON line: loop ms per round, sampled device
 kernel ms per round, the device's idle share (1 - kernel time / loop
-time; the kernels run on one stream), launches per round, and the
-kernels with the most device time, after the card's name and power
-limit. Needs one CUDA card.
+time; the kernels run on one stream), launches per round, the kernels
+with the most device time, and, for PEARL rounds, the host's time per
+round inside each stage of the round (draft gamma-scan, target verify
+and its attention, writeback and LM head, verdict), taken with
+perf_counter around those calls in the unprofiled run: the host only
+enqueues there, so this is dispatch time. It prints the card's name and
+power limit first. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
+import importlib
 import json
 import sys
 import time
@@ -96,12 +106,64 @@ class Windows:
         self.n += 1
 
 
+PATHS = {"main": ("ceiling", 0.0), "throughput": ("throughput", 0.005)}
+# (module, attribute) called once or more per PEARL round: the host time
+# spent inside each is summed; a stage the path does not run reads 0
+HOST_STAGES = {
+    "draft_gamma_scan": ("nano_pearl_tpu_torch.engine.fused", "FusedPearl._draft_gamma"),
+    "target_verify": ("nano_pearl_tpu_torch.engine.fused", "FusedPearl._target_packed"),
+    "verify_attention_k2": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped"),
+    "verify_attention_deferred": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped_fresh"),
+    "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
+    "fresh_window_partials": ("nano_pearl_tpu_torch.ops.attention", "fresh_window_partials"),
+    "merge_attn_partials": ("nano_pearl_tpu_torch.ops.attention", "merge_attn_partials"),
+    "k12_writeback": ("nano_pearl_tpu_torch.engine.runner", "write_fresh"),
+    "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
+    "verdict": ("nano_pearl_tpu_torch.engine.fused", "verify_verdict"),
+}
+
+
+class HostStages:
+    """Wraps each of HOST_STAGES with a perf_counter timer while active."""
+
+    def __init__(self):
+        self.s, self.calls, self.saved = Counter(), Counter(), []
+
+    def __enter__(self):
+        for label, (mod, attr) in HOST_STAGES.items():
+            owner = importlib.import_module(mod)
+            *path, name = attr.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            orig = getattr(owner, name)
+
+            # wraps: a kernel wrapper counts its launches on its own name
+            @functools.wraps(orig)
+            def timed(*args, _orig=orig, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*args, **kwargs)
+                finally:
+                    self.s[_label] += time.perf_counter() - t0
+                    self.calls[_label] += 1
+
+            self.saved.append((owner, name, orig))
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+
+
 def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive) -> dict:
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
-    with PerRound(owner, name) as timed:
+    with PerRound(owner, name) as timed, HostStages() as host:
         drive()
     loop_ms = timed.start.elapsed_time(timed.end)
     n = timed.calls
+    host_stages = {k: {"host_ms_per_" + unit: host.s[k] * 1e3 / n, "calls_per_" + unit: host.calls[k] / n}
+                   for k in HOST_STAGES if host.calls[k]}
 
     windows = Windows()
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -128,6 +190,7 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive)
         "device_idle_share": 1.0 - kernel_ms / (loop_ms / n),
         "device_launches_per_" + unit: windows.launches / windows.n,
         "profiled_run_s": profiled_s,
+        "host_stages": host_stages,
         "top_kernels": [
             {"name": k, "ms_per_" + unit: us / 1e3 / windows.n,
              "launches_per_" + unit: windows.count_by_name[k] / windows.n}
@@ -136,13 +199,9 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive)
     }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_port: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    print(nvidia_smi(), flush=True)
-    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev)
+def profile_path(dev, path: str) -> None:
+    profile, noise = PATHS[path]
+    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -152,10 +211,27 @@ def main() -> int:
 
     out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
                   lambda: engine.bench_generate(num_pearl_steps=ROUNDS))
-    print(json.dumps(out), flush=True)
+    print(json.dumps({"path": path, "profile": profile, "draft_noise": noise, **out}), flush=True)
     out = measure(engine, "ar", "step", fused.target, "decode_step", AR_SAMPLE,
                   lambda: engine.AR_bench_generate(num_steps=AR_STEPS))
-    print(json.dumps(out), flush=True)
+    print(json.dumps({"path": path, "profile": profile, "draft_noise": noise, **out}), flush=True)
+    del engine, fused
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", default="main,throughput", help="comma-separated: " + ", ".join(PATHS))
+    paths = ap.parse_args().paths.split(",")
+    if not set(paths) <= set(PATHS):
+        ap.error(f"unknown path in {paths}")
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(nvidia_smi(), flush=True)
+    for path in paths:
+        profile_path(dev, path)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
