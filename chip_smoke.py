@@ -18,10 +18,13 @@ script exits non-zero without its last line):
    pair's head width, and the throughput path's K5 (mono-schedule
    attention: the B=32 decode, and 14 rows per group), K7 (cache-side
    partials of the deferred verify, 32 groups x 14 rows) and K12 (its
-   writeback, bit for bit over the whole cache), against their plain
-   PyTorch versions (bf16, within one
+   writeback, bit for bit over the whole cache), K9a/K9b/K9c (K1, K2 and
+   K5 over an int8 or e4m3 cache with bf16 scales: the quantized runs'
+   decode, packed verify and mono schedule, each in both 1-byte types),
+   against their plain PyTorch versions (bf16, within one
    rounding of the output to bf16: rtol 8e-3, atol 1e-3), K2's rows
-   against K1 bit for bit, and kernel / plain / library
+   against K1 and K9b's against K9a bit for bit, each K9 row against a
+   second launch bit for bit, and kernel / plain / library
    (scaled_dot_product_attention or index_copy_, yardsticks the port
    never calls) times from CUDA events with the L2 cache flushed before
    each launch;
@@ -34,17 +37,24 @@ script exits non-zero without its last line):
 5. exactness: an f32 layer-share pair (2L/6L, B=4, gamma=4) at full width
    must give PEARL tokens == AR tokens; throughput_exactness: the same
    under the throughput profile with a noisy draft, rejections included;
+   quant_exactness: both again, the ceiling one with int8 KV and int8
+   weights, the throughput one with fp8 KV and fp8 weights;
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
    prompt 64, greedy: 145 PEARL rounds, then AR over the same window;
    throughput_path: the same run with draft_noise 0.005 under the
-   throughput profile (bench.py --draft-noise 0.005);
+   throughput profile (bench.py --draft-noise 0.005); quant_path: the
+   main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
+   decode through K9a, verify through K9b, the KV pools' bytes per block
+   against the bf16 run's); quant_throughput_path: the throughput path
+   with --kv-quant fp8 --quant fp8 (K9c); both over 145 rounds too;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
-Each path (main path, throughput path, serving) sets every launch
+Each path (main path, throughput path, the two quantized paths, serving)
+sets every launch
 counter to 0 just before it and reads them just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -129,10 +139,11 @@ def paged_inputs(gen, dev, n_tables, rows, ctx0, nl=3, nb=520, bs=256, hq=8, hkv
 
 
 def gathered(cache, layer, bt, hkv, d):
-    """[T, Hkv, S, D] K and V of each block-table row, for the yardstick."""
+    """[T, Hkv, S, D] K and V of each block-table row, for the yardstick (a
+    quantized cache dequantized to bf16, as the K9 kernels read it)."""
     from nano_pearl_tpu_torch.ops.attention import _gather_kv
 
-    k, v = _gather_kv(cache, layer, bt, d)
+    k, v = _gather_kv(cache, layer, bt, d, torch.bfloat16)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
@@ -398,10 +409,79 @@ def kernel_phase(dev, flush) -> list[dict]:
         mono_row(gen, dev, flush, "mono_attention_r14", spread(32, 2300, 1), 14, hq=8, d=128),
         cache_partials_row(gen, dev, flush),
         write_fresh_row(gen, dev, flush),
+        # quant_path (int8): K9a at the B=32 decode, K9b at a verify chunk;
+        # quant_throughput_path (fp8): K9c at the decode and at 14 rows;
+        # each in the other 1-byte type too
+        q8_row(gen, dev, flush, "paged_decode_q8", "int8", spread(32, 2300, 0), 1),
+        q8_row(gen, dev, flush, "paged_decode_q8_fp8", "fp8", spread(32, 2300, 0), 1),
+        q8_row(gen, dev, flush, "paged_verify_q8", "int8", spread(16, 2300, 1), 14),
+        q8_row(gen, dev, flush, "paged_verify_q8_fp8", "fp8", spread(16, 2300, 1), 14),
+        q8_row(gen, dev, flush, "mono_q8", "fp8", spread(32, 2300, 0), 1),
+        q8_row(gen, dev, flush, "mono_q8_int8", "int8", spread(32, 2300, 0), 1),
+        q8_row(gen, dev, flush, "mono_q8_r14", "fp8", spread(32, 2300, 1), 14),
+        q8_row(gen, dev, flush, "mono_q8_r14_int8", "int8", spread(32, 2300, 1), 14),
     ]
     for r in rows:
         emit({"phase": "kernel", **r})
     return rows
+
+
+Q8_KERNELS = {  # K9a-c's wrappers -> the TPU kernel body each replaces
+    "paged_decode_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:866",
+    "paged_verify_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:916",
+    "mono_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:963",
+}
+
+
+def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1) -> dict:
+    """K9a (``rows`` 1, one row per context), K9b or K9c on a bf16 cache of
+    the draft's shape quantized to ``kind`` as ``write_kv`` stores it, held
+    against the plain version at TOL and against itself in a second launch
+    bit for bit; K9b's rows against K9a's bit for bit. The bound counts the
+    1-byte values and the 2 scale bytes per (slot, KV head) of each group's
+    context once, q and o; the yardstick is SDPA over the cache gathered and
+    dequantized to bf16 (the SDPA call alone is timed)."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, _quantize_rows
+
+    kernel = next(k for k in Q8_KERNELS if name.startswith(k))
+    fn, plain = {"paged_decode_q8": (kpa.paged_decode_q8, kpa.plain_decode),
+                 "paged_verify_q8": (kpa.paged_verify_q8, kpa.plain_verify),
+                 "mono_q8": (kmo.mono_q8, kmo.plain_mono)}[kernel]
+    groups = len(ctx0)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d)
+    qdt = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+    values, scales = _quantize_rows(cache.view(-1, hkv, d), qdt)
+    qc = QuantKVCache(values.view(cache.shape), scales.view(cache.shape[:-1] + (hkv,)))
+    del cache, values, scales
+    args = (q, qc, layer, bt, ctx, scale) + (() if kernel == "paged_decode_q8" else (rows,))
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if not torch.equal(fn(*args), got):
+        raise AssertionError(f"{name}: a second launch gives other bits")
+    if kernel == "paged_verify_q8":
+        single = kpa.paged_decode_q8(q, qc, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
+        if not torch.equal(single, got):
+            raise AssertionError(f"{name}: K9b rows differ from K9a on the same query and context")
+    lib = lib_yardstick(*grouped_sdpa(q, qc, layer, bt, ctx, rows, hq, hkv, d, scale), want)
+    kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * (d + 2)
+    b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
+    source = "paged_attention.cu" if kernel.startswith("paged") else "mono_attention.cu"
+    return dict(
+        name=name, kernel=kernel, route="cuda", source=f"nano_pearl_tpu_torch/csrc/{source}",
+        replaces=Q8_KERNELS[kernel], cache=kind,
+        max_abs_err=err, ms=time_ms(lambda: fn(*args), 50, flush),
+        plain_ms=time_ms(lambda: plain(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        library="SDPA over the cache gathered and dequantized to bf16, the SDPA call alone",
+        second_launch_bitwise=True, **({"k9b_row_equals_k9a": True} if kernel == "paged_verify_q8" else {}),
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
+    )
 
 
 def prefix_inputs(gen, dev, b, n_cached, lq, n_new, hq, hkv, d, nl=3, nb=64, bs=256):
@@ -493,8 +573,11 @@ def model_config(layers: int, dtype: str):
     )
 
 
-def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0):
-    """The bench's engine set-up (bench.py run()) on the port."""
+def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
+                kv_quant=None, quant=None):
+    """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
+    and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
+    models)."""
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
@@ -506,6 +589,7 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
         max_num_batched_tokens=max(16384, batch * prompt_len), kvcache_block_size=256,
         num_kvcache_blocks=batch * (max_len // 256) + 8, gamma=gamma,
         max_num_seqs=max(batch, 8), seed=0, dtype=dtype, perf_profile=profile,
+        draft_kv_quant=kv_quant, target_kv_quant=kv_quant, draft_quant=quant, target_quant=quant,
     )
     return PearlEngine(cfg, dp, tp, device=dev)
 
@@ -530,6 +614,7 @@ def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_l
 
     from nano_pearl_tpu_torch.models.transformer import compute_logits, rms_norm
     from nano_pearl_tpu_torch.ops.kv_cache import write_kv
+    from nano_pearl_tpu_torch.ops.quant import layer_weight, mm
     from nano_pearl_tpu_torch.ops.rope import apply_rope
 
     cfg, p, lay = runner.cfg, runner.params, runner.params["layers"]
@@ -538,14 +623,15 @@ def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_l
     x = p["embed"][tokens.long()]
     rope_rows = runner.rope_table[torch.clamp(positions.long(), max=runner.rope_table.shape[0] - 1)]
     res = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for li in range(lay["wq"].shape[0]):
+    for li in range(lay["input_ln"].shape[0]):
         rec = (lambda name, t: ops.append((f"layer{li}.{name}", t))) if li < trace_layers \
             else (lambda name, t: None)
+        lp = {key: layer_weight(val, li) for key, val in lay.items()}
         res2 = x.float() + res
         rec("residual_add", res2)
-        h1 = rms_norm(res2, lay["input_ln"][li], eps, out_dtype=x.dtype)
+        h1 = rms_norm(res2, lp["input_ln"], eps, out_dtype=x.dtype)
         rec("input_rms_norm", h1)
-        q, k, v = h1 @ lay["wq"][li], h1 @ lay["wk"][li], h1 @ lay["wv"][li]
+        q, k, v = mm(h1, lp["wq"]), mm(h1, lp["wk"]), mm(h1, lp["wv"])
         rec("q_gemm", q), rec("k_gemm", k), rec("v_gemm", v)
         q = apply_rope(q.reshape(-1, hq, d), rope_rows)
         k = apply_rope(k.reshape(-1, hkv, d), rope_rows)
@@ -558,17 +644,17 @@ def traced_forward(runner, tokens, positions, slots, attn_fn, attn_args, trace_l
         else:
             o = attn_fn(q, runner.kv, li, *attn_args)
         rec("attention", o)
-        attn_out = o.reshape(-1, hq * d) @ lay["wo"][li]
+        attn_out = mm(o.reshape(-1, hq * d), lp["wo"])
         rec("o_gemm", attn_out)
         res3 = attn_out.float() + res2
         rec("attn_residual_add", res3)
-        h2 = rms_norm(res3, lay["post_ln"][li], eps, out_dtype=x.dtype)
+        h2 = rms_norm(res3, lp["post_ln"], eps, out_dtype=x.dtype)
         rec("post_rms_norm", h2)
-        gate, up = h2 @ lay["wgate"][li], h2 @ lay["wup"][li]
+        gate, up = mm(h2, lp["wgate"]), mm(h2, lp["wup"])
         rec("gate_gemm", gate), rec("up_gemm", up)
         act = F.silu(gate.float()).to(x.dtype) * up
         rec("silu_mul", act)
-        x = act @ lay["wdown"][li]
+        x = mm(act, lp["wdown"])
         rec("down_gemm", x)
         res = res3
     hidden = rms_norm(x.float() + res, p["final_ln"], eps, out_dtype=x.dtype)
@@ -622,8 +708,9 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
     decode_attn = paged_attention_mono if dr.use_mono else paged_attention
 
     def traced_verify(t, p, sl, bt, c):
-        if not tr.deferred_verify:
-            return traced_forward(tr, t, p, sl, paged_attention_grouped, (bt, c, tr.scale, gamma), n_draft)
+        if not tr.deferred_verify:  # classic; the throughput profile's over a quantized cache is K9c's
+            attn = paged_attention_mono if tr.use_mono else paged_attention_grouped
+            return traced_forward(tr, t, p, sl, attn, (bt, c, tr.scale, gamma), n_draft)
         ctx0 = c.reshape(-1, gamma)[:, 0] - 1
         return traced_forward(tr, t, p, sl, _deferred_attn, (bt, c, ctx0, tr.scale, gamma), n_draft,
                               store=False)
@@ -745,11 +832,32 @@ def decode_verify_throughput_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def exactness_phase(dev) -> None:
-    """f32 layer-share pair: the PEARL stream must equal the AR stream."""
+def quant_launch_check(engine, phase, quant, kv_quant, before, counters) -> dict:
+    """Under quantization the engine must hold quantized weights and cache
+    and have run the K9 kernels on them; returns their launches."""
+    from nano_pearl_tpu_torch.ops.kv_cache import cache_is_quantized
+    from nano_pearl_tpu_torch.ops.quant import is_quantized
+
+    launches = {k: counters[k].launches - before[k] for k in Q8_KERNELS}
+    if kv_quant and not (cache_is_quantized(engine.target.kv) and any(launches.values())):
+        raise AssertionError(f"{phase}: the KV cache is not quantized or no K9 kernel ran: {launches}")
+    if quant and not is_quantized(engine.target.params["layers"]["wq"]):
+        raise AssertionError(f"{phase}: the weights are not quantized")
+    return launches
+
+
+def quant_label(kv_quant, quant) -> str:
+    return "".join([f", {kv_quant} KV" if kv_quant else "", f", {quant} weights" if quant else ""])
+
+
+def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness") -> None:
+    """f32 layer-share pair: the PEARL stream must equal the AR stream
+    (``kv_quant`` / ``quant``: over a quantized cache / weights)."""
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + 16 * gamma  # a whole number of accepted windows
-    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev)
+    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, kv_quant=kv_quant, quant=quant)
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
     pearl, n_pearl, acc, _ = engine.generate_token_ids()
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -759,26 +867,32 @@ def exactness_phase(dev) -> None:
             (i, j) for i, (p, a) in enumerate(zip(pearl, ar))
             for j in range(min(len(p), len(a)) + 1) if p[:j + 1] != a[:j + 1]
         )
-        raise AssertionError(f"f32 PEARL != AR: first divergence (request, token) {first}")
-    emit({"phase": "exactness", "pearl_equals_ar": True, "tokens": n_pearl,
+        raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) {first}")
+    q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
+    emit({"phase": phase, "pearl_equals_ar": True, "tokens": n_pearl,
           "accepted_tokens": [sum(a) for a in acc],
-          "config": "f32 layer-share 2L/6L full width, B=4, gamma=4"})
+          **({"k9_launches": q8} if kv_quant else {}),
+          "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)})
     del engine
     torch.cuda.empty_cache()
 
 
-def throughput_exactness_phase(dev, draft_noise: float = 0.005) -> None:
+def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, quant=None,
+                               phase="throughput_exactness") -> None:
     """The throughput profile on the f32 2L/6L pair at full width with a
     noisy draft (B=4, gamma=4): rounds reject and roll back over deferred
     writes, and every PEARL token the target verified must equal AR's at
     its position. A request that finishes on an accepted round ends with
     its last draft window unverified (the finish rule of the JAX package
     and the reference), so those gamma tokens are left out; AR runs
-    2 * gamma tokens further so that it covers every PEARL stream."""
+    2 * gamma tokens further so that it covers every PEARL stream. Over a
+    quantized cache the verify is the classic write-then-read one (K9c)."""
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + 16 * gamma
     engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, profile="throughput",
-                         draft_noise=draft_noise)
+                         draft_noise=draft_noise, kv_quant=kv_quant, quant=quant)
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
     pearl, n_pearl, acc, _ = engine.generate_token_ids()
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens + 2 * gamma)
@@ -786,33 +900,42 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005) -> None:
     verified = [len(p) - gamma for p in pearl]
     bad = [i for i, (p, a, n) in enumerate(zip(pearl, ar, verified)) if n <= 0 or p[:n] != a[:n]]
     if bad:
-        raise AssertionError(f"f32 throughput PEARL != AR for requests {bad}")
+        raise AssertionError(f"{phase}: f32 throughput PEARL != AR for requests {bad}")
+    q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
     # a request whose every round accepted has one accepted-token emit
     rejections = sum(len(a) - 1 for a in acc)
-    emit({"phase": "throughput_exactness", "pearl_equals_ar": True, "tokens": n_pearl,
+    emit({"phase": phase, "pearl_equals_ar": True, "tokens": n_pearl,
           "verified_tokens_compared": verified, "rounds_with_a_rejection": rejections,
           "accepted_tokens": [sum(a) for a in acc],
+          **({"k9_launches": q8} if kv_quant else {}),
           "config": f"f32 layer-share 2L/6L full width, draft_noise {draft_noise}, B=4, gamma=4, "
-                    "throughput profile"})
+                    "throughput profile" + quant_label(kv_quant, quant)})
     if rejections < 1:
         raise AssertionError("no round rejected: the noisy draft did not exercise rollback")
     del engine
     torch.cuda.empty_cache()
 
 
-def bench_run(dev, steps: int, profile: str, draft_noise: float) -> tuple[dict, dict]:
+def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None
+              ) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
-    same window on the same prompts. The launch counters are set to 0
-    just before the measured runs. Returns (the phase's line without its
-    name, launches)."""
+    same window on the same prompts (``kv_quant``, ``quant``: bench.py's
+    ``--kv-quant``, ``--quant``). The launch counters are set to 0 just
+    before the measured runs. Returns (the phase's line without its name,
+    launches)."""
+    from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
+
     counters = kernel_counters()
     batch, gamma, prompt_len = 32, 14, 64
     ar_max_tokens = steps * (gamma + 1)
     ar_steps = ar_max_tokens - 1  # prefill commits one token per sequence
     t0 = time.perf_counter()
-    engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise)
+    engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
+                         kv_quant, quant)
     build_s = time.perf_counter() - t0
+    # bytes of both KV pools per block, from the allocated tensors
+    kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
     add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
     engine.bench_generate(num_pearl_steps=2, reserve_steps=steps)
@@ -851,7 +974,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float) -> tuple[dict, 
     out = {
         "config": "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, "
                   f"vocab 32768, B=32, gamma=14, prompt 64, greedy, {profile} profile"
-                  + (f", draft_noise {draft_noise}" if draft_noise else ""),
+                  + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant),
         "pearl_rounds": steps, "ar_steps": ar_steps,
         "pearl_tok_s": pearl_tps, "ar_tok_s": ar_tps, "speedup": pearl_tps / ar_tps, "mat": mat,
         "pearl_s": pearl_t, "ar_s": ar_t, "engine_build_s": build_s,
@@ -860,13 +983,14 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float) -> tuple[dict, 
         "launches_per_ar_step": {k: n / ar_steps for k, n in ar_launches.items() if n},
         "pearl_vs_ar_first_divergence_mean": float(np.mean(agree)),
         "pearl_vs_ar_identical_streams": sum(p == a for p, a in zip(pearl_toks, ar_toks)),
-        "cuda_peak_memory_gib": peak / 2**30,
+        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes,
     }
     return out, launches
 
 
-def main_path_phase(dev, steps: int = 145) -> dict:
-    """The bench's default run (ceiling profile, noiseless pair) on the port."""
+def main_path_phase(dev, steps: int = 145) -> tuple[dict, float]:
+    """The bench's default run (ceiling profile, noiseless pair) on the port.
+    Returns its launches and the KV pools' bytes per block."""
     gamma = 14
     out, launches = bench_run(dev, steps, "ceiling", 0.0)
     emit({"phase": "main_path", **out})
@@ -874,6 +998,44 @@ def main_path_phase(dev, steps: int = 145) -> dict:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
     if out["mat"] != gamma:  # the layer-share ceiling: decode and verify round alike
         raise AssertionError(f"MAT {out['mat']} below the layer-share ceiling {gamma}")
+    return launches, out["kv_pool_bytes_per_block"]
+
+
+def check_launches(phase: str, launches: dict, ran: tuple, not_ran: tuple) -> None:
+    if not all(launches[k] > 0 for k in ran) or any(launches[k] for k in not_ran):
+        raise AssertionError(f"{phase} must launch {ran} and none of {not_ran}: {launches}")
+
+
+def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
+    """``bench.py --kv-quant int8 --quant int8`` on the port: the main path's
+    run over an int8 cache with int8 weights, decode through K9a and the
+    packed verify through K9b; MAT must stay at the ceiling (the 1-byte
+    rows are written and read alike by decode and verify). Prints the KV
+    pools' bytes per block against the bf16 main path's."""
+    gamma = 14
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant="int8", quant="int8")
+    out["kv_pool_bytes_per_block_vs_bf16"] = out["kv_pool_bytes_per_block"] / bf16_block_bytes
+    emit({"phase": "quant_path", **out})
+    check_launches("quant_path", launches, ("prefill_self", "paged_decode_q8", "paged_verify_q8"),
+                   ("paged_decode", "paged_verify", "prefill_prefix", "mono_attention", "cache_partials",
+                    "write_fresh", "mono_q8"))
+    if out["mat"] != gamma:
+        raise AssertionError(f"quant_path MAT {out['mat']} below the layer-share ceiling {gamma}")
+    if out["kv_pool_bytes_per_block_vs_bf16"] > 0.55:
+        raise AssertionError("the quantized KV pool does not take about half the bf16 pool's bytes")
+    return launches
+
+
+def quant_throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> dict:
+    """``bench.py --draft-noise 0.005 --kv-quant fp8 --quant fp8`` on the
+    port: the throughput profile over an fp8 cache with fp8 weights, decode
+    and the classic write-then-read verify through K9c (the deferred verify
+    is off over a quantized cache). MAT is printed, not asserted."""
+    out, launches = bench_run(dev, steps, "throughput", draft_noise, kv_quant="fp8", quant="fp8")
+    emit({"phase": "quant_throughput_path", **out})
+    check_launches("quant_throughput_path", launches, ("prefill_self", "mono_q8"),
+                   ("paged_decode", "paged_verify", "mono_attention", "cache_partials", "write_fresh",
+                    "paged_decode_q8", "paged_verify_q8"))
     return launches
 
 
@@ -899,7 +1061,8 @@ def kernel_counters() -> dict:
     return {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
             "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix,
             "mono_attention": kmo.mono_attention, "cache_partials": kmo.cache_partials,
-            "write_fresh": kkw.write_fresh_kernel}
+            "write_fresh": kkw.write_fresh_kernel, "paged_decode_q8": kpa.paged_decode_q8,
+            "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8}
 
 
 def serve_args(*extra: str):
@@ -1147,8 +1310,13 @@ def main() -> int:
     decode_verify_throughput_phase(dev)
     exactness_phase(dev)
     throughput_exactness_phase(dev)
-    by_path = {"main_path": main_path_phase(dev)}
+    exactness_phase(dev, kv_quant="int8", quant="int8", phase="quant_exactness")
+    throughput_exactness_phase(dev, kv_quant="fp8", quant="fp8", phase="quant_exactness")
+    by_path = {}
+    by_path["main_path"], bf16_block_bytes = main_path_phase(dev)
     by_path["throughput_path"] = throughput_path_phase(dev)
+    by_path["quant_path"] = quant_path_phase(dev, bf16_block_bytes)
+    by_path["quant_throughput_path"] = quant_throughput_path_phase(dev)
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -20,8 +20,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace npt {
 
@@ -193,6 +196,70 @@ __device__ void flash_tile_update(Flash<T>& f, float scale, const Mask& visible)
 template <typename T>
 __device__ __forceinline__ T flash_out(const Flash<T>& f, int idx) {
   return from_f32<T>(f.acc[idx] / fmaxf(f.l[idx / f.d], 1e-30f));
+}
+
+// ---- 1-byte (int8 / e4m3) KV caches: kernels K9a-c --------------------
+//
+// A quantized cache holds 1-byte values in the folded [rows, Hkv * D]
+// layout and one bf16 scale per (row, KV head) in [rows, Hkv]. The tile
+// loader reads 16 values per 16-byte load, converts each to f32 (exact for
+// both types), multiplies it by its slot's scale in f32 and rounds once to
+// the query type T, then stores the tile in the layout flash_tile_update
+// reads: the Pallas kernels' dequantization (_kv_head, out_dt = q.dtype).
+// Everything after the load is the bf16/f32 kernels' code.
+
+// One stored byte as the value of storage type S (int8_t or __nv_fp8_e4m3).
+template <typename S>
+__device__ __forceinline__ float q8_byte_to_f32(uint8_t b) {
+  if constexpr (std::is_same<S, int8_t>::value) {
+    return (float)(int8_t)b;
+  } else {
+    __nv_fp8_e4m3 x;
+    x.__x = b;
+    return static_cast<float>(x);
+  }
+}
+
+// 16 consecutive 1-byte values at src (16-byte aligned) times `scale`,
+// rounded to T, into dst (16-byte aligned).
+template <typename T, typename S>
+__device__ __forceinline__ void dequant16(T* dst, const uint8_t* src, float scale) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+  alignas(16) T vals[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) vals[i] = from_f32<T>(q8_byte_to_f32<S>(b[i]) * scale);
+  copy8(dst, vals);
+  copy8(dst + 8, vals + 8);
+}
+
+// Stage keys and values of positions [c0, c0 + kTile) of KV head kh from a
+// 1-byte cache (cache [rows, hkv * d], scales [rows, hkv]; layer block
+// offsets k_off / v_off, block table row bt_row of m pages) into f.ks /
+// f.vs, zeros past c_end. Does not end with a barrier.
+template <typename T, typename S>
+__device__ void stage_q8_tile(Flash<T>& f, const uint8_t* __restrict__ cache,
+                              const __nv_bfloat16* __restrict__ scales, const int* bt_row,
+                              int m, int bs, int hkv, int kh, long long k_off, long long v_off,
+                              int c0, int c_end) {
+  const int d = f.d, hd = hkv * d, vecs = d / 16;
+  for (int idx = threadIdx.x; idx < kTile * vecs; idx += blockDim.x) {
+    const int t = idx / vecs, c = (idx - t * vecs) * 16, pos = c0 + t;
+    T* kd = f.ks + t * f.pitch + c;
+    T* vd = f.vs + t * f.pitch + c;
+    if (pos < c_end) {
+      const int page = min(pos / bs, m - 1);
+      const long long slot = (long long)bt_row[page] * bs + pos % bs;
+      const long long kr = k_off * bs + slot, vr = v_off * bs + slot;
+      dequant16<T, S>(kd, cache + kr * hd + kh * d + c, to_f32(scales[kr * hkv + kh]));
+      dequant16<T, S>(vd, cache + vr * hd + kh * d + c, to_f32(scales[vr * hkv + kh]));
+    } else {
+      zero8(kd);
+      zero8(kd + 8);
+      zero8(vd);
+      zero8(vd + 8);
+    }
+  }
 }
 
 // Opt the kernel into `bytes` of dynamic shared memory.

@@ -11,6 +11,11 @@
 //   A row with context 0 gives o = 0, m = -1e29 and l = 0. Replaces
 //   _grouped_kernel_db_mono_partial (entry
 //   paged_attention_pallas_grouped_cache_partials).
+// K9c npt_mono_q8: K5 over a 1-byte cache (int8 or e4m3) with a bf16
+//   scale per (slot, KV head), the "throughput" profile's decode and
+//   verify over a quantized cache. Replaces _grouped_kernel_db_mono_q8v2
+//   (entry _mono_call_q8). Only the tile load differs (flash_tile.cuh
+//   stage_q8_tile).
 //
 // The TPU kernels walk one flat stream of (group, 1024-key chunk) items
 // in one grid step, counted from each group's own context, so no step
@@ -93,9 +98,11 @@ __device__ void chunk_prefix(const int* ctx, int groups, int rows, int max_chunk
 // hkv, rows * G, d] and part_ml [pairs, hkv, rows * G, 2] f32 scratch with
 // pairs = groups * max_chunks; counters [groups * hkv], zero on entry and
 // on exit.
-template <typename T, bool kPartial>
+// S is the cache's storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
+template <typename T, typename S, bool kPartial>
 __global__ void __launch_bounds__(kThreads)
-mono_kernel(const T* __restrict__ q, const T* __restrict__ cache, const int* __restrict__ bt,
+mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
+            const __nv_bfloat16* __restrict__ scales, const int* __restrict__ bt,
             const int* __restrict__ ctx, T* __restrict__ out, float* __restrict__ m_out,
             float* __restrict__ l_out, float* part_acc, float* part_ml, int* counters,
             int groups, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
@@ -132,18 +139,23 @@ mono_kernel(const T* __restrict__ q, const T* __restrict__ cache, const int* __r
     const int* bt_row = bt + (long long)grp * m;
 
     for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
-      for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
-        const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
-        T* kd = f.ks + t * f.pitch + c;
-        T* vd = f.vs + t * f.pitch + c;
-        if (pos < c_end) {
-          const int page = min(pos / bs, m - 1);
-          const long long slot = (long long)bt_row[page] * bs + pos % bs;
-          copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
-          copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
-        } else {
-          zero8(kd);
-          zero8(vd);
+      if constexpr (!std::is_same<S, T>::value) {
+        stage_q8_tile<T, S>(f, reinterpret_cast<const uint8_t*>(cache), scales, bt_row, m, bs,
+                            hkv, kh, k_off, v_off, c0, c_end);
+      } else {
+        for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
+          const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
+          T* kd = f.ks + t * f.pitch + c;
+          T* vd = f.vs + t * f.pitch + c;
+          if (pos < c_end) {
+            const int page = min(pos / bs, m - 1);
+            const long long slot = (long long)bt_row[page] * bs + pos % bs;
+            copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
+            copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
+          } else {
+            zero8(kd);
+            zero8(vd);
+          }
         }
       }
       __syncthreads();
@@ -203,13 +215,13 @@ mono_kernel(const T* __restrict__ q, const T* __restrict__ cache, const int* __r
   }
 }
 
-template <typename T, bool kPartial>
+template <typename T, bool kPartial, typename S = T>
 cudaError_t launch(int groups, int rows, const void* q, const void* cache, const int* bt,
                    const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
                    float* part_ml, int* counters, int m, int hq, int hkv, int d, int bs,
                    long long k_off, long long v_off, float scale, int max_chunks,
-                   cudaStream_t stream) {
-  auto kernel = mono_kernel<T, kPartial>;
+                   cudaStream_t stream, const void* scales = nullptr) {
+  auto kernel = mono_kernel<T, S, kPartial>;
   const size_t smem =
       flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * ((size_t)rows + groups + 1));
   cudaError_t err = flash_set_smem(kernel, smem);
@@ -225,7 +237,8 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   const long long resident = (long long)sms * per_sm;
   const int grid = (int)(most < resident ? most : resident);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache), bt, ctx, static_cast<T*>(out),
+      static_cast<const T*>(q), static_cast<const S*>(cache),
+      static_cast<const __nv_bfloat16*>(scales), bt, ctx, static_cast<T*>(out),
       m_out, l_out, part_acc, part_ml, counters, groups, rows, m, hq, hkv, d, bs, k_off, v_off,
       scale, max_chunks);
   return cudaGetLastError();
@@ -245,6 +258,21 @@ cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, con
   return launch<float, kPartial>(groups, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
                                  part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
                                  max_chunks, s);
+}
+
+template <typename T>
+cudaError_t dispatch_q8_type(int groups, int rows, const void* q, const void* cache,
+                             const void* scales, const int* bt, const int* ctx, void* out,
+                             float* part_acc, float* part_ml, int* counters, int m, int hq,
+                             int hkv, int d, int bs, long long k_off, long long v_off, float scale,
+                             int max_chunks, int is_fp8, cudaStream_t s) {
+  if (is_fp8)
+    return launch<T, false, __nv_fp8_e4m3>(groups, rows, q, cache, bt, ctx, out, nullptr, nullptr,
+                                           part_acc, part_ml, counters, m, hq, hkv, d, bs, k_off,
+                                           v_off, scale, max_chunks, s, scales);
+  return launch<T, false, int8_t>(groups, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
+                                  part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                  max_chunks, s, scales);
 }
 
 }  // namespace npt
@@ -275,6 +303,24 @@ int npt_cache_partials(const void* q, const void* cache, const int* bt, const in
   return (int)npt::dispatch<true>(b, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
                                   part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
                                   max_chunks, is_bf16, stream);
+}
+
+// K9c. As K5 over a 1-byte cache (int8, or e4m3 with is_fp8) and its
+// bf16 scales [rows, hkv]; q, out bf16 or f32 (is_bf16).
+int npt_mono_q8(const void* q, const void* cache, const void* scales, const int* bt,
+                const int* ctx, void* out, float* part_acc, float* part_ml, int* counters, int b,
+                int rows, int m, int hq, int hkv, int d, int bs, long long k_off, long long v_off,
+                float scale, int max_chunks, int is_bf16, int is_fp8, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % 16) return (int)cudaErrorInvalidValue;  // 16 one-byte values per load
+  if (is_bf16)
+    return (int)npt::dispatch_q8_type<__nv_bfloat16>(b, rows, q, cache, scales, bt, ctx, out,
+                                                     part_acc, part_ml, counters, m, hq, hkv, d,
+                                                     bs, k_off, v_off, scale, max_chunks, is_fp8,
+                                                     s);
+  return (int)npt::dispatch_q8_type<float>(b, rows, q, cache, scales, bt, ctx, out, part_acc,
+                                           part_ml, counters, m, hq, hkv, d, bs, k_off, v_off,
+                                           scale, max_chunks, is_fp8, s);
 }
 
 const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -22,6 +22,15 @@
 // 2. combine, one block per row: folds the row's partials of chunks
 //    0 .. ceil(ctx / kChunk) - 1 in order and rounds once to the output
 //    type.
+// K9a npt_paged_decode_q8 / K9b npt_paged_verify_q8: K1 / K2 over a
+//   1-byte cache (int8 or e4m3) with a bf16 scale per (slot, KV head).
+//   Replace _kernel_db_q8v2 (entry _db_call_q8_single, from
+//   paged_attention_pallas) and _grouped_kernel_db_q8v2 (entry
+//   _db_call_q8_grouped, from paged_attention_pallas_grouped). Only the
+//   tile load differs (flash_tile.cuh stage_q8_tile: dequantized and
+//   rounded to the query type in shared memory), so K9b rows equal K9a
+//   rows bit for bit as K2's equal K1's.
+//
 // K1 is K2 with R = 1. The chunk partition is fixed by absolute position,
 // a tile past a row's context is an exact no-op for that row, and the
 // combine reads only the row's own chunks, so a K2 row and the K1 row of
@@ -29,7 +38,8 @@
 //
 // Bound on the H100: bytes. Each row reads ctx * Hkv * D * 2 elements of
 // K/V once and does 4 * ctx * Hq * D flops, about 4 flops per byte at bf16
-// with G = 4: far below the card's ~295 flops/byte balance point. The
+// with G = 4 (8 over a 1-byte cache): far below the card's ~295 flops/byte
+// balance point. The
 // chunk split puts (sequences x heads x chunks) blocks on the 132 SMs
 // instead of one serial walk per (sequence, head).
 #include "flash_tile.cuh"
@@ -45,10 +55,12 @@ struct PagedMask {
 };
 
 // Partials of one (sequence, KV head, chunk). part_acc [rows_total, Hq,
-// n_chunks, D] and part_ml [rows_total, Hq, n_chunks, 2] (m, l), f32.
-template <typename T>
+// n_chunks, D] and part_ml [rows_total, Hq, n_chunks, 2] (m, l), f32. S is
+// the cache's storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+paged_partial_kernel(const T* __restrict__ q, const S* __restrict__ cache,
+                     const __nv_bfloat16* __restrict__ scales,
                      const int* __restrict__ bt, const int* __restrict__ ctx,
                      float* __restrict__ part_acc, float* __restrict__ part_ml, int rows, int m,
                      int hq, int hkv, int d, int bs, long long k_off, long long v_off,
@@ -77,18 +89,23 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ cache,
 
   const int vecs = d / 8;
   for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
-    for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
-      const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
-      T* kd = f.ks + t * f.pitch + c;
-      T* vd = f.vs + t * f.pitch + c;
-      if (pos < c_end) {
-        const int page = min(pos / bs, m - 1);
-        const long long slot = (long long)bt_row[page] * bs + pos % bs;
-        copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
-        copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
-      } else {
-        zero8(kd);
-        zero8(vd);
+    if constexpr (!std::is_same<S, T>::value) {
+      stage_q8_tile<T, S>(f, reinterpret_cast<const uint8_t*>(cache), scales, bt_row, m, bs, hkv,
+                          kh, k_off, v_off, c0, c_end);
+    } else {
+      for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
+        const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
+        T* kd = f.ks + t * f.pitch + c;
+        T* vd = f.vs + t * f.pitch + c;
+        if (pos < c_end) {
+          const int page = min(pos / bs, m - 1);
+          const long long slot = (long long)bt_row[page] * bs + pos % bs;
+          copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
+          copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
+        } else {
+          zero8(kd);
+          zero8(vd);
+        }
       }
     }
     __syncthreads();
@@ -131,18 +148,19 @@ paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict
   }
 }
 
-template <typename T>
+template <typename T, typename S = T>
 cudaError_t launch(int groups, int rows, const void* q, const void* cache, const int* bt,
                    const int* ctx, void* out, float* part_acc, float* part_ml, int m, int hq,
                    int hkv, int d, int bs, long long k_off, long long v_off, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const void* scales = nullptr) {
   const size_t smem = flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * rows);
-  cudaError_t err = flash_set_smem(paged_partial_kernel<T>, smem);
+  cudaError_t err = flash_set_smem(paged_partial_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
   const int n_chunks = (m * bs + kChunk - 1) / kChunk;
-  paged_partial_kernel<T><<<dim3(groups, hkv, n_chunks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache), bt, ctx, part_acc, part_ml, rows,
-      m, hq, hkv, d, bs, k_off, v_off, scale);
+  paged_partial_kernel<T, S><<<dim3(groups, hkv, n_chunks), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(cache),
+      static_cast<const __nv_bfloat16*>(scales), bt, ctx, part_acc, part_ml, rows, m, hq, hkv, d,
+      bs, k_off, v_off, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T><<<groups * rows, kThreads, 0, stream>>>(
@@ -160,6 +178,34 @@ cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, con
                                  hkv, d, bs, k_off, v_off, scale, s);
   return launch<float>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq, hkv, d,
                        bs, k_off, v_off, scale, s);
+}
+
+template <typename T>
+cudaError_t dispatch_q8_type(int groups, int rows, const void* q, const void* cache,
+                             const void* scales, const int* bt, const int* ctx, void* out,
+                             float* part_acc, float* part_ml, int m, int hq, int hkv, int d, int bs,
+                             long long k_off, long long v_off, float scale, int is_fp8,
+                             cudaStream_t s) {
+  if (is_fp8)
+    return launch<T, __nv_fp8_e4m3>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m,
+                                    hq, hkv, d, bs, k_off, v_off, scale, s, scales);
+  return launch<T, int8_t>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq, hkv,
+                           d, bs, k_off, v_off, scale, s, scales);
+}
+
+cudaError_t dispatch_q8(int groups, int rows, const void* q, const void* cache,
+                        const void* scales, const int* bt, const int* ctx, void* out,
+                        float* part_acc, float* part_ml, int m, int hq, int hkv, int d, int bs,
+                        long long k_off, long long v_off, float scale, int is_bf16, int is_fp8,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % 16) return cudaErrorInvalidValue;  // 16 one-byte values per load
+  if (is_bf16)
+    return dispatch_q8_type<__nv_bfloat16>(groups, rows, q, cache, scales, bt, ctx, out, part_acc,
+                                           part_ml, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                           is_fp8, s);
+  return dispatch_q8_type<float>(groups, rows, q, cache, scales, bt, ctx, out, part_acc, part_ml,
+                                 m, hq, hkv, d, bs, k_off, v_off, scale, is_fp8, s);
 }
 
 }  // namespace npt
@@ -189,6 +235,26 @@ int npt_paged_verify(const void* q, const void* cache, const int* bt, const int*
   if (rows < 2) return (int)cudaErrorInvalidValue;
   return (int)npt::dispatch(b, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq, hkv, d,
                             bs, k_off, v_off, scale, is_bf16, stream);
+}
+
+// K9a: npt_paged_decode over a 1-byte cache (int8, or e4m3 with is_fp8)
+// and its bf16 scales [rows, hkv]; q, out bf16 or f32 (is_bf16).
+int npt_paged_decode_q8(const void* q, const void* cache, const void* scales, const int* bt,
+                        const int* ctx, void* out, float* part_acc, float* part_ml, int n, int m,
+                        int hq, int hkv, int d, int bs, long long k_off, long long v_off,
+                        float scale, int is_bf16, int is_fp8, void* stream) {
+  return (int)npt::dispatch_q8(n, 1, q, cache, scales, bt, ctx, out, part_acc, part_ml, m, hq,
+                               hkv, d, bs, k_off, v_off, scale, is_bf16, is_fp8, stream);
+}
+
+// K9b: npt_paged_verify over a 1-byte cache, as K9a. rows >= 2.
+int npt_paged_verify_q8(const void* q, const void* cache, const void* scales, const int* bt,
+                        const int* ctx, void* out, float* part_acc, float* part_ml, int b,
+                        int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
+                        long long v_off, float scale, int is_bf16, int is_fp8, void* stream) {
+  if (rows < 2) return (int)cudaErrorInvalidValue;
+  return (int)npt::dispatch_q8(b, rows, q, cache, scales, bt, ctx, out, part_acc, part_ml, m, hq,
+                               hkv, d, bs, k_off, v_off, scale, is_bf16, is_fp8, stream);
 }
 
 const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -25,6 +25,15 @@ here (the JAX package's ``NANO_PEARL_*`` overrides are not ported):
   the fresh window, and one K12 writeback stores the round after the
   layers.
 
+Quantization, as in the JAX package: ``ModelConfig.quant`` quantizes the
+plain weights handed in at load (``params_from_numpy`` /
+``quantize_params``); ``ModelConfig.kv_quant`` allocates a 1-byte cache
+(``QuantKVCache``). A quantized cache turns the deferred verify and K4
+off (JAX's ``runner.py`` gates both on ``kv_quant is None``): the
+verify is the classic write-then-read one, through K9b under "ceiling"
+and K9c under "throughput"; decode goes through K9a or K9c; a prefix hit
+prefills through torch ops (the JAX package's jnp path).
+
 The KV cache is allocated after both models' weights are on the device
 (``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
 shared card from one budget.
@@ -44,6 +53,7 @@ from nano_pearl_tpu_torch.models.transformer import (
     init_params_numpy,
     make_rope_table,
     params_from_numpy,
+    quantize_params,
     torch_dtype,
 )
 from nano_pearl_tpu_torch.ops.attention import (
@@ -54,7 +64,8 @@ from nano_pearl_tpu_torch.ops.attention import (
     prefill_prefix_attention,
     prefill_self_attention,
 )
-from nano_pearl_tpu_torch.ops.kv_cache import make_kv_cache, write_fresh
+from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes, make_kv_cache, write_fresh
+from nano_pearl_tpu_torch.ops.quant import is_quantized
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
 from nano_pearl_tpu_torch.utils.logging import logger
 
@@ -117,12 +128,15 @@ class GroupRunner:
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
         self.verify_group_cap = pcfg.verify_group_cap
-        self.use_mono = self.deferred_verify = pcfg.perf_profile == "throughput"
+        self.use_mono = pcfg.perf_profile == "throughput"
+        self.deferred_verify = self.use_mono and mcfg.kv_quant is None
         if params is None:
             logger.warning(f"[{name}] no weights given; random-initializing")
             params = init_params_numpy(mcfg, np.random.default_rng(seed))
         if _is_numpy_tree(params):
             params = params_from_numpy(params, mcfg, device)
+        elif mcfg.quant and not is_quantized(params["layers"]["wq"]):
+            params = quantize_params(params, mcfg)
         self.params = params
         self.rope_table = make_rope_table(mcfg, device)
         self.kv = None
@@ -132,9 +146,12 @@ class GroupRunner:
 
     @property
     def block_bytes(self) -> int:
-        """Bytes of one KV block over all layers (K and V)."""
+        """Bytes of one KV block over all layers (K and V). A quantized cache
+        holds ``Hkv * (D + 2)`` bytes a slot: 1-byte values and one bf16
+        scale per KV head."""
         mcfg = self.cfg
-        per_slot = mcfg.num_key_value_heads * mcfg.head_dim * torch_dtype(mcfg).itemsize
+        hkv, d = mcfg.num_key_value_heads, mcfg.head_dim
+        per_slot = hkv * (d + 2) if mcfg.kv_quant else hkv * d * torch_dtype(mcfg).itemsize
         return mcfg.num_hidden_layers * 2 * self.block_size * per_slot
 
     def allocate_kv(self, num_blocks: int) -> None:
@@ -144,12 +161,12 @@ class GroupRunner:
         self.kv = make_kv_cache(
             mcfg.num_hidden_layers, num_blocks, self.block_size,
             mcfg.num_key_value_heads, mcfg.head_dim, dtype=torch_dtype(mcfg),
-            device=self.device,
+            device=self.device, quant=mcfg.kv_quant,
         )
         self.garbage_block = num_blocks  # the extra block of make_kv_cache
         logger.info(
             f"[{self.name}] kv cache: {num_blocks} blocks x {self.block_size} tokens "
-            f"({self.kv.numel() * self.kv.element_size() / 2**30:.2f} GiB)",
+            f"({cache_nbytes(self.kv) / 2**30:.2f} GiB{', ' + mcfg.kv_quant if mcfg.kv_quant else ''})",
             color="green",
         )
 
@@ -212,7 +229,8 @@ class GroupRunner:
 
     def decode_step(self, tokens, positions, slots, block_tables, context_lens) -> torch.Tensor:
         """One decode step over B rows (device tensors); returns logits [B, V].
-        Attention through K5 under the throughput profile, K1 otherwise."""
+        Attention through K5 under the throughput profile, K1 otherwise (K9c
+        and K9a over a quantized cache)."""
         attn = paged_attention_mono if self.use_mono else paged_attention
         hidden = forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
@@ -293,10 +311,13 @@ class GroupRunner:
 
     def _classic_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
         """Each layer writes its K/V into the cache, then K2 reads the
-        group's context back through the block table."""
+        group's context back through the block table (K9b over a quantized
+        cache; under the throughput profile, which takes this verify only
+        over a quantized cache, K9c)."""
+        attn = paged_attention_mono if self.use_mono else paged_attention_grouped
         return forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            paged_attention_grouped, (block_tables, context_lens, self.scale, gamma),
+            attn, (block_tables, context_lens, self.scale, gamma),
         )
 
     def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):

@@ -14,6 +14,11 @@ stacked over layers:
     layers.bq/bk/bv: [L, Hq*D]/[L, Hkv*D] (qwen2)
     layers.q_norm/k_norm: [L, D] (qwen3)
 
+With ``ModelConfig.quant`` ("int8" or "fp8") the seven projections and
+an untied LM head are weight-only quantized dicts ``{"q", "s"}``
+(ops/quant.py) and every product goes through ``mm`` / ``mm_t``, which
+are ``x @ w`` / ``x @ w.T`` on plain weights.
+
 Every phase (prefill, decode, packed verify) runs the same ``forward``
 over N flat token rows; the attention flavour is a callable handed in.
 The residual stream is carried in f32 across layers (a model-dtype
@@ -30,6 +35,14 @@ import torch.nn.functional as F
 
 from nano_pearl_tpu_torch.config import ModelConfig
 from nano_pearl_tpu_torch.ops.kv_cache import write_kv
+from nano_pearl_tpu_torch.ops.quant import (
+    QUANTIZED_LAYER_KEYS,
+    is_quantized,
+    layer_weight,
+    mm,
+    mm_t,
+    quantize_weight,
+)
 from nano_pearl_tpu_torch.ops.rope import apply_rope, build_rope_table
 from nano_pearl_tpu_torch.ops.sampling import mask_invalid_logits
 
@@ -46,8 +59,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise on model features the port does not run yet."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not ported yet")
-    if cfg.quant or cfg.kv_quant:
-        raise NotImplementedError("weight and KV-cache quantisation are not ported yet")
     if cfg.fuse_proj:
         raise NotImplementedError("fused projections are not ported yet")
     torch_dtype(cfg)
@@ -108,23 +119,54 @@ def init_params_numpy(cfg: ModelConfig, rng: np.random.Generator, scale: float =
     }
 
 
+def quantize_params(params: dict, cfg: ModelConfig) -> dict:
+    """Weight-only quantization of the plain projections (and an untied LM
+    head, over its last axis) as the JAX runner quantizes the weights a
+    caller hands in: the tensors as they are, in their own dtype."""
+    layers = dict(params["layers"])
+    for k in QUANTIZED_LAYER_KEYS:
+        if not is_quantized(layers[k]):
+            layers[k] = quantize_weight(layers[k], cfg.quant)
+    out = dict(params, layers=layers)
+    if not cfg.tie_word_embeddings and not is_quantized(params["lm_head"]):
+        out["lm_head"] = quantize_weight(params["lm_head"], cfg.quant, contract_axis=-1)
+    return out
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's parameter pytree, given as numpy arrays, as the
     port's dict of tensors on ``device``. bf16 arrays (ml_dtypes) cross
-    as their 16-bit patterns, since ``torch.from_numpy`` rejects them."""
+    as their 16-bit patterns and e4m3 ones as their bytes, since
+    ``torch.from_numpy`` rejects both. Quantized leaves ``{"q", "s"}``
+    keep their types. Under ``cfg.quant`` the plain weights it quantizes
+    (``quantize_params``) cross in their own dtype and are quantized on
+    ``device``; the others are cast to the model dtype."""
     dt = torch_dtype(cfg)
+    quant_keys = set(QUANTIZED_LAYER_KEYS) | ({"lm_head"} if not cfg.tie_word_embeddings else set())
+    if not cfg.quant:
+        quant_keys = set()
 
-    def conv(a):
-        a = np.asarray(a)
+    def conv(a, dtype):
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # torch.from_numpy warns on read-only arrays (JAX's)
+            a = a.copy()
         if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        elif a.dtype.name == "float8_e4m3fn":
+            t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
         else:
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dt)
-        return t.to(device)
+            t = torch.from_numpy(a)
+        t = t.to(device)
+        return t if dtype is None else t.to(dtype)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = {k: conv(v) for k, v in tree["layers"].items()}
-    return out
+    def leaf(k, a):
+        if isinstance(a, dict):  # already quantized: the stored types stay
+            return {"q": conv(a["q"], None), "s": conv(a["s"], None)}
+        return conv(a, None if k in quant_keys else dt)
+
+    out = {k: leaf(k, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: leaf(k, v) for k, v in tree["layers"].items()}
+    return quantize_params(out, cfg) if cfg.quant else out
 
 
 def make_rope_table(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -137,7 +179,7 @@ def make_rope_table(cfg: ModelConfig, device=None) -> torch.Tensor:
 def run_layers(
     cfg: ModelConfig,
     layers: dict,  # stacked layer params, leading dim L
-    kv_cache: torch.Tensor,  # [L, 2, NB+1, BS, Hkv*D], written in place
+    kv_cache,  # [L, 2, NB+1, BS, Hkv*D] tensor or QuantKVCache, written in place
     x: torch.Tensor,  # [N, H]
     res: torch.Tensor,  # [N, H] f32 residual carried alongside
     rope_rows: torch.Tensor,  # [N, D]
@@ -160,22 +202,23 @@ def run_layers(
     eps = cfg.rms_norm_eps
     fresh = getattr(attn_fn, "wants_fresh_kv", False)
     fresh_and_cache = getattr(attn_fn, "wants_fresh_and_cache", False)
-    for li in range(layers["wq"].shape[0]):
+    for li in range(layers["input_ln"].shape[0]):
+        lp = {key: layer_weight(val, li) for key, val in layers.items()}  # views
         res2 = x.float() + res  # f32, exact
-        h1 = rms_norm(res2, layers["input_ln"][li], eps, out_dtype=x.dtype)
-        q = h1 @ layers["wq"][li]
-        k = h1 @ layers["wk"][li]
-        v = h1 @ layers["wv"][li]
+        h1 = rms_norm(res2, lp["input_ln"], eps, out_dtype=x.dtype)
+        q = mm(h1, lp["wq"])
+        k = mm(h1, lp["wk"])
+        v = mm(h1, lp["wv"])
         if cfg.qkv_bias:
-            q = q + layers["bq"][li]
-            k = k + layers["bk"][li]
-            v = v + layers["bv"][li]
+            q = q + lp["bq"]
+            k = k + lp["bk"]
+            v = v + lp["bv"]
         q = q.reshape(-1, n_q, d)
         k = k.reshape(-1, n_kv, d)
         v = v.reshape(-1, n_kv, d)
         if cfg.qk_norm:
-            q = rms_norm(q, layers["q_norm"][li], eps)
-            k = rms_norm(k, layers["k_norm"][li], eps)
+            q = rms_norm(q, lp["q_norm"], eps)
+            k = rms_norm(k, lp["k_norm"], eps)
         q = apply_rope(q, rope_rows)
         k = apply_rope(k, rope_rows)
         kv_write_fn(kv_cache, k, v, slots, li)
@@ -185,11 +228,11 @@ def run_layers(
             o = attn_fn(q, k, v, kv_cache, li, *attn_args)
         else:
             o = attn_fn(q, kv_cache, li, *attn_args)
-        attn_out = o.reshape(-1, n_q * d) @ layers["wo"][li]
+        attn_out = mm(o.reshape(-1, n_q * d), lp["wo"])
         res3 = attn_out.float() + res2  # f32 residual carry
-        h2 = rms_norm(res3, layers["post_ln"][li], eps, out_dtype=x.dtype)
-        act = F.silu((h2 @ layers["wgate"][li]).float()).to(x.dtype) * (h2 @ layers["wup"][li])
-        x = act @ layers["wdown"][li]
+        h2 = rms_norm(res3, lp["post_ln"], eps, out_dtype=x.dtype)
+        act = F.silu(mm(h2, lp["wgate"]).float()).to(x.dtype) * mm(h2, lp["wup"])
+        x = mm(act, lp["wdown"])
         res = res3
     return x, res
 
@@ -197,7 +240,7 @@ def run_layers(
 def forward(
     cfg: ModelConfig,
     params: dict,
-    kv_cache: torch.Tensor,  # written in place
+    kv_cache,  # written in place
     tokens: torch.Tensor,  # [N] int
     positions: torch.Tensor,  # [N] int
     slots: torch.Tensor,  # [N] int
@@ -222,5 +265,5 @@ def forward(
 
 def compute_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """LM head in the model dtype, then f32 with the padded vocab masked."""
-    logits = hidden @ params["lm_head"].T
+    logits = mm_t(hidden, params["lm_head"])
     return mask_invalid_logits(logits.float(), cfg.valid_vocab_size)

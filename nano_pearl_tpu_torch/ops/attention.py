@@ -28,6 +28,14 @@ against, and what the kernels' wrappers run for tensors on the CPU:
   as one softmax over cache and fresh keys
   (``paged_attention_grouped_fresh_jnp``), the yardstick of the merge.
 
+Every plain version reads either cache kind. Over a quantized cache
+(``QuantKVCache``) the decode, packed-verify and mono plain versions are
+those of kernels K9a, K9b and K9c: the gathered 1-byte rows are
+dequantized per (slot, head) and rounded to the query's dtype, as the
+kernels round their dequantized tiles; the prefix prefill dequantizes to
+f32 and attends with torch ops on every device, as the JAX package falls
+back to its jnp path there (its K4 takes no quantized cache).
+
 The dispatchers ``paged_attention``, ``paged_attention_grouped``,
 ``paged_attention_mono``, ``paged_attention_grouped_fresh``,
 ``prefill_self_attention`` and ``prefill_prefix_attention`` hand every
@@ -40,21 +48,39 @@ from __future__ import annotations
 
 import torch
 
-from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+from nano_pearl_tpu_torch.ops.kv_cache import (
+    cache_is_quantized,
+    dequant_rows,
+    global_block_offsets,
+)
 
 NEG_INF = -1e30
 M_FLOOR = -1e29  # running-max floor of the partials: nothing visible gives l = 0
 
 
-def _gather_kv(cache: torch.Tensor, layer_idx: int, block_tables: torch.Tensor, head_dim: int):
-    """K and V rows of the given block-table rows: [..., M*BS, Hkv, D]."""
+def _gather_kv(cache, layer_idx: int, block_tables: torch.Tensor, head_dim: int, out_dtype=None):
+    """K and V rows of the given block-table rows: [..., M*BS, Hkv, D] in
+    the cache's dtype. A quantized cache is dequantized after the gather
+    (``_gather_kv`` of the JAX package): f32, or rounded once to
+    ``out_dtype`` where it is given, as the kernels K9a-c round the
+    dequantized tile to the query's dtype (the Pallas kernels' ``_kv_head``
+    with ``out_dt = q.dtype``)."""
     bs, hd = cache.shape[3], cache.shape[4]
     hkv = hd // head_dim
     lead = block_tables.shape[:-1]
     s_len = block_tables.shape[-1] * bs
     k_off, v_off = global_block_offsets(cache, layer_idx)
-    blocks = cache.view(-1, bs, hd)
     bt = block_tables.long()
+    if cache_is_quantized(cache):
+        qb = cache.q.view(-1, bs, hd)
+        sb = cache.s.view(-1, bs, hkv)
+        kv = []
+        for off in (k_off, v_off):
+            rows = dequant_rows(qb[bt + off], sb[bt + off], head_dim)
+            rows = rows.reshape(*lead, s_len, hkv, head_dim)
+            kv.append(rows if out_dtype is None else rows.to(out_dtype))
+        return tuple(kv)
+    blocks = cache.view(-1, bs, hd)
     k = blocks[bt + k_off].reshape(*lead, s_len, hkv, head_dim)
     v = blocks[bt + v_off].reshape(*lead, s_len, hkv, head_dim)
     return k, v
@@ -76,7 +102,7 @@ def paged_attention_ref(
     scale: float,
 ) -> torch.Tensor:
     n, hq, d = q.shape
-    k, v = _gather_kv(cache, layer_idx, block_tables, d)  # [N, S, Hkv, D]
+    k, v = _gather_kv(cache, layer_idx, block_tables, d, q.dtype)  # [N, S, Hkv, D]
     s, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(n, hkv, hq // hkv, d).float()
     scores = torch.einsum("nkgd,nskd->nkgs", qg, k.float()) * scale
@@ -99,7 +125,7 @@ def paged_attention_grouped_ref(
     group's table repeated, but each group's K/V are gathered once."""
     n, hq, d = q.shape
     b, r = group_tables.shape[0], rows_per_group
-    k, v = _gather_kv(cache, layer_idx, group_tables, d)  # [B, S, Hkv, D]
+    k, v = _gather_kv(cache, layer_idx, group_tables, d, q.dtype)  # [B, S, Hkv, D]
     s, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, r, hkv, hq // hkv, d).float()
     scores = torch.einsum("brkgd,bskd->brkgs", qg, k.float()) * scale
@@ -301,31 +327,33 @@ def prefill_prefix_attention_ref(
 
 
 def paged_attention(q, cache, layer_idx, block_tables, context_lens, scale):
-    """Decode attention: kernel K1 on the card, the plain version on the CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_decode
+    """Decode attention: kernel K1 (K9a over a quantized cache) on the
+    card, the plain version on the CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_decode, paged_decode_q8
 
-    return paged_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+    fn = paged_decode_q8 if cache_is_quantized(cache) else paged_decode
+    return fn(q, cache, layer_idx, block_tables, context_lens, scale)
 
 
 def paged_attention_grouped(
     q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
 ):
-    """Packed-verify attention: kernel K2 on the card, the plain version on
-    the CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_verify
+    """Packed-verify attention: kernel K2 (K9b over a quantized cache) on
+    the card, the plain version on the CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_verify, paged_verify_q8
 
-    return paged_verify(
-        q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
-    )
+    fn = paged_verify_q8 if cache_is_quantized(cache) else paged_verify
+    return fn(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
 
 
 def paged_attention_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
     """Grouped paged attention on the mono schedule (decode at
-    ``rows_per_group`` 1): kernel K5 on the card, the plain version on the
-    CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.mono_attention import mono_attention
+    ``rows_per_group`` 1): kernel K5 (K9c over a quantized cache) on the
+    card, the plain version on the CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.mono_attention import mono_attention, mono_q8
 
-    return mono_attention(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    fn = mono_q8 if cache_is_quantized(cache) else mono_attention
+    return fn(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
 
 
 def paged_attention_grouped_fresh(
@@ -354,7 +382,12 @@ def prefill_self_attention(q, k, v, q_positions, scale):
 
 def prefill_prefix_attention(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale):
     """Prefill over a cached prefix plus the fresh causal window: kernel K4
-    on the card, the plain version on the CPU."""
+    on the card, the plain version on the CPU. Over a quantized cache the
+    plain version on every device, as the JAX package gates its K4 off
+    for quantized caches and runs its jnp path."""
     from nano_pearl_tpu_torch.ops.cuda.prefill_attention import prefill_prefix
+
+    if cache_is_quantized(cache):
+        return prefill_prefix_attention_ref(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)
 
     return prefill_prefix(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)

@@ -19,9 +19,16 @@ on the device from each group's own context, and the block that finishes
 a (group, head) last folds its chunks' partials in chunk order in the same
 launch (the source's header has the details).
 
+K9c ``mono_q8`` is K5 over a quantized cache (``QuantKVCache``), the
+throughput profile's decode and packed verify there; it replaces
+``_grouped_kernel_db_mono_q8v2`` (entry ``_mono_call_q8``). Only its tile
+load differs: 16 one-byte values per 16-byte load, dequantized per (slot,
+head) and rounded to the query's dtype (the loader of K9a/K9b). Its plain
+version is K5's, which reads either cache kind.
+
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
-anything else.
+anything else, a cache of the other kind included.
 """
 
 from __future__ import annotations
@@ -62,8 +69,10 @@ def _lib() -> ctypes.CDLL:
         tail = [_I] * 7 + [_LL, _LL, _F, _I, _I, _P]
         lib.npt_mono_attention.argtypes = [_P] * 8 + tail
         lib.npt_cache_partials.argtypes = [_P] * 10 + tail
+        lib.npt_mono_q8.argtypes = [_P] * 9 + [_I] * 7 + [_LL, _LL, _F, _I, _I, _I, _P]
         lib.npt_mono_attention.restype = _I
         lib.npt_cache_partials.restype = _I
+        lib.npt_mono_q8.restype = _I
         lib.npt_mono_chunk_tokens.restype = _I
         lib._npt_typed = True
     return lib
@@ -85,15 +94,20 @@ def _launch(fn, what, q, cache, layer_idx, group_tables, context_lens, scale, r,
     if r < 1:
         raise ValueError(f"rows_per_group must be >= 1, got {r}")
     b = group_tables.shape[0]
-    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, b, b * r)
+    quant = fn == "npt_mono_q8"
+    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, b, b * r, quant=quant)
     k_off, v_off = global_block_offsets(cache, layer_idx)
     lib = _lib()
     max_chunks, acc, ml, cnt = _scratch(lib, b, r, hq, hkv, d, m, bs, q.device)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    # the C interfaces differ only in the cache's pointers and the trailing type flags
+    cache_ptrs = (cache.q.data_ptr(), cache.s.data_ptr()) if quant else (cache.data_ptr(),)
+    flags = (is_bf16, int(cache.q.dtype == torch.float8_e4m3fn)) if quant else (is_bf16,)
     err = getattr(lib, fn)(
-        q.data_ptr(), cache.data_ptr(), group_tables.data_ptr(), context_lens.data_ptr(),
+        q.data_ptr(), *cache_ptrs, group_tables.data_ptr(), context_lens.data_ptr(),
         *(t.data_ptr() for t in outs), acc.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
         b, r, m, hq, hkv, d, bs, k_off, v_off, float(scale), max_chunks,
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        *flags, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, what)
 
@@ -125,5 +139,17 @@ def cache_partials(q, cache, layer_idx, group_tables, context_lens, scale, rows_
     return o, m_out, l_out
 
 
+def mono_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
+    """K9c: K5 over a quantized cache."""
+    if q.device.type == "cpu":
+        return plain_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    out = torch.empty_like(q)
+    _launch("npt_mono_q8", "mono_q8", q, cache, layer_idx, group_tables, context_lens, scale,
+            int(rows_per_group), (out,))
+    mono_q8.launches += 1
+    return out
+
+
 mono_attention.launches = 0
 cache_partials.launches = 0
+mono_q8.launches = 0

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels K1 (paged decode), K2 (packed verify),
 K3 (causal prefill), K4 (prefill over a cached prefix), K5 (grouped
 attention on the mono schedule), K7 (cache-side partials of the deferred
-verify) and K12 (the deferred verify's writeback) against their plain
+verify), K12 (the deferred verify's writeback) and K9a/K9b/K9c (K1, K2
+and K5 over an int8 or e4m3 cache with bf16 scales) against their plain
 PyTorch versions.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
@@ -15,7 +16,8 @@ softmax, the plain version one softmax over all keys); bf16 rtol 8e-3,
 atol 1e-3 (both accumulate in f32 and round the output to bf16 once, so
 they may differ by one bf16 step, at most 2^-7 of the value). K7's m and
 l are f32 in both dtypes and held at 1e-4; K12 moves bytes and is held
-bit for bit.
+bit for bit. K9a-c are held at the same tolerances: their plain versions
+round the dequantized K/V to the query's dtype, as the kernels do.
 """
 
 import pytest
@@ -25,6 +27,7 @@ from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
 from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
 from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 
@@ -46,6 +49,22 @@ def paged_case(seed, n_tables, rows, dtype, device, nb=60, bs=32, hq=8, hkv=2, d
             ctx[i] = torch.arange(c0, c0 + rows, dtype=torch.int32)
     to = lambda x: x.to(device)  # noqa: E731
     return to(q), to(cache), nl - 1, to(bt), to(ctx.reshape(-1)), d**-0.5
+
+
+def q8_case(seed, n_tables, rows, dtype, kind, device, **kw):
+    """``paged_case`` over a quantized cache: random 1-byte values (int8 in
+    [-127, 127], or e4m3 of N(0, 4^2)) and random positive bf16 scales per
+    slot and KV head."""
+    q, cache, layer, bt, ctx, scale = paged_case(seed, n_tables, rows, dtype, "cpu", **kw)
+    g = torch.Generator().manual_seed(seed + 1000)
+    hkv = cache.shape[-1] // q.shape[-1]
+    if kind == "int8":
+        values = torch.randint(-127, 128, cache.shape, generator=g, dtype=torch.int8)
+    else:
+        values = (4 * torch.randn(cache.shape, generator=g)).to(torch.float8_e4m3fn)
+    scales = (0.01 + 0.05 * torch.rand(cache.shape[:-1] + (hkv,), generator=g)).to(torch.bfloat16)
+    qc = QuantKVCache(values.to(device), scales.to(device))
+    return q.to(device), qc, layer, bt.to(device), ctx.to(device), scale
 
 
 def prefill_case(seed, dtype, device, b=3, lq=70, hq=8, hkv=2, d=128):
@@ -300,3 +319,87 @@ def test_throughput_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kkw.write_fresh_kernel(cache, fresh.to(torch.bfloat16), slots)
     with pytest.raises(ValueError):  # fresh rows != slots
         kkw.write_fresh_kernel(cache, fresh[:, :, :-1].contiguous(), slots)
+
+
+def test_q8_wrappers_take_the_plain_version_on_cpu(monkeypatch):
+    """K9a-c's wrappers, like the others: CPU tensors go to the plain
+    versions, which are K1/K2/K5's and read either cache kind, and launch
+    nothing."""
+    returned = []
+    for module, name in ((kpa, "plain_decode"), (kpa, "plain_verify"), (kmo, "plain_mono")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, fn=fn: returned.append(fn(*a)) or returned[-1])
+    counters = (kpa.paged_decode_q8, kpa.paged_verify_q8, kmo.mono_q8)
+    before = [fn.launches for fn in counters]
+    args = q8_case(30, 4, 1, torch.float32, "int8", "cpu")
+    assert kpa.paged_decode_q8(*args) is returned[-1]
+    args = q8_case(31, 4, 3, torch.float32, "fp8", "cpu")
+    assert kpa.paged_verify_q8(*args, 3) is returned[-1]
+    assert kmo.mono_q8(*args, 3) is returned[-1]
+    assert len(returned) == 3
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(8, 128), (16, 64)])
+def test_paged_decode_q8_matches_plain(cuda, kind, dtype, heads):
+    hq, d = heads
+    args = q8_case(32, 6, 1, dtype, kind, cuda, hq=hq, d=d)
+    n0 = kpa.paged_decode_q8.launches
+    got = kpa.paged_decode_q8(*args)
+    assert kpa.paged_decode_q8.launches == n0 + 1
+    torch.testing.assert_close(got.float(), kpa.plain_decode(*args).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_q8_matches_plain_and_k9a_bitwise(cuda, kind, dtype):
+    """K9b at a packed verify's 14 rows against its plain version, and its
+    rows against K9a's on the same query, table and context, bit for bit."""
+    q, cache, layer, bt, ctx, scale = q8_case(33, 5, 14, dtype, kind, cuda)
+    n0 = kpa.paged_verify_q8.launches
+    got = kpa.paged_verify_q8(q, cache, layer, bt, ctx, scale, 14)
+    assert kpa.paged_verify_q8.launches == n0 + 1
+    want = kpa.plain_verify(q, cache, layer, bt, ctx, scale, 14)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    single = kpa.paged_decode_q8(q, cache, layer, bt.repeat_interleave(14, 0).contiguous(), ctx, scale)
+    assert torch.equal(got, single)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 14])
+def test_mono_q8_matches_plain(cuda, kind, dtype, rows):
+    """K9c at decode and at 14 rows per group, contexts up to 1280
+    positions (several key chunks per group); a second launch agrees bit
+    for bit (the arrival counters are back to zero)."""
+    args = q8_case(34, 6, rows, dtype, kind, cuda, m=40)
+    n0 = kmo.mono_q8.launches
+    got = kmo.mono_q8(*args, rows)
+    assert kmo.mono_q8.launches == n0 + 1
+    torch.testing.assert_close(got.float(), kmo.plain_mono(*args, rows).float(), **TOL[dtype])
+    assert torch.equal(kmo.mono_q8(*args, rows), got)
+
+
+def test_q8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, cache, layer, bt, ctx, scale = q8_case(35, 3, 2, torch.float32, "int8", cuda)
+    plain = paged_case(35, 3, 2, torch.float32, cuda)[1]
+    with pytest.raises(ValueError):  # a bf16/f32 cache for a K9 kernel
+        kpa.paged_decode_q8(q, plain, layer, bt.repeat_interleave(2, 0).contiguous(), ctx, scale)
+    with pytest.raises(ValueError):  # a quantized cache for K1, K2, K5 and K7
+        kpa.paged_decode(q, cache, layer, bt.repeat_interleave(2, 0).contiguous(), ctx, scale)
+    with pytest.raises(ValueError):
+        kpa.paged_verify(q, cache, layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):
+        kmo.mono_attention(q, cache, layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):
+        kmo.cache_partials(q, cache, layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):  # scales not one per slot and KV head
+        kpa.paged_verify_q8(q, QuantKVCache(cache.q, cache.s[..., :1].contiguous()), layer, bt, ctx,
+                            scale, 2)
+    with pytest.raises(ValueError):  # values on the CPU
+        kmo.mono_q8(q, QuantKVCache(cache.q.cpu(), cache.s), layer, bt, ctx, scale, 2)
+    with pytest.raises(ValueError):  # head_dim 32
+        kmo.mono_q8(q[..., :32].contiguous(), QuantKVCache(cache.q[..., :64].contiguous(), cache.s),
+                    layer, bt, ctx, scale, 2)
