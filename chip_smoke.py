@@ -24,21 +24,29 @@ script exits non-zero without its last line):
    against their plain PyTorch versions (bf16, within one
    rounding of the output to bf16: rtol 8e-3, atol 1e-3), K2's rows
    against K1 and K9b's against K9a bit for bit, each K9 row against a
-   second launch bit for bit, and kernel / plain / library
+   second launch bit for bit, the kernels of the schedule overrides
+   (K8a split-boundary decode at 32 rows, K6a and K8b deferred verify at
+   16 groups x 14 rows, K6b at 32 groups x 14 rows, each against a second
+   launch bit for bit too), and kernel / plain / library
    (scaled_dot_product_attention or index_copy_, yardsticks the port
    never calls) times from CUDA events with the L2 cache flushed before
-   each launch;
+   each launch; split_bitwise: K8b's rows against K8a's bit for bit
+   (windows inside a 256-key chunk and across one, num_input 1, ctx0 0);
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
    op whose outputs differ is printed, and the engine's decode must give
-   bitwise-equal logits; then decode_verify_bitwise_throughput, the same
-   probe under the throughput profile, printed and not asserted;
+   bitwise-equal logits; then decode_verify_bitwise_overrides (the split
+   and deferred-db schedules) and decode_verify_bitwise_throughput, the
+   same probe, printed and not asserted;
 5. exactness: an f32 layer-share pair (2L/6L, B=4, gamma=4) at full width
    must give PEARL tokens == AR tokens; throughput_exactness: the same
    under the throughput profile with a noisy draft, rejections included;
    quant_exactness: both again, the ceiling one with int8 KV and int8
    weights, the throughput one with fp8 KV and fp8 weights;
+   split_exactness, deferred_db_exactness, fresh_kernel_exactness: the
+   ceiling check under NANO_PEARL_SPLIT=1 and NANO_PEARL_DEFERRED_VERIFY=1,
+   the throughput check under NANO_PEARL_FRESH_MODE=kernel;
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
    prompt 64, greedy: 145 PEARL rounds, then AR over the same window;
@@ -47,14 +55,21 @@ script exits non-zero without its last line):
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
    decode through K9a, verify through K9b, the KV pools' bytes per block
    against the bf16 run's); quant_throughput_path: the throughput path
-   with --kv-quant fp8 --quant fp8 (K9c); both over 145 rounds too;
+   with --kv-quant fp8 --quant fp8 (K9c); both over 145 rounds too, their
+   AR over the first third of the window;
+   split_path, deferred_db_path (the main path's run under
+   NANO_PEARL_SPLIT=1: K8a, K8b; and NANO_PEARL_DEFERRED_VERIFY=1: K1, K6a)
+   and fresh_kernel_path (the throughput path's under
+   NANO_PEARL_FRESH_MODE=kernel: K5, K6b), 145 rounds each with the
+   variable set around the engine's construction only, their speedup
+   against the AR of the main or throughput path in the same call;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
-Each path (main path, throughput path, the two quantized paths, serving)
-sets every launch
+Each path (main path, throughput path, the two quantized paths, the
+three override paths, serving) sets every launch
 counter to 0 just before it and reads them just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -62,7 +77,9 @@ counter to 0 just before it and reads them just after. Then one
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -380,6 +397,175 @@ def write_fresh_row(gen, dev, flush, nl=36, nb=520, bs=256, hkv=2, d=128, groups
     )
 
 
+def fresh_inputs(gen, dev, ctx0, rows, hq=8, hkv=2, d=128):
+    """The deferred verify's arguments at the bench pair's heads: a cache
+    holding each group's pre-round context ``ctx0``, the round's fresh K/V
+    (row t of a group at position ctx0 + t) and staircase contexts ctx0 +
+    1 .. ctx0 + rows."""
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), rows, np.asarray(ctx0) + 1, hq=hq, hkv=hkv, d=d)
+    n = q.shape[0]
+    fk = torch.randn((n, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    fv = torch.randn((n, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    c0 = torch.as_tensor(np.asarray(ctx0), dtype=torch.int32, device=dev)
+    return q, cache, bt, ctx, c0, fk, fv, scale
+
+
+def fresh_sdpa(q, cache, layer, bt, ctx, c0, fk, fv, rows, hq, hkv, d, scale):
+    """One SDPA call over each group's gathered cache with its fresh rows
+    appended (cache position p visible iff p < min(ctx_row, ctx0), fresh row
+    t iff ctx0 + t < ctx_row), and the layout back to [N, Hq, D]."""
+    import torch.nn.functional as F
+
+    groups = bt.shape[0]
+    k, v = gathered(cache, layer, bt, hkv, d)
+    k = torch.cat([k, fk.reshape(groups, rows, hkv, d).transpose(1, 2)], 2).repeat_interleave(hq // hkv, 1)
+    v = torch.cat([v, fv.reshape(groups, rows, hkv, d).transpose(1, 2)], 2).repeat_interleave(hq // hkv, 1)
+    s = k.shape[2] - rows
+    cr = ctx.reshape(groups, rows)
+    vis_c = torch.arange(s, device=q.device)[None, None, :] < torch.minimum(cr, c0[:, None])[:, :, None]
+    vis_f = c0[:, None, None] + torch.arange(rows, device=q.device)[None, None, :] < cr[:, :, None]
+    mask = torch.cat([vis_c, vis_f], 2)[:, None]
+    qg = q.reshape(groups, rows, hq, d).transpose(1, 2)
+    return (lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale),
+            lambda o: o.transpose(1, 2).reshape(-1, hq, d))
+
+
+OVERRIDE_KERNELS = {  # the schedule overrides' kernels -> (TPU kernel body replaced, source)
+    "paged_decode_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:436", "paged_attention.cu"),
+    "paged_verify_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1551", "paged_attention.cu"),
+    "paged_verify_fresh_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1614", "paged_attention.cu"),
+    "mono_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1703", "mono_attention.cu"),
+}
+
+
+def override_kernel_fns() -> dict:
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    return {"paged_decode_split": kpa.paged_decode_split, "paged_verify_fresh": kpa.paged_verify_fresh,
+            "paged_verify_fresh_split": kpa.paged_verify_fresh_split, "mono_fresh": kmo.mono_fresh}
+
+
+def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1) -> dict:
+    """K6a or K8b (at a ceiling verify chunk: 16 groups x 14 rows) or K6b
+    (at the throughput path's 32 groups x 14 rows): one group per pre-round
+    context in ``ctx0``, held against the plain version at TOL and against
+    a second launch bit for bit. The bound counts each group's cache
+    context and fresh rows once, q and o; the yardstick is SDPA over the
+    gathered cache with the fresh rows appended (o only, the SDPA call
+    alone timed)."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    fn = override_kernel_fns()[name]
+    q, cache, bt, ctx, c0, fk, fv, scale = fresh_inputs(gen, dev, ctx0, rows, hq, hkv, d)
+    args = (q, cache, layer, bt, ctx, c0, fk, fv, scale)
+    got, want = fn(*args, rows), kpa.plain_fresh(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if not torch.equal(fn(*args, rows), got):
+        raise AssertionError(f"{name}: a second launch gives other bits")
+    lib = lib_yardstick(*fresh_sdpa(q, cache, layer, bt, ctx, c0, fk, fv, rows, hq, hkv, d, scale), want)
+    n = q.shape[0]
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + c0.numel() * 4 \
+        + float(c0.sum()) * 2 * hkv * d * 2 + 2 * n * hkv * d * 2
+    b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
+    replaces, source = OVERRIDE_KERNELS[name]
+    return dict(
+        name=name, kernel=name, route="cuda", source=f"nano_pearl_tpu_torch/csrc/{source}", replaces=replaces,
+        max_abs_err=err, ms=time_ms(lambda: fn(*args, rows), 50, flush),
+        plain_ms=time_ms(lambda: kpa.plain_fresh(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        library="SDPA over the gathered cache with the fresh rows appended, o only",
+        second_launch_bitwise=True,
+        shape=dict(groups=len(ctx0), rows=rows, hq=hq, hkv=hkv, d=d, ctx0_min=int(c0.min()),
+                   ctx0_max=int(c0.max())),
+    )
+
+
+def decode_split_row(gen, dev, flush, ctx0, gamma=14, hq=8, d=128, hkv=2, layer=1) -> dict:
+    """K8a on the gamma-scan's 32 decode rows, row i cut at b1 = ctx - (i %
+    gamma) (the boundary of the step-(i % gamma) decode of a round, steps >=
+    1 at the round-start length), held against K1's plain version at TOL and
+    a second launch bit for bit; bound and yardstick K1's."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), 1, ctx0, hq=hq, hkv=hkv, d=d)
+    b1 = (ctx - torch.arange(len(ctx0), device=dev, dtype=torch.int32) % gamma).contiguous()
+    args = (q, cache, layer, bt, ctx, b1, scale)
+    got, want = kpa.paged_decode_split(*args), kpa.plain_decode(q, cache, layer, bt, ctx, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if not torch.equal(kpa.paged_decode_split(*args), got):
+        raise AssertionError("paged_decode_split: a second launch gives other bits")
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, 1, hq, hkv, d, scale), want)
+    sum_ctx = float(ctx.sum())
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + 2 * ctx.numel() * 4 + sum_ctx * 2 * hkv * d * 2
+    b_ms, b_by = bound(nbytes, 4 * sum_ctx * hq * d)
+    replaces, source = OVERRIDE_KERNELS["paged_decode_split"]
+    return dict(
+        name="paged_decode_split", kernel="paged_decode_split", route="cuda",
+        source=f"nano_pearl_tpu_torch/csrc/{source}", replaces=replaces,
+        max_abs_err=err, ms=time_ms(lambda: kpa.paged_decode_split(*args), 50, flush),
+        plain_ms=time_ms(lambda: kpa.plain_decode(q, cache, layer, bt, ctx, scale), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush), second_launch_bitwise=True,
+        shape=dict(rows=len(ctx0), hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()), ctx_max=int(ctx.max())),
+    )
+
+
+SPLIT_CASES = {  # pre-round context ctx0 of the group, real rows of its window
+    "window_inside_a_chunk": (1000, 14),
+    "window_across_a_256_multiple": (1530, 14),
+    "num_input_1": (777, 1),
+    "ctx0_0": (0, 14),
+}
+
+
+def split_bitwise_phase(dev, rows=14, hq=8, hkv=2, d=128, layer=1) -> dict:
+    """K8b's rows against K8a's at b1 = ctx0, bit for bit, K8a reading the
+    fresh rows from the draft's cache (its gamma-scan wrote them there):
+    one 14-row group per case of SPLIT_CASES, at the bench pair's heads;
+    and a second launch of each new kernel against the first, bit for bit,
+    on the same groups."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    gen = torch.Generator(dev).manual_seed(7)
+    ctx0 = [c for c, _ in SPLIT_CASES.values()]
+    q, cache, bt, ctx, c0, fk, fv, scale = fresh_inputs(gen, dev, ctx0, rows, hq, hkv, d)
+    ctx = ctx.reshape(len(ctx0), rows)
+    for i, (_, real) in enumerate(SPLIT_CASES.values()):
+        ctx[i, real:] = 1  # padding rows of a pre-verify group
+    ctx = ctx.reshape(-1).contiguous()
+    drafted, bs = cache.clone(), cache.shape[3]
+    for i, c in enumerate(ctx0):
+        pos = c + torch.arange(rows, device=dev)
+        pages = bt[i, pos // bs].long()
+        drafted[layer, 0, pages, pos % bs] = fk[i * rows : (i + 1) * rows].reshape(rows, -1)
+        drafted[layer, 1, pages, pos % bs] = fv[i * rows : (i + 1) * rows].reshape(rows, -1)
+    fresh_args = (q, cache, layer, bt, ctx, c0, fk, fv, scale, rows)
+    verify = kpa.paged_verify_fresh_split(*fresh_args)
+    b1 = c0.repeat_interleave(rows)
+    dec_args = (q, drafted, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, b1, scale)
+    decode = kpa.paged_decode_split(*dec_args)
+    torch.cuda.synchronize()
+    real = (ctx > b1).reshape(len(ctx0), rows)
+    equal = {name: bool(torch.equal(verify.reshape(len(ctx0), rows, -1)[i][real[i]],
+                                    decode.reshape(len(ctx0), rows, -1)[i][real[i]]))
+             for i, name in enumerate(SPLIT_CASES)}
+    fns = override_kernel_fns()
+    second = {name: bool(torch.equal(fns[name](*fresh_args), fns[name](*fresh_args)))
+              for name in ("paged_verify_fresh", "paged_verify_fresh_split", "mono_fresh")}
+    second["paged_decode_split"] = bool(torch.equal(kpa.paged_decode_split(*dec_args), decode))
+    out = {"phase": "split_bitwise", "k8b_rows_equal_k8a": equal, "second_launch_bitwise": second,
+           "cases": {k: {"ctx0": c, "real_rows": r} for k, (c, r) in SPLIT_CASES.items()},
+           "shape": dict(rows=rows, hq=hq, hkv=hkv, d=d)}
+    emit(out)
+    if not (all(equal.values()) and all(second.values())):
+        raise AssertionError(f"K8b rows != K8a rows, or a second launch differs: {out}")
+    return out
+
+
 def kernel_phase(dev, flush) -> list[dict]:
     """Every kernel at the shapes each path gives it, first the row that
     stands for it in the kernels line: K1-K3 at the main path's (bench
@@ -420,6 +606,13 @@ def kernel_phase(dev, flush) -> list[dict]:
         q8_row(gen, dev, flush, "mono_q8_int8", "int8", spread(32, 2300, 0), 1),
         q8_row(gen, dev, flush, "mono_q8_r14", "fp8", spread(32, 2300, 1), 14),
         q8_row(gen, dev, flush, "mono_q8_r14_int8", "int8", spread(32, 2300, 1), 14),
+        # the schedule overrides: K8a at the split path's 32 gamma-scan rows,
+        # K6a / K8b at a verify chunk (16 groups x 14 rows), K6b at the
+        # fresh-kernel path's 32 groups x 14 rows
+        decode_split_row(gen, dev, flush, spread(32, 2300, 0)),
+        fresh_row(gen, dev, flush, "paged_verify_fresh", spread(16, 2300, 1)),
+        fresh_row(gen, dev, flush, "paged_verify_fresh_split", spread(16, 2300, 1)),
+        fresh_row(gen, dev, flush, "mono_fresh", spread(32, 2300, 1)),
     ]
     for r in rows:
         emit({"phase": "kernel", **r})
@@ -573,11 +766,28 @@ def model_config(layers: int, dtype: str):
     )
 
 
+@contextlib.contextmanager
+def overrides(env: dict | None):
+    """The kernel-schedule variables ``env`` (NANO_PEARL_*) set in
+    os.environ for the block only, as they were before afterwards: a runner
+    reads them once when it is built."""
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
-                kv_quant=None, quant=None):
+                kv_quant=None, quant=None, env=None):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
-    models)."""
+    models); ``env``: schedule overrides set around the construction."""
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
@@ -591,7 +801,8 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
         max_num_seqs=max(batch, 8), seed=0, dtype=dtype, perf_profile=profile,
         draft_kv_quant=kv_quant, target_kv_quant=kv_quant, draft_quant=quant, target_quant=quant,
     )
-    return PearlEngine(cfg, dp, tp, device=dev)
+    with overrides(env):
+        return PearlEngine(cfg, dp, tp, device=dev)
 
 
 def add_requests(engine, rng, batch, prompt_len, max_tokens):
@@ -678,9 +889,12 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
     starts with one shared prefix of that many tokens, which all but the
     first request read from the prefix cache (kernel K4), and contexts
     span several key chunks of K1/K2. Under the throughput profile the
-    decode is K5's and the verify the deferred one (K7 + fresh window)."""
+    decode is K5's and the verify the deferred one (K7 + fresh window);
+    under the split schedule the decode is K8a's, every step cut at the
+    verify's window start (b1 = length - 1, the probe's ctx0), and the
+    verify K8b's; under a deferred verify on the db schedule, K1 and K6a."""
     from nano_pearl_tpu_torch.engine.fused import _row_slots
-    from nano_pearl_tpu_torch.engine.runner import _deferred_attn
+    from nano_pearl_tpu_torch.engine.runner import _deferred_attn, _split_decode
     from nano_pearl_tpu_torch.ops.attention import (
         paged_attention,
         paged_attention_grouped,
@@ -712,8 +926,8 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
             attn = paged_attention_mono if tr.use_mono else paged_attention_grouped
             return traced_forward(tr, t, p, sl, attn, (bt, c, tr.scale, gamma), n_draft)
         ctx0 = c.reshape(-1, gamma)[:, 0] - 1
-        return traced_forward(tr, t, p, sl, _deferred_attn, (bt, c, ctx0, tr.scale, gamma), n_draft,
-                              store=False)
+        return traced_forward(tr, t, p, sl, _deferred_attn,
+                              (bt, c, ctx0, tr.scale, gamma, tr.fresh_schedule), n_draft, store=False)
 
     def gamma_scan(calls, rows):
         """Traced decode steps in ``calls`` calls of ``rows`` rows (padding
@@ -723,14 +937,20 @@ def probe_decode_verify(engine, batch: int, gamma: int, system_len: int = 0) -> 
         bt = torch.cat([state["bt_d"], torch.full((pad, state["bt_d"].shape[1]), dr.garbage_block,
                                                   dtype=torch.int32, device=dev)])
         tok, pos, ctx = torch.cat([last, z]), torch.cat([length - 1, z]), torch.cat([length, z + 1])
+        b1 = torch.cat([length - 1, z])  # the verify's window start, padded rows 0
         steps, picks = [], []
         for _ in range(gamma):
             sl = _row_slots(bt, pos[:, None], bs)[:, 0]
             per_call, logits = [], []
             for c in range(calls):
-                t, p, s_, b_, c_ = (x[c * rows : (c + 1) * rows] for x in (tok, pos, sl, bt, ctx))
-                logits.append(dr.decode_step(t, p, s_, b_, c_))
-                per_call.append(traced_forward(dr, t, p, s_, decode_attn, (b_, c_, dr.scale), n_draft))
+                t, p, s_, b_, c_, b1_ = (x[c * rows : (c + 1) * rows] for x in (tok, pos, sl, bt, ctx, b1))
+                if dr.split:
+                    logits.append(dr.decode_step(t, p, s_, b_, c_, b1_))
+                    attn, args = _split_decode, (b_, c_, b1_, dr.scale)
+                else:
+                    logits.append(dr.decode_step(t, p, s_, b_, c_))
+                    attn, args = decode_attn, (b_, c_, dr.scale)
+                per_call.append(traced_forward(dr, t, p, s_, attn, args, n_draft))
                 if not torch.equal(per_call[-1][-1][1], logits[-1]):
                     raise AssertionError("the traced decode does not reproduce the real one")
             steps.append([(name, torch.cat([ops[i][1] for ops in per_call]))
@@ -813,6 +1033,21 @@ def decode_verify_bitwise_phase(dev) -> None:
         raise AssertionError(f"decode and verify logits differ at the engine's shapes: {bad}")
 
 
+def decode_verify_overrides_phase(dev) -> None:
+    """The probe on the bench pair (B=32, gamma=14) under the split schedule
+    (K8a decode, K8b verify) and under the deferred verify on the db
+    schedule (K1 decode, K6a verify): the first op whose outputs differ is
+    printed, not asserted."""
+    probes = []
+    for name, env in (("split", {"NANO_PEARL_SPLIT": "1"}), ("deferred_db", {"NANO_PEARL_DEFERRED_VERIFY": "1"})):
+        engine = pair_engine(3, 36, "bfloat16", 32, 14, 4, 64, dev, env=env)
+        probes.append({"schedule": name, "env": env, **probe_decode_verify(engine, 32, 14)})
+        del engine
+        torch.cuda.empty_cache()
+    emit({"phase": "decode_verify_bitwise_overrides", "dtype": "bfloat16",
+          "pair": "bench 3L/36L, 8x128 q heads", "probes": probes})
+
+
 def decode_verify_throughput_phase(dev) -> None:
     """The same probe under the throughput profile (K5 decode at the batch
     bucket's rows, deferred verify through K7 and the fresh window) on the
@@ -850,12 +1085,23 @@ def quant_label(kv_quant, quant) -> str:
     return "".join([f", {kv_quant} KV" if kv_quant else "", f", {quant} weights" if quant else ""])
 
 
-def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness") -> None:
+def override_launch_check(phase, env, counters, before, ran) -> dict:
+    """Under schedule overrides the phase must have launched ``ran``;
+    returns their launches."""
+    launches = {k: counters[k].launches - before[k] for k in ran}
+    if env and not all(launches.values()):
+        raise AssertionError(f"{phase}: a kernel of the override {env} never ran: {launches}")
+    return launches
+
+
+def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=()) -> None:
     """f32 layer-share pair: the PEARL stream must equal the AR stream
-    (``kv_quant`` / ``quant``: over a quantized cache / weights)."""
+    (``kv_quant`` / ``quant``: over a quantized cache / weights; ``env``:
+    under schedule overrides, whose kernels ``ran`` must have launched)."""
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + 16 * gamma  # a whole number of accepted windows
-    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, kv_quant=kv_quant, quant=quant)
+    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, kv_quant=kv_quant, quant=quant,
+                         env=env)
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -869,16 +1115,17 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness") -> None:
         )
         raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) {first}")
     q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
+    ov = override_launch_check(phase, env, counters, before, ran)
     emit({"phase": phase, "pearl_equals_ar": True, "tokens": n_pearl,
           "accepted_tokens": [sum(a) for a in acc],
-          **({"k9_launches": q8} if kv_quant else {}),
+          **({"k9_launches": q8} if kv_quant else {}), **({"env": env, "launches": ov} if env else {}),
           "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)})
     del engine
     torch.cuda.empty_cache()
 
 
 def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, quant=None,
-                               phase="throughput_exactness") -> None:
+                               phase="throughput_exactness", env=None, ran=()) -> None:
     """The throughput profile on the f32 2L/6L pair at full width with a
     noisy draft (B=4, gamma=4): rounds reject and roll back over deferred
     writes, and every PEARL token the target verified must equal AR's at
@@ -890,7 +1137,7 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + 16 * gamma
     engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, profile="throughput",
-                         draft_noise=draft_noise, kv_quant=kv_quant, quant=quant)
+                         draft_noise=draft_noise, kv_quant=kv_quant, quant=quant, env=env)
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -902,12 +1149,13 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
     if bad:
         raise AssertionError(f"{phase}: f32 throughput PEARL != AR for requests {bad}")
     q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
+    ov = override_launch_check(phase, env, counters, before, ran)
     # a request whose every round accepted has one accepted-token emit
     rejections = sum(len(a) - 1 for a in acc)
     emit({"phase": phase, "pearl_equals_ar": True, "tokens": n_pearl,
           "verified_tokens_compared": verified, "rounds_with_a_rejection": rejections,
           "accepted_tokens": [sum(a) for a in acc],
-          **({"k9_launches": q8} if kv_quant else {}),
+          **({"k9_launches": q8} if kv_quant else {}), **({"env": env, "launches": ov} if env else {}),
           "config": f"f32 layer-share 2L/6L full width, draft_noise {draft_noise}, B=4, gamma=4, "
                     "throughput profile" + quant_label(kv_quant, quant)})
     if rejections < 1:
@@ -916,31 +1164,37 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
     torch.cuda.empty_cache()
 
 
-def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None
-              ) -> tuple[dict, dict]:
+def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
+              ar_of: tuple[str, float] | None = None, ar_cut: int = 1) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
-    ``--kv-quant``, ``--quant``). The launch counters are set to 0 just
-    before the measured runs. Returns (the phase's line without its name,
-    launches)."""
+    ``--kv-quant``, ``--quant``; ``env``: schedule overrides around the
+    engine's construction). With ``ar_of`` = (path, AR tok/s) the AR run
+    is left out and the speedup taken against that path's AR of this call:
+    the overrides change no kernel of AR but the schedule of its decode, as
+    in the JAX package. ``ar_cut`` > 1 runs the first 1 / ar_cut of the AR
+    window only (the quantized paths, to keep the script inside its time
+    limit). The launch counters are set to 0 just before the measured
+    runs. Returns (the phase's line without its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
     counters = kernel_counters()
     batch, gamma, prompt_len = 32, 14, 64
     ar_max_tokens = steps * (gamma + 1)
-    ar_steps = ar_max_tokens - 1  # prefill commits one token per sequence
+    ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant)
+                         kv_quant, quant, env)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
     add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
     engine.bench_generate(num_pearl_steps=2, reserve_steps=steps)
-    add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
-    engine.AR_bench_generate(num_steps=4, reserve_steps=ar_steps)
+    if ar_of is None:
+        add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
+        engine.AR_bench_generate(num_steps=4, reserve_steps=ar_steps)
 
     for fn in counters.values():
         fn.launches = 0
@@ -949,48 +1203,58 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens)
     pearl_toks, num_tokens, _, pearl_t = engine.bench_generate(num_pearl_steps=steps)
     pearl_launches = {k: fn.launches for k, fn in counters.items()}
-    add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens)
-    ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
+    ar_toks = []
+    if ar_of is None:
+        add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens)
+        ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
     launches = {k: fn.launches for k, fn in counters.items()}
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
     peak = torch.cuda.max_memory_allocated(dev)
+    schedule = {k: getattr(engine.target, k) for k in ("use_mono", "deferred_verify", "split", "fresh_mode")}
     del engine
     torch.cuda.empty_cache()
 
     pearl_tps = sum(num_tokens) / pearl_t
-    ar_tps = sum(ar_tokens) / ar_t
     mat = float(np.mean([(n - 1) / steps for n in num_tokens]))  # bench.py's MAT
     if any(n < 1 + steps for n in num_tokens):
         raise AssertionError(f"a PEARL round committed no token: {num_tokens}")
-    if any(n != ar_max_tokens for n in ar_tokens):
-        raise AssertionError(f"AR produced {set(ar_tokens)} tokens, expected {ar_max_tokens}")
+    if ar_of is None and any(n != 1 + ar_steps for n in ar_tokens):
+        raise AssertionError(f"AR produced {set(ar_tokens)} tokens, expected {1 + ar_steps}")
     for toks in pearl_toks + ar_toks:
         if not all(0 <= t < 32768 for t in toks):
             raise AssertionError("token id outside the vocabulary")
-    agree = [
-        next((j for j, (x, y) in enumerate(zip(p, a)) if x != y), min(len(p), len(a)))
-        for p, a in zip(pearl_toks, ar_toks)
-    ]
     out = {
         "config": "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, "
                   f"vocab 32768, B=32, gamma=14, prompt 64, greedy, {profile} profile"
                   + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant),
-        "pearl_rounds": steps, "ar_steps": ar_steps,
-        "pearl_tok_s": pearl_tps, "ar_tok_s": ar_tps, "speedup": pearl_tps / ar_tps, "mat": mat,
-        "pearl_s": pearl_t, "ar_s": ar_t, "engine_build_s": build_s,
-        "launches": launches, "launches_pearl_run": pearl_launches, "launches_ar_run": ar_launches,
+        **({"env": env, "schedule": schedule} if env else {}),
+        "pearl_rounds": steps, "pearl_tok_s": pearl_tps, "mat": mat, "pearl_s": pearl_t,
+        "round_ms": pearl_t / steps * 1e3, "engine_build_s": build_s,
+        "launches": launches, "launches_pearl_run": pearl_launches,
         "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
+        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes,
+    }
+    if ar_of is not None:
+        out.update(ar_of=ar_of[0], ar_tok_s=ar_of[1], speedup=pearl_tps / ar_of[1])
+        return out, launches
+    ar_tps = sum(ar_tokens) / ar_t
+    agree = [
+        next((j for j, (x, y) in enumerate(zip(p, a)) if x != y), min(len(p), len(a)))
+        for p, a in zip(pearl_toks, ar_toks)
+    ]
+    out.update({
+        "ar_steps": ar_steps, "ar_tok_s": ar_tps, "speedup": pearl_tps / ar_tps, "ar_s": ar_t,
+        "launches_ar_run": ar_launches,
         "launches_per_ar_step": {k: n / ar_steps for k, n in ar_launches.items() if n},
         "pearl_vs_ar_first_divergence_mean": float(np.mean(agree)),
         "pearl_vs_ar_identical_streams": sum(p == a for p, a in zip(pearl_toks, ar_toks)),
-        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes,
-    }
+    })
     return out, launches
 
 
-def main_path_phase(dev, steps: int = 145) -> tuple[dict, float]:
+def main_path_phase(dev, steps: int = 145) -> tuple[dict, dict]:
     """The bench's default run (ceiling profile, noiseless pair) on the port.
-    Returns its launches and the KV pools' bytes per block."""
+    Returns its launches and its line."""
     gamma = 14
     out, launches = bench_run(dev, steps, "ceiling", 0.0)
     emit({"phase": "main_path", **out})
@@ -998,7 +1262,7 @@ def main_path_phase(dev, steps: int = 145) -> tuple[dict, float]:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
     if out["mat"] != gamma:  # the layer-share ceiling: decode and verify round alike
         raise AssertionError(f"MAT {out['mat']} below the layer-share ceiling {gamma}")
-    return launches, out["kv_pool_bytes_per_block"]
+    return launches, out
 
 
 def check_launches(phase: str, launches: dict, ran: tuple, not_ran: tuple) -> None:
@@ -1011,9 +1275,10 @@ def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
     run over an int8 cache with int8 weights, decode through K9a and the
     packed verify through K9b; MAT must stay at the ceiling (the 1-byte
     rows are written and read alike by decode and verify). Prints the KV
-    pools' bytes per block against the bf16 main path's."""
+    pools' bytes per block against the bf16 main path's. AR over the first
+    third of the window (bench_run's ``ar_cut``)."""
     gamma = 14
-    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant="int8", quant="int8")
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant="int8", quant="int8", ar_cut=3)
     out["kv_pool_bytes_per_block_vs_bf16"] = out["kv_pool_bytes_per_block"] / bf16_block_bytes
     emit({"phase": "quant_path", **out})
     check_launches("quant_path", launches, ("prefill_self", "paged_decode_q8", "paged_verify_q8"),
@@ -1030,8 +1295,9 @@ def quant_throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.00
     """``bench.py --draft-noise 0.005 --kv-quant fp8 --quant fp8`` on the
     port: the throughput profile over an fp8 cache with fp8 weights, decode
     and the classic write-then-read verify through K9c (the deferred verify
-    is off over a quantized cache). MAT is printed, not asserted."""
-    out, launches = bench_run(dev, steps, "throughput", draft_noise, kv_quant="fp8", quant="fp8")
+    is off over a quantized cache). MAT is printed, not asserted. AR over
+    the first third of the window."""
+    out, launches = bench_run(dev, steps, "throughput", draft_noise, kv_quant="fp8", quant="fp8", ar_cut=3)
     emit({"phase": "quant_throughput_path", **out})
     check_launches("quant_throughput_path", launches, ("prefill_self", "mono_q8"),
                    ("paged_decode", "paged_verify", "mono_attention", "cache_partials", "write_fresh",
@@ -1039,16 +1305,48 @@ def quant_throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.00
     return launches
 
 
-def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> dict:
+def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> tuple[dict, dict]:
     """``bench.py --draft-noise 0.005`` on the port: the throughput profile
     (bench.py picks it for noisy drafts), decode through K5, the deferred
     verify through K7 and one K12 writeback per round, prefill through
-    K3. Streams are not compared in bf16 (near-tied random logits fork)."""
+    K3. Streams are not compared in bf16 (near-tied random logits fork).
+    Returns its launches and its line."""
     out, launches = bench_run(dev, steps, "throughput", draft_noise)
     emit({"phase": "throughput_path", **out})
     wanted = ("prefill_self", "mono_attention", "cache_partials", "write_fresh")
     if not all(launches[k] > 0 for k in wanted) or launches["paged_decode"] or launches["paged_verify"]:
         raise AssertionError(f"the throughput path must run K3, K5, K7 and K12 and not K1/K2: {launches}")
+    return launches, out
+
+
+OVERRIDE_PATHS = {
+    # path: (profile, draft noise, variables, kernels that must run, kernels that must not)
+    "split_path": ("ceiling", 0.0, {"NANO_PEARL_SPLIT": "1"},
+                   ("prefill_self", "paged_decode_split", "paged_verify_fresh_split", "write_fresh"),
+                   ("paged_verify", "paged_decode", "paged_verify_fresh", "cache_partials", "mono_fresh")),
+    "deferred_db_path": ("ceiling", 0.0, {"NANO_PEARL_DEFERRED_VERIFY": "1"},
+                         ("prefill_self", "paged_decode", "paged_verify_fresh", "write_fresh"),
+                         ("paged_verify", "paged_decode_split", "paged_verify_fresh_split", "cache_partials")),
+    "fresh_kernel_path": ("throughput", 0.005, {"NANO_PEARL_FRESH_MODE": "kernel"},
+                          ("prefill_self", "mono_attention", "mono_fresh", "write_fresh"),
+                          ("cache_partials", "paged_verify", "paged_decode", "paged_verify_fresh")),
+}
+
+
+def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 145) -> dict:
+    """The bench run of ``path`` (OVERRIDE_PATHS): the main path's pair and
+    traffic with a schedule override set around the engine's construction
+    only, 145 PEARL rounds, speedup against the AR of ``ar_of`` measured in
+    this call (the split and deferred-db paths: the main path's, K1; the
+    fresh-kernel path: the throughput path's, K5). Asserts which kernels ran
+    and which did not, and on the split path MAT at the layer-share ceiling
+    (K8b's rows equal K8a's, the decode padded as the main path's)."""
+    profile, noise, env, ran, not_ran = OVERRIDE_PATHS[path]
+    out, launches = bench_run(dev, steps, profile, noise, env=env, ar_of=ar_of)
+    emit({"phase": path, **out})
+    check_launches(path, launches, ran, not_ran)
+    if path == "split_path" and out["mat"] != 14:
+        raise AssertionError(f"split_path MAT {out['mat']} below the layer-share ceiling 14")
     return launches
 
 
@@ -1062,7 +1360,7 @@ def kernel_counters() -> dict:
             "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix,
             "mono_attention": kmo.mono_attention, "cache_partials": kmo.cache_partials,
             "write_fresh": kkw.write_fresh_kernel, "paged_decode_q8": kpa.paged_decode_q8,
-            "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8}
+            "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8, **override_kernel_fns()}
 
 
 def serve_args(*extra: str):
@@ -1306,17 +1604,28 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     kernels = kernel_phase(dev, flush)
     del flush
+    split_bitwise_phase(dev)
     decode_verify_bitwise_phase(dev)
+    decode_verify_overrides_phase(dev)
     decode_verify_throughput_phase(dev)
     exactness_phase(dev)
     throughput_exactness_phase(dev)
     exactness_phase(dev, kv_quant="int8", quant="int8", phase="quant_exactness")
     throughput_exactness_phase(dev, kv_quant="fp8", quant="fp8", phase="quant_exactness")
+    exactness_phase(dev, phase="split_exactness", env=OVERRIDE_PATHS["split_path"][2],
+                    ran=("paged_decode_split", "paged_verify_fresh_split"))
+    exactness_phase(dev, phase="deferred_db_exactness", env=OVERRIDE_PATHS["deferred_db_path"][2],
+                    ran=("paged_verify_fresh",))
+    throughput_exactness_phase(dev, phase="fresh_kernel_exactness", env=OVERRIDE_PATHS["fresh_kernel_path"][2],
+                               ran=("mono_fresh",))
     by_path = {}
-    by_path["main_path"], bf16_block_bytes = main_path_phase(dev)
-    by_path["throughput_path"] = throughput_path_phase(dev)
-    by_path["quant_path"] = quant_path_phase(dev, bf16_block_bytes)
+    by_path["main_path"], main = main_path_phase(dev)
+    by_path["throughput_path"], thr = throughput_path_phase(dev)
+    by_path["quant_path"] = quant_path_phase(dev, main["kv_pool_bytes_per_block"])
     by_path["quant_throughput_path"] = quant_throughput_path_phase(dev)
+    for path, ar_of in (("split_path", ("main_path", main)), ("deferred_db_path", ("main_path", main)),
+                        ("fresh_kernel_path", ("throughput_path", thr))):
+        by_path[path] = override_path_phase(dev, path, (ar_of[0], ar_of[1]["ar_tok_s"]))
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -198,6 +198,97 @@ __device__ __forceinline__ T flash_out(const Flash<T>& f, int idx) {
   return from_f32<T>(f.acc[idx] / fmaxf(f.l[idx / f.d], 1e-30f));
 }
 
+// ---- staging a tile and masking a cell -------------------------------
+
+// The folded [Hkv * D] K and V rows of key position pos in the paged cache
+// (cache [rows, hkv * d]; layer block offsets k_off / v_off; block table row
+// bt_row of m pages).
+template <typename T>
+struct PagedRows {
+  const T* cache;
+  const int* bt_row;
+  int m, bs, hd;
+  long long k_off, v_off;
+  __device__ void operator()(int pos, const T*& k, const T*& v) const {
+    const int page = min(pos / bs, m - 1);
+    const long long slot = (long long)bt_row[page] * bs + pos % bs;
+    k = cache + (k_off * bs + slot) * hd;
+    v = cache + (v_off * bs + slot) * hd;
+  }
+};
+
+// The same for the deferred verify's fresh window: row row0 + (pos - pos0)
+// of the in-operand fresh_k / fresh_v [N, hkv * d] (a group's fresh row t
+// sits at key position pos0 + t).
+template <typename T>
+struct FreshRows {
+  const T* fk;
+  const T* fv;
+  long long row0;
+  int pos0, hd;
+  __device__ void operator()(int pos, const T*& k, const T*& v) const {
+    const long long r = row0 + pos - pos0;
+    k = fk + r * hd;
+    v = fv + r * hd;
+  }
+};
+
+// Stage keys and values of positions [c0, c0 + kTile) of KV head kh into
+// f.ks / f.vs with 16-byte loads, zeros at and past c_end; rows(pos, k, v)
+// names the K/V rows of a position below c_end. Does not end with a barrier.
+template <typename T, typename Rows>
+__device__ void stage_tile(Flash<T>& f, int kh, int c0, int c_end, const Rows& rows) {
+  const int d = f.d, vecs = d / 8;
+  for (int idx = threadIdx.x; idx < kTile * vecs; idx += blockDim.x) {
+    const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
+    T* kd = f.ks + t * f.pitch + c;
+    T* vd = f.vs + t * f.pitch + c;
+    if (pos < c_end) {
+      const T *kr, *vr;
+      rows(pos, kr, vr);
+      copy8(kd, kr + kh * d + c);
+      copy8(vd, vr + kh * d + c);
+    } else {
+      zero8(kd);
+      zero8(vd);
+    }
+  }
+}
+
+// Visibility in a cell [.., hi) of the key stream: key t of the tile at c0
+// is visible to query vector qi iff its position is below hi and below its
+// row's limit lim[qi / g] (shared memory).
+struct CellMask {
+  const int* lim;
+  int g, c0, hi;
+  __device__ bool operator()(int qi, int t) const {
+    const int p = c0 + t;
+    return p < hi && p < lim[qi / g];
+  }
+};
+
+// Softmax-combine of one output element from (acc, m, l) partials: the
+// cells i = 0, 1, ... (in that order) with use(i) true, each partial at
+// acc[at(i) * d] and ml[at(i) * 2]; rounded once to T. Every kernel that
+// folds partials in a combine pass does it here, so two kernels that give
+// a row the same partials in the same order give it the same bits.
+template <typename T, typename Use, typename At>
+__device__ __forceinline__ T fold_partials(const float* acc, const float* ml, int d, int c,
+                                           int cells, const Use& use, const At& at) {
+  float mg = kMFloor;
+  for (int i = 0; i < cells; ++i)
+    if (use(i)) mg = fmaxf(mg, ml[at(i) * 2]);
+  float l = 0.f, a = 0.f;
+  for (int i = 0; i < cells; ++i) {
+    if (!use(i)) continue;
+    const long long p = at(i);
+    const float w = expf(ml[p * 2] - mg);
+    l = fmaf(ml[p * 2 + 1], w, l);
+    a = fmaf(acc[p * d + c], w, a);
+  }
+  return from_f32<T>(a / fmaxf(l, 1e-30f));
+}
+
 // ---- 1-byte (int8 / e4m3) KV caches: kernels K9a-c --------------------
 //
 // A quantized cache holds 1-byte values in the folded [rows, Hkv * D]

@@ -16,6 +16,15 @@
 //   verify over a quantized cache. Replaces _grouped_kernel_db_mono_q8v2
 //   (entry _mono_call_q8). Only the tile load differs (flash_tile.cuh
 //   stage_q8_tile).
+// K6b npt_mono_fresh: the deferred-write packed verify on the mono
+//   schedule in one launch: K7's walk over the cache below each group's
+//   pre-round context ctx0, plus one more work item per (group, KV head)
+//   whose tiles come from the in-operand fresh rows (the round's K/V, at
+//   positions ctx0 .. ctx0 + R - 1), folded after the cache chunks by the
+//   arrival-counter combine; returns o in the query's dtype. Writes nothing
+//   to the cache. Replaces _grouped_kernel_db_mono_fresh (entry
+//   _mono_call_fresh), and in the port K7 + fresh_window_partials +
+//   merge_attn_partials, three launches and a dozen torch ops per layer.
 //
 // The TPU kernels walk one flat stream of (group, 1024-key chunk) items
 // in one grid step, counted from each group's own context, so no step
@@ -50,31 +59,30 @@ namespace npt {
 
 constexpr int kMonoChunk = 256;  // key positions per work item (4 tiles)
 
-struct MonoMask {
-  const int* ctx;  // [R] context of each row, shared memory
-  int g, c0;
-  __device__ bool operator()(int qi, int t) const { return c0 + t < ctx[qi / g]; }
-};
-
-// Chunks of group g: ceil(max row context / kMonoChunk), at least 1 (a
-// group whose rows all have context 0 still gets its floor outputs), at
-// most max_chunks (the block table's width).
-__device__ __forceinline__ int group_chunks(const int* ctx, int g, int rows, int max_chunks) {
+// Work items of group g: ceil(max row context / kMonoChunk) key chunks, at
+// least 1 (a group whose rows all have context 0 still gets its floor
+// outputs), at most max_chunks (the block table's width). With ctx0 (K6b):
+// the chunks of the cache below ctx0[g], none for ctx0 0, then one item for
+// the fresh window.
+__device__ __forceinline__ int group_chunks(const int* ctx, const int* ctx0, int g, int rows,
+                                            int max_chunks) {
   int c = 0;
   for (int r = 0; r < rows; ++r) c = max(c, ctx[g * rows + r]);
+  if (ctx0) return min(max_chunks, (min(c, ctx0[g]) + kMonoChunk - 1) / kMonoChunk) + 1;
   return min(max_chunks, max(1, (c + kMonoChunk - 1) / kMonoChunk));
 }
 
 // cum[g] = chunks of groups 0 .. g-1, cum[groups] = all chunks: a block-wide
 // exclusive scan, each thread over a contiguous run of groups. Ends with a
 // barrier.
-__device__ void chunk_prefix(const int* ctx, int groups, int rows, int max_chunks, int* cum) {
+__device__ void chunk_prefix(const int* ctx, const int* ctx0, int groups, int rows, int max_chunks,
+                             int* cum) {
   __shared__ int warp_sum[kThreads / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (groups + blockDim.x - 1) / blockDim.x;
   const int lo = min(groups, tid * per), hi = min(groups, lo + per);
   int local = 0;
-  for (int g = lo; g < hi; ++g) local += group_chunks(ctx, g, rows, max_chunks);
+  for (int g = lo; g < hi; ++g) local += group_chunks(ctx, ctx0, g, rows, max_chunks);
   int incl = local;  // inclusive scan within the warp
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -87,7 +95,7 @@ __device__ void chunk_prefix(const int* ctx, int groups, int rows, int max_chunk
   for (int w = 0; w < warp; ++w) before += warp_sum[w];
   for (int g = lo; g < hi; ++g) {
     cum[g] = before;
-    before += group_chunks(ctx, g, rows, max_chunks);
+    before += group_chunks(ctx, ctx0, g, rows, max_chunks);
   }
   if (tid == blockDim.x - 1) cum[groups] = before;
   __syncthreads();
@@ -96,26 +104,29 @@ __device__ void chunk_prefix(const int* ctx, int groups, int rows, int max_chunk
 // q, out [groups * rows, hq, d]; bt [groups, m]; ctx [groups * rows].
 // kPartial: also m_out, l_out [groups * rows, hq] f32. part_acc [pairs,
 // hkv, rows * G, d] and part_ml [pairs, hkv, rows * G, 2] f32 scratch with
-// pairs = groups * max_chunks; counters [groups * hkv], zero on entry and
-// on exit.
+// pairs = groups * max_chunks (groups * (max_chunks + 1) with kFresh);
+// counters [groups * hkv], zero on entry and on exit.
 // S is the cache's storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
-template <typename T, typename S, bool kPartial>
+// kFresh (K6b): ctx0 [groups] pre-round contexts and fk / fv [groups * rows,
+// hkv * d] fresh rows (row t of group g at position ctx0[g] + t); the cache
+// is read below ctx0 only and the fresh window is the group's last item.
+template <typename T, typename S, bool kPartial, bool kFresh>
 __global__ void __launch_bounds__(kThreads)
 mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
             const __nv_bfloat16* __restrict__ scales, const int* __restrict__ bt,
             const int* __restrict__ ctx, T* __restrict__ out, float* __restrict__ m_out,
             float* __restrict__ l_out, float* part_acc, float* part_ml, int* counters,
             int groups, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
-            long long v_off, float scale, int max_chunks) {
+            long long v_off, float scale, int max_chunks, const int* __restrict__ ctx0,
+            const T* __restrict__ fk, const T* __restrict__ fv) {
   const int tid = threadIdx.x, g_heads = hq / hkv, nq = rows * g_heads, hd = hkv * d;
   Flash<T> f;
   int* ctx_s = reinterpret_cast<int*>(flash_carve(f, nq, d));  // [rows]
   int* cum = ctx_s + rows;                                      // [groups + 1]
   __shared__ int s_last;
 
-  chunk_prefix(ctx, groups, rows, max_chunks, cum);
+  chunk_prefix(ctx, kFresh ? ctx0 : nullptr, groups, rows, max_chunks, cum);
   const int total = cum[groups] * hkv;
-  const int vecs = d / 8;
 
   for (int item = blockIdx.x; item < total; item += gridDim.x) {
     const int p = item / hkv, kh = item - p * hkv;
@@ -135,31 +146,26 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
     __syncthreads();
     int ctx_max = 0;
     for (int r = 0; r < rows; ++r) ctx_max = max(ctx_max, ctx_s[r]);
-    const int c_begin = ci * kMonoChunk, c_end = min(ctx_max, c_begin + kMonoChunk);
+    // the item's keys [c_lo, c_hi): a key chunk (K6b: of the cache below
+    // ctx0), or K6b's fresh window [ctx0, ctx0 + rows), its tiles from ctx0
+    const int c0g = kFresh ? ctx0[grp] : 0;
+    const bool fresh = kFresh && ci == nch - 1;
+    const int c_lo = fresh ? c0g : ci * kMonoChunk;
+    const int c_hi = fresh ? c0g + rows : kFresh ? min(c_lo + kMonoChunk, c0g) : c_lo + kMonoChunk;
+    const int c_end = min(ctx_max, c_hi);
     const int* bt_row = bt + (long long)grp * m;
 
-    for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
+    for (int c0 = c_lo; c0 < c_end; c0 += kTile) {
       if constexpr (!std::is_same<S, T>::value) {
         stage_q8_tile<T, S>(f, reinterpret_cast<const uint8_t*>(cache), scales, bt_row, m, bs,
                             hkv, kh, k_off, v_off, c0, c_end);
+      } else if (fresh) {
+        stage_tile(f, kh, c0, c_end, FreshRows<T>{fk, fv, (long long)grp * rows, c0g, hd});
       } else {
-        for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
-          const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
-          T* kd = f.ks + t * f.pitch + c;
-          T* vd = f.vs + t * f.pitch + c;
-          if (pos < c_end) {
-            const int page = min(pos / bs, m - 1);
-            const long long slot = (long long)bt_row[page] * bs + pos % bs;
-            copy8(kd, cache + (k_off * bs + slot) * hd + kh * d + c);
-            copy8(vd, cache + (v_off * bs + slot) * hd + kh * d + c);
-          } else {
-            zero8(kd);
-            zero8(vd);
-          }
-        }
+        stage_tile(f, kh, c0, c_end, PagedRows<T>{cache, bt_row, m, bs, hd, k_off, v_off});
       }
       __syncthreads();
-      flash_tile_update(f, scale, MonoMask{ctx_s, g_heads, c0});
+      flash_tile_update(f, scale, CellMask{ctx_s, g_heads, c0, c_hi});
     }
 
     if (nch == 1) {  // the group's only chunk: write the result directly
@@ -215,13 +221,15 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
   }
 }
 
-template <typename T, bool kPartial, typename S = T>
+template <typename T, bool kPartial, typename S = T, bool kFresh = false>
 cudaError_t launch(int groups, int rows, const void* q, const void* cache, const int* bt,
                    const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
                    float* part_ml, int* counters, int m, int hq, int hkv, int d, int bs,
                    long long k_off, long long v_off, float scale, int max_chunks,
-                   cudaStream_t stream, const void* scales = nullptr) {
-  auto kernel = mono_kernel<T, S, kPartial>;
+                   cudaStream_t stream, const void* scales = nullptr,
+                   const int* ctx0 = nullptr, const void* fk = nullptr,
+                   const void* fv = nullptr) {
+  auto kernel = mono_kernel<T, S, kPartial, kFresh>;
   const size_t smem =
       flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * ((size_t)rows + groups + 1));
   cudaError_t err = flash_set_smem(kernel, smem);
@@ -233,14 +241,14 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long most = (long long)groups * max_chunks * hkv;  // items, at most
+  const long long most = (long long)groups * (max_chunks + kFresh) * hkv;  // items, at most
   const long long resident = (long long)sms * per_sm;
   const int grid = (int)(most < resident ? most : resident);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const S*>(cache),
       static_cast<const __nv_bfloat16*>(scales), bt, ctx, static_cast<T*>(out),
       m_out, l_out, part_acc, part_ml, counters, groups, rows, m, hq, hkv, d, bs, k_off, v_off,
-      scale, max_chunks);
+      scale, max_chunks, ctx0, static_cast<const T*>(fk), static_cast<const T*>(fv));
   return cudaGetLastError();
 }
 
@@ -303,6 +311,28 @@ int npt_cache_partials(const void* q, const void* cache, const int* bt, const in
   return (int)npt::dispatch<true>(b, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
                                   part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
                                   max_chunks, is_bf16, stream);
+}
+
+// K6b: the deferred-write packed verify on the mono schedule. As K5 with
+// ctx [b * rows] each row's context with its visible fresh rows, ctx0 [b]
+// the pre-round context of each group (the cache is read below it only),
+// fk / fv [b * rows, hkv * d] the fresh rows (row t of group g at position
+// ctx0[g] + t), 1 <= rows <= npt_mono_chunk_tokens(); scratch of
+// b * (max_chunks + 1) items.
+int npt_mono_fresh(const void* q, const void* cache, const void* fk, const void* fv,
+                   const int* bt, const int* ctx, const int* ctx0, void* out, float* part_acc,
+                   float* part_ml, int* counters, int b, int rows, int m, int hq, int hkv, int d,
+                   int bs, long long k_off, long long v_off, float scale, int max_chunks,
+                   int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || rows > npt::kMonoChunk) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)npt::launch<__nv_bfloat16, false, __nv_bfloat16, true>(
+        b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc, part_ml, counters, m, hq, hkv,
+        d, bs, k_off, v_off, scale, max_chunks, s, nullptr, ctx0, fk, fv);
+  return (int)npt::launch<float, false, float, true>(
+      b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc, part_ml, counters, m, hq, hkv,
+      d, bs, k_off, v_off, scale, max_chunks, s, nullptr, ctx0, fk, fv);
 }
 
 // K9c. As K5 over a 1-byte cache (int8, or e4m3 with is_fp8) and its

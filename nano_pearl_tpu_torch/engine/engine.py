@@ -18,7 +18,12 @@ Kernels by ``PearlConfig.perf_profile`` (engine/runner.py):
   (the draft's gamma-scan, AR) K1; the classic chunked packed verify K2;
 - "throughput": prefill K3/K4; decode K5 (mono schedule); the
   deferred-write packed verify K7 (cache-side partials, merged with the
-  fresh window as plain ops) and one K12 writeback per round.
+  fresh window as plain ops) and one K12 writeback per round;
+- the JAX package's ``NANO_PEARL_*`` overrides, read when the engine is
+  built (engine/runner.py): ``SPLIT=1`` decodes the gamma-scan through
+  K8a and verifies through K8b, ``DEFERRED_VERIFY=1`` on the ceiling
+  profile verifies through K6a, ``FRESH_MODE=kernel`` on the throughput
+  profile through K6b.
 
 The port runs the fused path on one device: draft and target share it,
 and with ``num_kvcache_blocks=-1`` their KV pools are sized together

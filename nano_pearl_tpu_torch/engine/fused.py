@@ -30,6 +30,16 @@ chunk already round the FFN's down projection differently
 acceptance ceiling rests on this. With no cap (the "throughput"
 profile's default: its deferred verify folds attention in another order
 anyway) the decode runs at the batch bucket's rows in one call.
+
+Under the split-boundary schedule (``NANO_PEARL_SPLIT=1``,
+engine/runner.py) each gamma-scan step decodes through K8a with the cell
+partition of the verify that will check its token: step 0's token is
+checked by this round's verify, whose fresh window starts at
+``b1 = length - num_input``; the tokens of steps >= 1 by the next round's
+verify after a fully accepted round, whose window starts at the
+round-start length ``b1 = L`` (a rejected tail is discarded unverified,
+so only the accept path's boundary matters), as the JAX package's
+``_draft_gamma``. AR keeps K1.
 """
 
 from __future__ import annotations
@@ -87,24 +97,32 @@ class FusedPearl:
         rows = self.target.decode_call_rows(b, gamma)
         return -(-b // rows), rows
 
-    def _draft_gamma(self, tokens_last, positions, bt, ctx, gamma: int) -> torch.Tensor:
+    def _draft_gamma(self, tokens_last, positions, bt, ctx, gamma: int, b1=None) -> torch.Tensor:
         """gamma greedy draft decode steps; returns [B, gamma] int32. The
         rows are padded to ``decode_chunking``'s calls x rows; padded rows
-        sit at position 0 with context 1 in the garbage block."""
+        sit at position 0 with context 1 in the garbage block (and boundary
+        0). ``b1``: step 0's split boundary under the split schedule (module
+        doc); steps >= 1 cut at the round-start length ``ctx``."""
         b = tokens_last.shape[0]
         calls, r = self.decode_chunking(b, gamma)
         pad = calls * r - b
-        toks, pos, cl = tokens_last, positions, ctx
+        split = self.draft.split and b1 is not None
+        toks, pos, cl, b1_next = tokens_last, positions, ctx, ctx
         if pad > 0:
             zeros = torch.zeros(pad, dtype=torch.int32, device=pos.device)
             toks, pos, cl = torch.cat([toks, zeros]), torch.cat([pos, zeros]), torch.cat([cl, zeros + 1])
             garbage = torch.full((pad, bt.shape[1]), self.draft.garbage_block, dtype=bt.dtype, device=bt.device)
             bt = torch.cat([bt, garbage])
+            if split:
+                b1, b1_next = torch.cat([b1, zeros]), torch.cat([b1_next, zeros])
         out = []
-        for _ in range(gamma):
+        for t in range(gamma):
             slots = _row_slots(bt, pos[:, None], self.block_size)[:, 0]
+            rows = (toks, pos, slots, bt, cl)
+            if split:
+                rows += (b1 if t == 0 else b1_next,)
             logits = [
-                self.draft.decode_step(*(x[c * r : (c + 1) * r] for x in (toks, pos, slots, bt, cl)))
+                self.draft.decode_step(*(x[c * r : (c + 1) * r] for x in rows))
                 for c in range(calls)
             ]
             toks = greedy(logits[0] if calls == 1 else torch.cat(logits))
@@ -137,7 +155,7 @@ class FusedPearl:
         g_j = torch.arange(gamma, device=length.device)[None, :]
         last = torch.gather(tokens, 1, torch.clamp(length - 1, min=0)[:, None].long())[:, 0]
         num_input = torch.where(pre, 1, gamma).to(torch.int32)
-        G = self._draft_gamma(last, length - 1, s["bt_d"], length, gamma)
+        G = self._draft_gamma(last, length - 1, s["bt_d"], length, gamma, b1=length - num_input)
         logits = self._target_packed(tokens, length, num_input, s["bt_t"], gamma)
 
         # to-be-verified window: the previous round shifted by one, ending

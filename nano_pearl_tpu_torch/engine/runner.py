@@ -15,7 +15,7 @@ one device and runs its phases eagerly:
   16 groups under the "ceiling" profile, as one under "throughput").
 
 The kernel schedule follows ``PearlConfig.perf_profile``, resolved once
-here (the JAX package's ``NANO_PEARL_*`` overrides are not ported):
+here:
 
 - "ceiling": decode through K1; the classic write-then-read verify, each
   layer storing its K/V (``write_kv``) before K2 reads them back;
@@ -24,6 +24,38 @@ here (the JAX package's ``NANO_PEARL_*`` overrides are not ported):
   Hkv*D] buffer and attends the pre-round cache through K7 merged with
   the fresh window, and one K12 writeback stores the round after the
   layers.
+
+The JAX package's environment overrides (its runner.py:81-140, 475-509)
+are read once, in ``GroupRunner.__init__``, and never written back to
+``os.environ``, so engines of different schedules coexist in one
+process. Unset, the profile decides; set:
+
+- ``NANO_PEARL_MONO=0/1``: the mono schedule (K5 decode) off or on;
+- ``NANO_PEARL_DEFERRED_VERIFY=0/1``: the deferred-write verify off or
+  on. Off the mono schedule it runs through K6a (the db schedule);
+- ``NANO_PEARL_VERIFY_GROUP_CAP=<n>``: ``verify_group_cap``;
+- ``NANO_PEARL_SPLIT=1``: the split-boundary schedule: the draft's
+  gamma-scan decodes through K8a and the deferred verify runs through
+  K8b, whose cells match K8a's, so decode and verify agree bit for bit
+  without a per-layer cache write (engine/fused.py passes the boundary
+  b1). AR and other decodes keep K1, as in the JAX package;
+- ``NANO_PEARL_VERIFY_ROWWISE=1``: no deferred verify; the verify's
+  attention runs through the decode kernel (K1, or K5 on the mono
+  schedule) with each group's block table repeated for its rows;
+- ``NANO_PEARL_FRESH_MODE=merge/kernel``: on the mono schedule, K7 + the
+  fresh window as torch ops + their merge ("merge", the default), or K6b
+  with the window folded in the same launch ("kernel"). The JAX package
+  reads it in its dispatch when the program is traced, once per shape;
+  the port's dispatch (``ops/attention.paged_attention_grouped_fresh``)
+  reads it only when its caller passes none, and the runner resolves it
+  here.
+
+The gates are the JAX package's (the port runs one device): the split
+schedule needs the db schedule (not mono), an unquantized cache and a
+folded head axis ``Hkv * D`` that is a multiple of 128; the deferred
+verify needs the last two, and is on when requested or under the split
+schedule. Where a gate turns a requested override off, the runner logs
+it once; the JAX package turns it off silently.
 
 Quantization, as in the JAX package: ``ModelConfig.quant`` quantizes the
 plain weights handed in at load (``params_from_numpy`` /
@@ -40,6 +72,8 @@ shared card from one budget.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -61,6 +95,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped,
     paged_attention_grouped_fresh,
     paged_attention_mono,
+    paged_attention_split,
     prefill_prefix_attention,
     prefill_self_attention,
 )
@@ -127,9 +162,7 @@ class GroupRunner:
         self.name = name
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
-        self.verify_group_cap = pcfg.verify_group_cap
-        self.use_mono = pcfg.perf_profile == "throughput"
-        self.deferred_verify = self.use_mono and mcfg.kv_quant is None
+        self._resolve_schedule(pcfg, mcfg)
         if params is None:
             logger.warning(f"[{name}] no weights given; random-initializing")
             params = init_params_numpy(mcfg, np.random.default_rng(seed))
@@ -143,6 +176,37 @@ class GroupRunner:
         self.num_blocks = 0
         if pcfg.num_kvcache_blocks > 0:  # a fixed pool needs no shared budget
             self.allocate_kv(pcfg.num_kvcache_blocks)
+
+    def _resolve_schedule(self, pcfg: PearlConfig, mcfg: ModelConfig) -> None:
+        """The kernel schedule from the profile and the environment
+        overrides (module doc), as the JAX package's runner resolves it."""
+        env = os.environ
+        throughput = pcfg.perf_profile == "throughput"
+        mono = env.get("NANO_PEARL_MONO")
+        self.use_mono = mono == "1" if mono is not None else throughput
+        deferred = env.get("NANO_PEARL_DEFERRED_VERIFY")
+        deferred_requested = deferred == "1" if deferred is not None else throughput
+        cap = env.get("NANO_PEARL_VERIFY_GROUP_CAP")
+        self.verify_group_cap = int(cap) if cap is not None else pcfg.verify_group_cap
+        aligned = mcfg.num_key_value_heads * mcfg.head_dim % 128 == 0
+        plain_cache = mcfg.kv_quant is None
+        split_requested = env.get("NANO_PEARL_SPLIT") == "1"
+        self.split = split_requested and not self.use_mono and plain_cache and aligned
+        self.deferred_verify = (deferred_requested or self.split) and aligned and plain_cache
+        self.verify_rowwise = env.get("NANO_PEARL_VERIFY_ROWWISE", "0") == "1"
+        if self.verify_rowwise:
+            self.deferred_verify = False
+        self.fresh_mode = env.get("NANO_PEARL_FRESH_MODE", "merge")
+        dropped = [name for name, requested, on in (
+            ("NANO_PEARL_SPLIT", split_requested, self.split),
+            ("NANO_PEARL_DEFERRED_VERIFY", deferred == "1", self.deferred_verify),
+        ) if requested and not on]
+        if dropped:
+            logger.info(
+                f"[{self.name}] {', '.join(dropped)} off: the split schedule needs the db schedule "
+                "(not mono), both an unquantized cache and Hkv*D % 128 == 0, and the deferred "
+                "verify no NANO_PEARL_VERIFY_ROWWISE"
+            )
 
     @property
     def block_bytes(self) -> int:
@@ -227,14 +291,19 @@ class GroupRunner:
         )
         return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
 
-    def decode_step(self, tokens, positions, slots, block_tables, context_lens) -> torch.Tensor:
+    def decode_step(self, tokens, positions, slots, block_tables, context_lens, b1=None) -> torch.Tensor:
         """One decode step over B rows (device tensors); returns logits [B, V].
-        Attention through K5 under the throughput profile, K1 otherwise (K9c
-        and K9a over a quantized cache)."""
-        attn = paged_attention_mono if self.use_mono else paged_attention
+        Attention through K5 on the mono schedule, K1 otherwise (K9c and K9a
+        over a quantized cache); with ``b1`` (the gamma-scan under the split
+        schedule, engine/fused.py) through K8a, each row's key stream cut
+        at its b1."""
+        if b1 is not None:
+            attn, args = _split_decode, (block_tables, context_lens, b1, self.scale)
+        else:
+            attn = paged_attention_mono if self.use_mono else paged_attention
+            args = (block_tables, context_lens, self.scale)
         hidden = forward(
-            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            attn, (block_tables, context_lens, self.scale),
+            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
         )
         return compute_logits(self.cfg, self.params, hidden)
 
@@ -312,12 +381,19 @@ class GroupRunner:
     def _classic_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
         """Each layer writes its K/V into the cache, then K2 reads the
         group's context back through the block table (K9b over a quantized
-        cache; under the throughput profile, which takes this verify only
-        over a quantized cache, K9c)."""
-        attn = paged_attention_mono if self.use_mono else paged_attention_grouped
+        cache; on the mono schedule, which takes this verify only over a
+        quantized cache or under an override, K5 / K9c). Under
+        ``NANO_PEARL_VERIFY_ROWWISE`` the decode kernel reads it instead,
+        each row through its group's table repeated."""
+        if self.verify_rowwise:
+            attn = paged_attention_mono if self.use_mono else paged_attention
+            rows = block_tables.repeat_interleave(gamma, 0)
+            args = (rows, context_lens, self.scale)
+        else:
+            attn = paged_attention_mono if self.use_mono else paged_attention_grouped
+            args = (block_tables, context_lens, self.scale, gamma)
         return forward(
-            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            attn, (block_tables, context_lens, self.scale, gamma),
+            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
         )
 
     def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
@@ -341,11 +417,16 @@ class GroupRunner:
 
         hidden = forward(
             cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            _deferred_attn, (block_tables, context_lens, ctx0, self.scale, gamma),
+            _deferred_attn, (block_tables, context_lens, ctx0, self.scale, gamma, self.fresh_schedule),
             kv_write_fn=collect,
         )
         write_fresh(self.kv, fresh, slots)
         return hidden
+
+    @property
+    def fresh_schedule(self) -> dict:
+        """The deferred verify's kernel choice (``paged_attention_grouped_fresh``)."""
+        return dict(mono=self.use_mono, split=self.split, fresh_mode=self.fresh_mode)
 
     def sample_tokens(
         self, logits, temps: np.ndarray, generator: torch.Generator | None,
@@ -377,10 +458,14 @@ def _prefix_prefill(q, k, v, cache, layer_idx, bt_pre, num_cached, n_new, scale)
 _prefix_prefill.wants_fresh_and_cache = True
 
 
-def _deferred_attn(q, k, v, cache, layer_idx, group_tables, context_lens, ctx0, scale, gamma):
+def _deferred_attn(q, k, v, cache, layer_idx, group_tables, context_lens, ctx0, scale, gamma, schedule):
     return paged_attention_grouped_fresh(
-        q, cache, layer_idx, group_tables, context_lens, ctx0, k, v, scale, gamma
+        q, cache, layer_idx, group_tables, context_lens, ctx0, k, v, scale, gamma, **schedule
     )
 
 
 _deferred_attn.wants_fresh_and_cache = True
+
+
+def _split_decode(q, cache, layer_idx, block_tables, context_lens, b1, scale):
+    return paged_attention_split(q, cache, layer_idx, block_tables, context_lens, b1, scale)

@@ -26,7 +26,12 @@ against, and what the kernels' wrappers run for tensors on the CPU:
   halves, plain torch ops on every device as in the JAX package.
 - ``paged_attention_grouped_fresh_ref``: the deferred verify's attention
   as one softmax over cache and fresh keys
-  (``paged_attention_grouped_fresh_jnp``), the yardstick of the merge.
+  (``paged_attention_grouped_fresh_jnp``), the yardstick of the merge and
+  the plain version of kernels K6a (db schedule), K6b (mono schedule, the
+  fresh window in the kernel) and K8b (split-boundary schedule).
+- Kernel K8a (the split-boundary decode) computes what K1 computes, with
+  another rounding: its plain version is ``paged_attention_ref``, which
+  ignores the boundary, as the JAX package's jnp path does.
 
 Every plain version reads either cache kind. Over a quantized cache
 (``QuantKVCache``) the decode, packed-verify and mono plain versions are
@@ -38,13 +43,16 @@ back to its jnp path there (its K4 takes no quantized cache).
 
 The dispatchers ``paged_attention``, ``paged_attention_grouped``,
 ``paged_attention_mono``, ``paged_attention_grouped_fresh``,
-``prefill_self_attention`` and ``prefill_prefix_attention`` hand every
+``paged_attention_split``, ``prefill_self_attention`` and
+``prefill_prefix_attention`` hand every
 kernel call to the kernel's wrapper in
 ``ops/cuda``, which takes the plain version only for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -357,19 +365,51 @@ def paged_attention_mono(q, cache, layer_idx, group_tables, context_lens, scale,
 
 
 def paged_attention_grouped_fresh(
-    q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale, rows_per_group
+    q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale, rows_per_group,
+    mono=True, split=False, fresh_mode=None,
 ):
-    """The deferred-write verify's attention, as the JAX package's "merge"
-    mode: kernel K7's partials over the pre-round cache (cache-side context
-    ``min(ctx_row, ctx0)``), the fresh window's partials as plain ops, and
-    their (m, l) merge. The cache holds no fresh row."""
-    from nano_pearl_tpu_torch.ops.cuda.mono_attention import cache_partials
+    """The deferred-write verify's attention (the cache holds no fresh
+    row), by the JAX package's three-way choice:
+
+    - ``split``: kernel K8b (the split-boundary schedule);
+    - ``mono`` with ``fresh_mode`` "merge" (the default): kernel K7's
+      partials over the pre-round cache (cache-side context
+      ``min(ctx_row, ctx0)``), the fresh window's partials as plain ops,
+      and their (m, l) merge;
+    - ``mono`` with "kernel": kernel K6b, the fresh window in the same
+      launch;
+    - not ``mono``: kernel K6a (the db schedule).
+
+    ``fresh_mode`` None reads ``NANO_PEARL_FRESH_MODE`` here, as the JAX
+    package's dispatch does (the runner resolves it once and passes it)."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     r = rows_per_group
+    fresh = (q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k.contiguous(),
+             fresh_v.contiguous(), scale, r)
+    if split:
+        return kpa.paged_verify_fresh_split(*fresh)
+    if not mono:
+        return kpa.paged_verify_fresh(*fresh)
+    if fresh_mode is None:
+        fresh_mode = os.environ.get("NANO_PEARL_FRESH_MODE", "merge")
+    if fresh_mode != "merge":
+        return kmo.mono_fresh(*fresh)
     ctx_cache = torch.minimum(context_lens, ctx0.repeat_interleave(r)).contiguous()
-    oc, mc, lc = cache_partials(q, cache, layer_idx, group_tables, ctx_cache, scale, r)
+    oc, mc, lc = kmo.cache_partials(q, cache, layer_idx, group_tables, ctx_cache, scale, r)
     of, mf, lf = fresh_window_partials(q, fresh_k, fresh_v, context_lens, ctx0, scale, r)
     return merge_attn_partials(oc, mc, lc, of, mf, lf, q.dtype)
+
+
+def paged_attention_split(q, cache, layer_idx, block_tables, context_lens, b1, scale):
+    """Decode attention on the split-boundary schedule: kernel K8a on the
+    card (row i's key stream cut at b1[i], the start of the fresh window
+    of the verify that checks its token, besides the key chunks), the
+    plain version on the CPU."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_decode_split
+
+    return paged_decode_split(q, cache, layer_idx, block_tables, context_lens, b1, scale)
 
 
 def prefill_self_attention(q, k, v, q_positions, scale):

@@ -26,6 +26,14 @@ load differs: 16 one-byte values per 16-byte load, dequantized per (slot,
 head) and rounded to the query's dtype (the loader of K9a/K9b). Its plain
 version is K5's, which reads either cache kind.
 
+K6b ``mono_fresh`` is the deferred-write packed verify on the mono
+schedule with the fresh window folded in the same launch
+(``NANO_PEARL_FRESH_MODE=kernel``): K7's work list over the cache below
+each group's pre-round context, plus one item per (group, KV head) read
+from the in-operand fresh rows and folded after the cache chunks. It
+replaces ``_grouped_kernel_db_mono_fresh`` (entry ``_mono_call_fresh``);
+its plain version is ``paged_attention_grouped_fresh_ref``.
+
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
 anything else, a cache of the other kind included.
@@ -39,14 +47,16 @@ import torch
 
 from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped_cache_partials_ref,
+    paged_attention_grouped_fresh_ref,
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
 from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_inputs
+from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_fresh, _check_inputs
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
 plain_partials = paged_attention_grouped_cache_partials_ref
+plain_fresh = paged_attention_grouped_fresh_ref
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # arrival counters per device: zero between launches (each launch resets
@@ -70,20 +80,23 @@ def _lib() -> ctypes.CDLL:
         lib.npt_mono_attention.argtypes = [_P] * 8 + tail
         lib.npt_cache_partials.argtypes = [_P] * 10 + tail
         lib.npt_mono_q8.argtypes = [_P] * 9 + [_I] * 7 + [_LL, _LL, _F, _I, _I, _I, _P]
-        lib.npt_mono_attention.restype = _I
-        lib.npt_cache_partials.restype = _I
-        lib.npt_mono_q8.restype = _I
+        lib.npt_mono_fresh.argtypes = [_P] * 11 + tail
+        for fn in ("npt_mono_attention", "npt_cache_partials", "npt_mono_q8", "npt_mono_fresh"):
+            getattr(lib, fn).restype = _I
         lib.npt_mono_chunk_tokens.restype = _I
         lib._npt_typed = True
     return lib
 
 
-def _scratch(lib, groups, rows, hq, hkv, d, m, bs, device):
-    """(max_chunks, f32 partial acc, f32 (m, l), int32 arrival counters)."""
+def _scratch(lib, groups, rows, hq, hkv, d, m, bs, device, extra: int = 0):
+    """(max_chunks, f32 partial acc, f32 (m, l), int32 arrival counters),
+    for up to max_chunks + ``extra`` work items per group (K6b: its fresh
+    window)."""
     max_chunks = -(-m * bs // lib.npt_mono_chunk_tokens())
     nq = rows * (hq // hkv)
-    acc = torch.empty((groups * max_chunks, hkv, nq, d), dtype=torch.float32, device=device)
-    ml = torch.empty((groups * max_chunks, hkv, nq, 2), dtype=torch.float32, device=device)
+    items = groups * (max_chunks + extra)
+    acc = torch.empty((items, hkv, nq, d), dtype=torch.float32, device=device)
+    ml = torch.empty((items, hkv, nq, 2), dtype=torch.float32, device=device)
     cnt = _counters.get(device)
     if cnt is None or cnt.numel() < groups * hkv:
         cnt = _counters[device] = torch.zeros(max(1024, groups * hkv), dtype=torch.int32, device=device)
@@ -150,6 +163,36 @@ def mono_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_gro
     return out
 
 
+def mono_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale,
+               rows_per_group):
+    """K6b: the deferred-write packed verify of q [B*R, Hq, D] on the mono
+    schedule: the cache below ctx0[g] (read-only) plus the fresh rows
+    fresh_k/v [B*R, Hkv, D], row t of a group at position ctx0[g] + t;
+    context_lens [B*R] each row's context with its visible fresh rows."""
+    if q.device.type == "cpu":
+        return plain_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale)
+    lib = _lib()
+    r, chunk = int(rows_per_group), lib.npt_mono_chunk_tokens()
+    if not 1 <= r <= chunk:
+        raise ValueError(f"mono_fresh takes 1 <= rows_per_group <= {chunk}, got {r}")
+    b = group_tables.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, b, b * r)
+    _check_fresh(q, ctx0, fresh_k, fresh_v, b, hkv, d)
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    max_chunks, acc, ml, cnt = _scratch(lib, b, r, hq, hkv, d, m, bs, q.device, extra=1)
+    out = torch.empty_like(q)
+    err = lib.npt_mono_fresh(
+        q.data_ptr(), cache.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(), group_tables.data_ptr(),
+        context_lens.data_ptr(), ctx0.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+        cnt.data_ptr(), b, r, m, hq, hkv, d, bs, k_off, v_off, float(scale), max_chunks,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "mono_fresh")
+    mono_fresh.launches += 1
+    return out
+
+
 mono_attention.launches = 0
 cache_partials.launches = 0
 mono_q8.launches = 0
+mono_fresh.launches = 0

@@ -32,6 +32,24 @@ dtype in the layout the shared tile update reads, so they read half
 K1/K2's cache bytes and K9b rows equal K9a rows bit for bit. Same plain
 versions: they read either cache kind.
 
+K8a ``paged_decode_split``, K6a ``paged_verify_fresh`` and K8b
+``paged_verify_fresh_split`` are the kernel-schedule overrides' decode
+and deferred-write verify (``engine/runner.py``). They replace
+``_kernel_db_split`` (entry ``paged_attention_pallas_split``),
+``_grouped_kernel_db_fresh`` (entry ``paged_attention_pallas_grouped_fresh``)
+and ``_grouped_kernel_db_fresh_split`` (entry
+``paged_attention_pallas_grouped_fresh_split``). K6a is K2 over the
+pre-round cache (each row's context clamped to its group's ctx0) with one
+more partial per (group, head) read from the in-operand fresh rows; K8a
+is K1 with the chunk that holds a per-row boundary b1 cut in two there;
+K8b is K6a with the fresh window cut at the chunk multiple inside it.
+Given the same keys, a K8b row equals the K8a row of the same query and
+context at b1 = ctx0 bit for bit (the cell partition is set out in
+``csrc/paged_attention.cu``). Plain versions: ``paged_attention_ref`` for
+K8a (the boundary changes only the rounding, as the JAX package's jnp
+path ignores it) and ``paged_attention_grouped_fresh_ref`` for K6a and
+K8b.
+
 Each wrapper takes the plain version for CPU tensors, launches the
 kernel for CUDA tensors (counting the launch in ``.launches``), and
 raises on anything else, a cache of the other kind included.
@@ -44,6 +62,7 @@ import ctypes
 import torch
 
 from nano_pearl_tpu_torch.ops.attention import (
+    paged_attention_grouped_fresh_ref,
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
@@ -52,6 +71,7 @@ from nano_pearl_tpu_torch.ops.kv_cache import cache_is_quantized, global_block_o
 
 plain_decode = paged_attention_ref
 plain_verify = paged_attention_grouped_ref
+plain_fresh = paged_attention_grouped_fresh_ref
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SUPPORTED = (torch.bfloat16, torch.float32)
@@ -66,16 +86,21 @@ def _lib() -> ctypes.CDLL:
         lib.npt_paged_verify.argtypes = [_P] * 7 + [_I, _I] + common
         lib.npt_paged_decode_q8.argtypes = [_P] * 8 + [_I] + common[:-1] + [_I, _P]
         lib.npt_paged_verify_q8.argtypes = [_P] * 8 + [_I, _I] + common[:-1] + [_I, _P]
-        for fn in ("npt_paged_decode", "npt_paged_verify", "npt_paged_decode_q8", "npt_paged_verify_q8"):
+        lib.npt_paged_decode_split.argtypes = [_P] * 8 + [_I] + common
+        lib.npt_paged_verify_fresh.argtypes = [_P] * 10 + [_I, _I] + common[:-2] + [_I, _I, _P]
+        for fn in ("npt_paged_decode", "npt_paged_verify", "npt_paged_decode_q8", "npt_paged_verify_q8",
+                   "npt_paged_decode_split", "npt_paged_verify_fresh"):
             getattr(lib, fn).restype = _I
         lib.npt_chunk_tokens.restype = _I
         lib._npt_typed = True
     return lib
 
 
-def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device):
-    """f32 (acc, (m, l)) partials of every row, head and key chunk."""
-    n_chunks = -(-m * bs // lib.npt_chunk_tokens())
+def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device, extra: int = 0):
+    """f32 (acc, (m, l)) partials of every row, head and key chunk (and
+    ``extra`` more cells per row and head: K8a's cut chunk, K6a/K8b's fresh
+    window)."""
+    n_chunks = -(-m * bs // lib.npt_chunk_tokens()) + extra
     acc = torch.empty((rows, hq, n_chunks, d), dtype=torch.float32, device=device)
     ml = torch.empty((rows, hq, n_chunks, 2), dtype=torch.float32, device=device)
     return acc, ml
@@ -146,6 +171,30 @@ def _launch(fn: str, q, cache, layer_idx, tables, context_lens, scale, rows: int
     return out
 
 
+def _check_fresh(q, ctx0, fresh_k, fresh_v, groups: int, hkv: int, d: int) -> None:
+    """The deferred verify's extra operands: ctx0 [groups] int32, fresh K/V
+    [N, Hkv, D] in q's dtype, all contiguous on q's device."""
+    for name, t in {"ctx0": ctx0, "fresh_k": fresh_k, "fresh_v": fresh_v}.items():
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on q's device, got {t.device}")
+    if ctx0.dtype != torch.int32 or ctx0.shape != (groups,):
+        raise ValueError(f"ctx0 must be int32 [{groups}], got {ctx0.dtype} {tuple(ctx0.shape)}")
+    want = (q.shape[0], hkv, d)
+    for name, t in (("fresh_k", fresh_k), ("fresh_v", fresh_v)):
+        if t.dtype != q.dtype or tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {q.dtype} {want}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _fresh_rows(rows_per_group, name: str) -> int:
+    """Rows per group of a deferred verify: 1 .. one key chunk (the fresh
+    window crosses at most one chunk multiple, which K8b's partition and
+    its equality with K8a rest on)."""
+    r, chunk = int(rows_per_group), _lib().npt_chunk_tokens()
+    if not 1 <= r <= chunk:
+        raise ValueError(f"{name} takes 1 <= rows_per_group <= {chunk}, got {r}")
+    return r
+
+
 def _verify_rows(rows_per_group, name: str) -> int:
     r = int(rows_per_group)
     if r < 2:
@@ -196,7 +245,81 @@ def paged_verify_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows
     return out
 
 
+def paged_decode_split(q, cache, layer_idx, block_tables, context_lens, b1, scale):
+    """K8a: K1 with the key chunk that holds b1[i] (int32 [N]) cut there for
+    row i; the plain version ignores b1."""
+    if q.device.type == "cpu":
+        return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+    n = q.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, block_tables, context_lens, n, n)
+    if b1.device != q.device or b1.dtype != torch.int32 or b1.shape != (n,) or not b1.is_contiguous():
+        raise ValueError(f"b1 must be contiguous int32 [{n}] on q's device")
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    out = torch.empty_like(q)
+    lib = _lib()
+    acc, ml = _scratch(lib, n, hq, d, m, bs, q.device, extra=1)
+    err = lib.npt_paged_decode_split(
+        q.data_ptr(), cache.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
+        b1.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(), n, m, hq, hkv, d, bs,
+        k_off, v_off, float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "paged_decode_split")
+    paged_decode_split.launches += 1
+    return out
+
+
+def _launch_fresh(split: bool, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
+                  scale, rows_per_group):
+    name = "paged_verify_fresh_split" if split else "paged_verify_fresh"
+    r = _fresh_rows(rows_per_group, name)
+    groups = group_tables.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, groups, groups * r)
+    _check_fresh(q, ctx0, fresh_k, fresh_v, groups, hkv, d)
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    out = torch.empty_like(q)
+    lib = _lib()
+    acc, ml = _scratch(lib, groups * r, hq, d, m, bs, q.device, extra=2)
+    err = lib.npt_paged_verify_fresh(
+        q.data_ptr(), cache.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+        group_tables.data_ptr(), context_lens.data_ptr(), ctx0.data_ptr(), out.data_ptr(),
+        acc.data_ptr(), ml.data_ptr(), groups, r, m, hq, hkv, d, bs, k_off, v_off, float(scale),
+        int(split), int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, name)
+    return out
+
+
+def paged_verify_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
+                       scale, rows_per_group):
+    """K6a: the deferred-write packed verify of q [B*R, Hq, D]: the cache
+    (positions < ctx0[g] of group g, read-only) plus the fresh rows
+    fresh_k/v [B*R, Hkv, D], row t of a group at position ctx0[g] + t;
+    context_lens [B*R] each row's context with its visible fresh rows."""
+    if q.device.type == "cpu":
+        return plain_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale)
+    out = _launch_fresh(False, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
+                        scale, rows_per_group)
+    paged_verify_fresh.launches += 1
+    return out
+
+
+def paged_verify_fresh_split(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
+                             scale, rows_per_group):
+    """K8b: K6a on the split-boundary schedule, its rows bitwise equal to
+    K8a's at b1 = ctx0."""
+    if q.device.type == "cpu":
+        return plain_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale)
+    out = _launch_fresh(True, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
+                        scale, rows_per_group)
+    paged_verify_fresh_split.launches += 1
+    return out
+
+
 paged_decode.launches = 0
 paged_verify.launches = 0
 paged_decode_q8.launches = 0
 paged_verify_q8.launches = 0
+paged_decode_split.launches = 0
+paged_verify_fresh.launches = 0
+paged_verify_fresh_split.launches = 0

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, and no source file of the port (or chip_smoke.py) imports
-them. tests/conftest.py imports JAX into every test process, so the
+JAX package, and no source file of the port (or chip_smoke.py and the
+port's tools) imports them. tests/conftest.py imports JAX into every test process, so the
 import check runs in a fresh subprocess."""
 
 import ast
@@ -61,7 +61,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py"))
+    + [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_port.py", REPO / "tools" / "probe_decode_padding.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_source_imports_no_jax(path):

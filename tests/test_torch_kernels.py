@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels K1 (paged decode), K2 (packed verify),
 K3 (causal prefill), K4 (prefill over a cached prefix), K5 (grouped
 attention on the mono schedule), K7 (cache-side partials of the deferred
-verify), K12 (the deferred verify's writeback) and K9a/K9b/K9c (K1, K2
-and K5 over an int8 or e4m3 cache with bf16 scales) against their plain
-PyTorch versions.
+verify), K12 (the deferred verify's writeback), K9a/K9b/K9c (K1, K2
+and K5 over an int8 or e4m3 cache with bf16 scales) and the kernels of
+the schedule overrides, K6a/K6b (the deferred verify on the db and mono
+schedules, the fresh window in the kernel), K8a (split-boundary decode)
+and K8b (split-boundary deferred verify), against their plain PyTorch
+versions; K8b's rows against K8a's bit for bit.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -116,6 +119,50 @@ def writeback_case(seed, dtype, device, nl=3, nb=20, bs=16, hd=256, groups=4, ro
     return cache.to(device), fresh.to(device), torch.tensor(slots, dtype=torch.int32, device=device)
 
 
+def fresh_case(seed, dtype, device, rows=14, ctx0s=(40, 250, 0, 130), pre=(3,), nb=60, bs=32, hq=8,
+               hkv=2, d=128, m=16, nl=2):
+    """The deferred verify's arguments and the draft's view of the same
+    keys: a random cache, each group's pages from the block manager's pool
+    (garbage-block padding), its pre-round context ctx0 (by default a
+    window inside a 256-key chunk, one across a chunk multiple, no cache at
+    all, and a pre-verify group), fresh K/V of ``rows`` rows per group (row t
+    at position ctx0 + t), staircase contexts (groups in ``pre``: one real
+    row, then padding rows at context 1 in the garbage block); and a copy of
+    the cache with the fresh rows written at their slots, which K8a reads.
+    Returns (verify args without scale and rows, the copy, scale)."""
+    g = torch.Generator().manual_seed(seed)
+    cache = torch.randn((nl, 2, nb + 1, bs, hkv * d), generator=g).to(dtype)
+    b = len(ctx0s)
+    q = torch.randn((b * rows, hq, d), generator=g).to(dtype)
+    fk = torch.randn((b * rows, hkv, d), generator=g).to(dtype)
+    fv = torch.randn((b * rows, hkv, d), generator=g).to(dtype)
+    perm = torch.randperm(nb, generator=g).to(torch.int32)
+    bt = torch.full((b, m), nb, dtype=torch.int32)
+    ctx = torch.ones((b, rows), dtype=torch.int32)
+    drafted, used = cache.clone(), 0
+    for i, c0 in enumerate(ctx0s):
+        pages = -(-(c0 + rows) // bs)
+        bt[i, :pages] = perm[used : used + pages]
+        used += pages
+        ctx[i] = torch.arange(c0 + 1, c0 + rows + 1, dtype=torch.int32)
+        if i in pre:
+            ctx[i, 1:] = 1
+        for t in range(rows):
+            pos = c0 + t
+            page, off = int(bt[i, pos // bs]), pos % bs
+            drafted[nl - 1, 0, page, off] = fk[i * rows + t].reshape(-1)
+            drafted[nl - 1, 1, page, off] = fv[i * rows + t].reshape(-1)
+    to = lambda x: x.to(device)  # noqa: E731
+    ctx0 = torch.tensor(ctx0s, dtype=torch.int32)
+    args = (to(q), to(cache), nl - 1, to(bt), to(ctx.reshape(-1)), to(ctx0), to(fk), to(fv))
+    return args, to(drafted), d**-0.5
+
+
+FRESH_KERNELS = {  # K6a, K8b, K6b: wrapper, its launch counter
+    "K6a": kpa.paged_verify_fresh, "K8b": kpa.paged_verify_fresh_split, "K6b": kmo.mono_fresh,
+}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -162,6 +209,26 @@ def test_wrappers_take_the_plain_version_on_cpu(monkeypatch):
     cache, fresh, slots = writeback_case(5, torch.float32, "cpu")
     assert kkw.write_fresh_kernel(cache, fresh, slots) is returned[-1]
     assert len(returned) == 7
+    assert [fn.launches for fn in counters] == before
+
+
+def test_override_wrappers_take_the_plain_version_on_cpu(monkeypatch):
+    """K6a, K6b, K8a and K8b's wrappers: CPU tensors go to the plain
+    versions (``paged_attention_grouped_fresh_ref``; K1's for K8a) and
+    launch nothing."""
+    returned = []
+    for module, name in ((kpa, "plain_decode"), (kpa, "plain_fresh"), (kmo, "plain_fresh")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, fn=fn: returned.append(fn(*a)) or returned[-1])
+    counters = (kpa.paged_decode_split, *FRESH_KERNELS.values())
+    before = [fn.launches for fn in counters]
+    args, drafted, scale = fresh_case(40, torch.float32, "cpu", rows=3)
+    q, _, layer, bt, ctx, ctx0 = args[:6]
+    for fn in FRESH_KERNELS.values():
+        assert fn(*args, scale, 3) is returned[-1]
+    b1 = ctx0.repeat_interleave(3)
+    assert kpa.paged_decode_split(q, drafted, layer, bt.repeat_interleave(3, 0), ctx, b1, scale) is returned[-1]
+    assert len(returned) == 4
     assert [fn.launches for fn in counters] == before
 
 
@@ -403,3 +470,64 @@ def test_q8_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # head_dim 32
         kmo.mono_q8(q[..., :32].contiguous(), QuantKVCache(cache.q[..., :64].contiguous(), cache.s),
                     layer, bt, ctx, scale, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", list(FRESH_KERNELS))
+def test_verify_fresh_matches_plain(cuda, dtype, kernel):
+    """K6a, K8b and K6b at 14 rows per group: a window inside a 256-key
+    chunk, one across a chunk multiple, a group with no cache (ctx0 0) and
+    a pre-verify group; a second launch agrees bit for bit."""
+    fn = FRESH_KERNELS[kernel]
+    args, _, scale = fresh_case(41, dtype, cuda)
+    n0 = fn.launches
+    got = fn(*args, scale, 14)
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(got.float(), kpa.plain_fresh(*args, scale).float(), **TOL[dtype])
+    assert torch.equal(fn(*args, scale, 14), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_matches_plain(cuda, dtype):
+    """K8a with boundaries inside a chunk, at a chunk multiple, at 0 and at
+    the context, on contexts up to 1,280 positions."""
+    q, cache, layer, bt, ctx, scale = paged_case(42, 8, 1, dtype, cuda, m=40)
+    b1 = torch.stack([ctx // 3, ctx - ctx % 256, torch.zeros_like(ctx), ctx, ctx - 1, ctx // 2,
+                      ctx - 7, ctx - 14]).diagonal().to(torch.int32).contiguous()
+    n0 = kpa.paged_decode_split.launches
+    got = kpa.paged_decode_split(q, cache, layer, bt, ctx, b1, scale)
+    assert kpa.paged_decode_split.launches == n0 + 1
+    torch.testing.assert_close(got.float(), kpa.plain_decode(q, cache, layer, bt, ctx, scale).float(),
+                               **TOL[dtype])
+    assert torch.equal(kpa.paged_decode_split(q, cache, layer, bt, ctx, b1, scale), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [4, 14])
+def test_split_verify_rows_equal_split_decode_bitwise(cuda, dtype, rows):
+    """K8b's rows equal K8a's, bit for bit, for the same query and context at
+    b1 = ctx0, K8a reading the fresh rows from the draft's cache: windows
+    inside a chunk and across a chunk multiple, ctx0 = 0 and a pre-verify
+    group (its real row)."""
+    args, drafted, scale = fresh_case(43, dtype, cuda, rows=rows)
+    q, _, layer, bt, ctx, ctx0 = args[:6]
+    verify = kpa.paged_verify_fresh_split(*args, scale, rows)
+    b1 = ctx0.repeat_interleave(rows)
+    decode = kpa.paged_decode_split(q, drafted, layer, bt.repeat_interleave(rows, 0), ctx, b1, scale)
+    real = ctx > b1
+    assert torch.equal(verify[real], decode[real])
+
+
+def test_override_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    args, drafted, scale = fresh_case(44, torch.float32, cuda, rows=3)
+    q, cache, layer, bt, ctx, ctx0, fk, fv = args
+    with pytest.raises(ValueError):  # int64 ctx0
+        kpa.paged_verify_fresh(q, cache, layer, bt, ctx, ctx0.long(), fk, fv, scale, 3)
+    with pytest.raises(ValueError):  # fresh rows of another dtype
+        kmo.mono_fresh(q, cache, layer, bt, ctx, ctx0, fk.to(torch.bfloat16), fv, scale, 3)
+    with pytest.raises(ValueError):  # fresh rows for fewer query rows
+        kpa.paged_verify_fresh_split(q, cache, layer, bt, ctx, ctx0, fk[:-1].contiguous(), fv, scale, 3)
+    with pytest.raises(ValueError):  # more rows per group than one key chunk
+        kpa.paged_verify_fresh_split(q, cache, layer, bt, ctx, ctx0, fk, fv, scale, 257)
+    with pytest.raises(ValueError):  # b1 of another length
+        kpa.paged_decode_split(q, drafted, layer, bt.repeat_interleave(3, 0), ctx, ctx0, scale)

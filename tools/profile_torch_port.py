@@ -2,14 +2,18 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
 that path: 145 PEARL rounds, then 2174 AR steps, on the same prompts.
 "main" is the ceiling profile on the noiseless pair; "throughput" the
 throughput profile with draft_noise 0.005 (chip_smoke.py's
-throughput_path). Each loop runs twice:
+throughput_path); "split" and "fresh_kernel" chip_smoke.py's split_path
+(main under NANO_PEARL_SPLIT=1) and fresh_kernel_path (throughput under
+NANO_PEARL_FRESH_MODE=kernel), the variable set around the engine's
+construction only. An override path runs its PEARL rounds only: its AR
+is the base path's program. Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -45,7 +49,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import add_requests, nvidia_smi, pair_engine  # noqa: E402
+from chip_smoke import OVERRIDE_PATHS, add_requests, nvidia_smi, pair_engine  # noqa: E402
 
 BATCH, GAMMA, ROUNDS, PROMPT = 32, 14, 145, 64
 AR_STEPS = ROUNDS * (GAMMA + 1) - 1  # chip_smoke.py's AR window
@@ -106,7 +110,13 @@ class Windows:
         self.n += 1
 
 
-PATHS = {"main": ("ceiling", 0.0), "throughput": ("throughput", 0.005)}
+# path -> (profile, draft noise, schedule overrides or None)
+PATHS = {
+    "main": ("ceiling", 0.0, None),
+    "throughput": ("throughput", 0.005, None),
+    "split": OVERRIDE_PATHS["split_path"][:3],
+    "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3],
+}
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
 HOST_STAGES = {
@@ -115,6 +125,9 @@ HOST_STAGES = {
     "verify_attention_k2": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped"),
     "verify_attention_deferred": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped_fresh"),
     "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
+    "k6b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_fresh"),
+    "k8b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh_split"),
+    "draft_attention_k8a": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_split"),
     "fresh_window_partials": ("nano_pearl_tpu_torch.ops.attention", "fresh_window_partials"),
     "merge_attn_partials": ("nano_pearl_tpu_torch.ops.attention", "merge_attn_partials"),
     "k12_writeback": ("nano_pearl_tpu_torch.engine.runner", "write_fresh"),
@@ -200,21 +213,24 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive)
 
 
 def profile_path(dev, path: str) -> None:
-    profile, noise = PATHS[path]
-    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise)
+    profile, noise, env = PATHS[path]
+    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     engine.bench_generate(num_pearl_steps=2, reserve_steps=ROUNDS)
-    add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
-    engine.AR_bench_generate(num_steps=4, reserve_steps=AR_STEPS)
+    if env is None:
+        add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
+        engine.AR_bench_generate(num_steps=4, reserve_steps=AR_STEPS)
 
+    head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {})}
     out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
                   lambda: engine.bench_generate(num_pearl_steps=ROUNDS))
-    print(json.dumps({"path": path, "profile": profile, "draft_noise": noise, **out}), flush=True)
-    out = measure(engine, "ar", "step", fused.target, "decode_step", AR_SAMPLE,
-                  lambda: engine.AR_bench_generate(num_steps=AR_STEPS))
-    print(json.dumps({"path": path, "profile": profile, "draft_noise": noise, **out}), flush=True)
+    print(json.dumps({**head, **out}), flush=True)
+    if env is None:
+        out = measure(engine, "ar", "step", fused.target, "decode_step", AR_SAMPLE,
+                      lambda: engine.AR_bench_generate(num_steps=AR_STEPS))
+        print(json.dumps({**head, **out}), flush=True)
     del engine, fused
     torch.cuda.empty_cache()
 
