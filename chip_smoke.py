@@ -27,7 +27,13 @@ script exits non-zero without its last line):
    second launch bit for bit, the kernels of the schedule overrides
    (K8a split-boundary decode at 32 rows, K6a and K8b deferred verify at
    16 groups x 14 rows, K6b at 32 groups x 14 rows, each against a second
-   launch bit for bit too), and kernel / plain / library
+   launch bit for bit too), the fallbacks K10a-d (decode and packed
+   verify where Hkv*D % 128 != 0, or over a 1-byte cache of blocks that
+   are not a multiple of 32: SmolLM2-360M's 15x64 heads over 5 KV heads
+   over bf16 and int8 caches, 4x16 heads, and the bench pair's heads over
+   an int8 cache of 16-key blocks; K10b rows == K10a and K10d == K10c bit
+   for bit), K1, K2, K5, K9b and K3/K4 at head dims 16, 32 and 256, and
+   kernel / plain / library
    (scaled_dot_product_attention or index_copy_, yardsticks the port
    never calls) times from CUDA events with the L2 cache flushed before
    each launch; split_bitwise: K8b's rows against K8a's bit for bit
@@ -47,9 +53,15 @@ script exits non-zero without its last line):
    split_exactness, deferred_db_exactness, fresh_kernel_exactness: the
    ceiling check under NANO_PEARL_SPLIT=1 and NANO_PEARL_DEFERRED_VERIFY=1,
    the throughput check under NANO_PEARL_FRESH_MODE=kernel;
+   checkpoint_exactness: tiny llama, tied llama, qwen2 and qwen3 HF
+   checkpoint directories (head dim 16) written by this script, loaded
+   through PearlConfig(draft_model=dir, target_model=dir): weights equal
+   what was written, f32 PEARL == AR through K10a/K10b (K10c/K10d over an
+   int8 cache);
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
-   prompt 64, greedy: 145 PEARL rounds, then AR over the same window;
+   prompt 64, greedy: 145 PEARL rounds, then AR over the first third of
+   the same window;
    throughput_path: the same run with draft_noise 0.005 under the
    throughput profile (bench.py --draft-noise 0.005); quant_path: the
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
@@ -63,13 +75,19 @@ script exits non-zero without its last line):
    NANO_PEARL_FRESH_MODE=kernel: K5, K6b), 145 rounds each with the
    variable set around the engine's construction only, their speedup
    against the AR of the main or throughput path in the same call;
+   checkpoint_path and checkpoint_quant_path: a layer-share pair at
+   SmolLM2-360M's published widths (3L draft, 32L target, Hkv*D 320,
+   seeded random weights) written as bf16 HF checkpoint directories and
+   loaded by the engine, the bench's run over a bf16 and an int8 cache
+   (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 145
+   rounds, AR over the first third of the window;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
 Each path (main path, throughput path, the two quantized paths, the
-three override paths, serving) sets every launch
+three override paths, the two checkpoint paths, serving) sets every launch
 counter to 0 just before it and reads them just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -82,6 +100,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -613,6 +632,33 @@ def kernel_phase(dev, flush) -> list[dict]:
         fresh_row(gen, dev, flush, "paged_verify_fresh", spread(16, 2300, 1)),
         fresh_row(gen, dev, flush, "paged_verify_fresh_split", spread(16, 2300, 1)),
         fresh_row(gen, dev, flush, "mono_fresh", spread(32, 2300, 1)),
+        # the fallbacks K10a-d: (a) the checkpoint paths' shapes (SmolLM2-360M's
+        # 15x64 q heads over 5 KV heads, Hkv*D 320): the 32-row decode and a
+        # verify chunk of 16 groups x 14 rows over a bf16 and an int8 cache;
+        # (b) small heads (4x16 over 2 KV heads, Hkv*D 32); (c) the bench
+        # pair's 8x128 heads over an int8 cache of 16-key blocks
+        fallback_row(gen, dev, flush, "paged_decode_fallback", spread(32, 2300, 0), 1, 15, 5, 64, 256),
+        fallback_row(gen, dev, flush, "paged_verify_fallback", spread(16, 2300, 1), 14, 15, 5, 64, 256),
+        fallback_row(gen, dev, flush, "paged_decode_fallback_q8", spread(32, 2300, 0), 1, 15, 5, 64, 256, "int8"),
+        fallback_row(gen, dev, flush, "paged_verify_fallback_q8", spread(16, 2300, 1), 14, 15, 5, 64, 256,
+                     "int8"),
+        fallback_row(gen, dev, flush, "paged_decode_fallback_d16", spread(32, 2300, 0), 1, 4, 2, 16, 256),
+        fallback_row(gen, dev, flush, "paged_verify_fallback_d16", spread(16, 2300, 1), 14, 4, 2, 16, 256),
+        fallback_row(gen, dev, flush, "paged_decode_fallback_q8_bs16", spread(32, 2300, 0), 1, 8, 2, 128, 16,
+                     "int8"),
+        fallback_row(gen, dev, flush, "paged_verify_fallback_q8_bs16", spread(16, 2300, 1), 14, 8, 2, 128, 16,
+                     "int8"),
+        # every head dim the kernels take: K1, K2, K5 and K9b at D 16, 32 and
+        # 256 with an aligned Hkv*D (the fast route); K3 at D 16, 32 and 256
+        # (K4's in prefix_kernel_rows)
+        *(r for d, hq, hkv in ((16, 16, 8), (32, 16, 4), (256, 8, 2)) for r in (
+            decode_row(gen, dev, flush, f"paged_decode_d{d}", spread(32, 2300, 0), hq=hq, d=d, hkv=hkv),
+            verify_row(gen, dev, flush, f"paged_verify_d{d}", spread(16, 2300, 1), 14, hq=hq, d=d, hkv=hkv),
+            mono_row(gen, dev, flush, f"mono_attention_r14_d{d}", spread(32, 2300, 1), 14, hq=hq, d=d, hkv=hkv),
+            q8_row(gen, dev, flush, f"paged_verify_q8_d{d}", "int8", spread(16, 2300, 1), 14, hq=hq, d=d,
+                   hkv=hkv),
+            prefill_row(gen, dev, flush, f"prefill_self_d{d}", 32, 128, 64, hq=hq, d=d, hkv=hkv),
+        )),
     ]
     for r in rows:
         emit({"phase": "kernel", **r})
@@ -677,6 +723,64 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
     )
 
 
+FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
+    "paged_decode_fallback": "nano_pearl_tpu/ops/pallas/paged_attention.py:219",
+    "paged_verify_fallback": "nano_pearl_tpu/ops/pallas/paged_attention.py:253",
+    "paged_decode_fallback_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:764",
+    "paged_verify_fallback_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:802",
+}
+
+
+def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, layer=1) -> dict:
+    """K10a (``rows`` 1, one row per context) or K10b, or over a ``kind``
+    ("int8") cache K10c / K10d, on a cache of ``bs``-key pages, held against
+    the plain version at TOL; K10b's (K10d's) rows against K10a's (K10c's)
+    bit for bit. The bound counts each group's context once (1-byte values
+    and 2 scale bytes per slot and KV head over a quantized cache), q and o;
+    the yardstick is SDPA over the gathered (dequantized) cache, the SDPA
+    call alone timed."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+    from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, _quantize_rows
+
+    q8 = "_q8" if kind else ""
+    kernel = ("paged_verify_fallback" if rows > 1 else "paged_decode_fallback") + q8
+    fn, decode = getattr(kfb, kernel), getattr(kfb, "paged_decode_fallback" + q8)
+    plain = kfb.plain_verify if rows > 1 else kfb.plain_decode
+    groups = len(ctx0)
+    m = -(-(int(max(ctx0)) + rows) // bs)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, nb=groups * m + 8, bs=bs, hq=hq,
+                                            hkv=hkv, d=d, m=m)
+    if kind:
+        values, scales = _quantize_rows(cache.view(-1, hkv, d), torch.int8)
+        cache = QuantKVCache(values.view(cache.shape), scales.view(cache.shape[:-1] + (hkv,)))
+        del values, scales
+    args = (q, cache, layer, bt, ctx, scale) + ((rows,) if rows > 1 else ())
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if rows > 1:
+        single = decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
+        if not torch.equal(single, got):
+            raise AssertionError(f"{name}: K10b/K10d rows differ from K10a/K10c on the same query and context")
+    lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale), want)
+    kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
+    per_token = 2 * hkv * (d + 2) if kind else 2 * hkv * d * 2
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * per_token
+    b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
+    return dict(
+        name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention_fallback.cu",
+        replaces=FALLBACK_KERNELS[kernel], cache=kind or "bf16",
+        max_abs_err=err, ms=time_ms(lambda: fn(*args), 50, flush),
+        plain_ms=time_ms(lambda: plain(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        library="SDPA over the cache gathered (and dequantized) to bf16, the SDPA call alone",
+        **({"verify_rows_equal_decode": True} if rows > 1 else {}),
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, block=bs, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
+    )
+
+
 def prefix_inputs(gen, dev, b, n_cached, lq, n_new, hq, hkv, d, nl=3, nb=64, bs=256):
     """K4's arguments: a random bf16 cache, each sequence's prefix on its
     own pages (the table padded with the garbage block to a power of two,
@@ -710,6 +814,9 @@ def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
         "prefill_prefix": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=2, d=64),
         "prefill_prefix_chunked_pass": dict(b=1, n_cached=2048, lq=1024, n_new=1024, hq=16, hkv=2, d=64),
         "prefill_prefix_d128": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=128),
+        "prefill_prefix_d16": dict(b=8, n_cached=512, lq=128, n_new=64, hq=4, hkv=2, d=16),
+        "prefill_prefix_d32": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=4, d=32),
+        "prefill_prefix_d256": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=256),
     }
     rows = []
     for name, c in cases.items():
@@ -784,15 +891,20 @@ def overrides(env: dict | None):
 
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
-                kv_quant=None, quant=None, env=None):
+                kv_quant=None, quant=None, env=None, dirs=None):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
-    models); ``env``: schedule overrides set around the construction."""
+    models); ``env``: schedule overrides set around the construction;
+    ``dirs``: (draft, target) HF checkpoint directories the engine loads,
+    in place of the bench's layer-share pair."""
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
-    md, mt = model_config(ld, dtype), model_config(lt, dtype)
-    dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
+    if dirs:
+        (md, mt), dp, tp = dirs, None, None
+    else:
+        md, mt = model_config(ld, dtype), model_config(lt, dtype)
+        dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
     max_len = max(256, 1 << (prompt_len + steps * (gamma + 1) + 64).bit_length())
     cfg = PearlConfig(
         draft_model=md, target_model=mt, max_model_len=max_len,
@@ -805,11 +917,11 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
         return PearlEngine(cfg, dp, tp, device=dev)
 
 
-def add_requests(engine, rng, batch, prompt_len, max_tokens):
+def add_requests(engine, rng, batch, prompt_len, max_tokens, vocab=32768):
     from nano_pearl_tpu_torch import SamplingParams
 
     for _ in range(batch):
-        prompt = rng.integers(2, 32768 - 1, prompt_len).tolist()
+        prompt = rng.integers(2, vocab - 1, prompt_len).tolist()
         engine.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
 
 
@@ -1165,7 +1277,8 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
 
 
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
-              ar_of: tuple[str, float] | None = None, ar_cut: int = 1) -> tuple[dict, dict]:
+              ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
+              label: str | None = None) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
@@ -1175,7 +1288,9 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     the overrides change no kernel of AR but the schedule of its decode, as
     in the JAX package. ``ar_cut`` > 1 runs the first 1 / ar_cut of the AR
     window only (the quantized paths, to keep the script inside its time
-    limit). The launch counters are set to 0 just before the measured
+    limit). ``dirs``: the (draft, target) checkpoint directories to load in
+    place of the layer-share pair (``label`` its description, ``vocab`` its
+    vocabulary). The launch counters are set to 0 just before the measured
     runs. Returns (the phase's line without its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
@@ -1185,27 +1300,27 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant, env)
+                         kv_quant, quant, env, dirs)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
-    add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
+    add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens, vocab)
     engine.bench_generate(num_pearl_steps=2, reserve_steps=steps)
     if ar_of is None:
-        add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens)
+        add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens, vocab)
         engine.AR_bench_generate(num_steps=4, reserve_steps=ar_steps)
 
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     # both runs decode the same prompts, so their streams can be compared
-    add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens)
+    add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
     pearl_toks, num_tokens, _, pearl_t = engine.bench_generate(num_pearl_steps=steps)
     pearl_launches = {k: fn.launches for k, fn in counters.items()}
     ar_toks = []
     if ar_of is None:
-        add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens)
+        add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
         ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
     launches = {k: fn.launches for k, fn in counters.items()}
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
@@ -1221,11 +1336,11 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     if ar_of is None and any(n != 1 + ar_steps for n in ar_tokens):
         raise AssertionError(f"AR produced {set(ar_tokens)} tokens, expected {1 + ar_steps}")
     for toks in pearl_toks + ar_toks:
-        if not all(0 <= t < 32768 for t in toks):
+        if not all(0 <= t < vocab for t in toks):
             raise AssertionError("token id outside the vocabulary")
+    pair = label or "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, vocab 32768"
     out = {
-        "config": "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, "
-                  f"vocab 32768, B=32, gamma=14, prompt 64, greedy, {profile} profile"
+        "config": f"{pair}, B=32, gamma=14, prompt 64, greedy, {profile} profile"
                   + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant),
         **({"env": env, "schedule": schedule} if env else {}),
         "pearl_rounds": steps, "pearl_tok_s": pearl_tps, "mat": mat, "pearl_s": pearl_t,
@@ -1253,13 +1368,13 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
 
 
 def main_path_phase(dev, steps: int = 145) -> tuple[dict, dict]:
-    """The bench's default run (ceiling profile, noiseless pair) on the port.
-    Returns its launches and its line."""
+    """The bench's default run (ceiling profile, noiseless pair) on the port,
+    AR over the first third of the window. Its aligned heads (Hkv*D 256)
+    take K1/K2, never the fallbacks. Returns its launches and its line."""
     gamma = 14
-    out, launches = bench_run(dev, steps, "ceiling", 0.0)
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_cut=3)
     emit({"phase": "main_path", **out})
-    if not all(launches[k] > 0 for k in ("paged_decode", "paged_verify", "prefill_self")):
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    check_launches("main_path", launches, ("paged_decode", "paged_verify", "prefill_self"), tuple(FALLBACK_KERNELS))
     if out["mat"] != gamma:  # the layer-share ceiling: decode and verify round alike
         raise AssertionError(f"MAT {out['mat']} below the layer-share ceiling {gamma}")
     return launches, out
@@ -1310,8 +1425,9 @@ def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> 
     (bench.py picks it for noisy drafts), decode through K5, the deferred
     verify through K7 and one K12 writeback per round, prefill through
     K3. Streams are not compared in bf16 (near-tied random logits fork).
-    Returns its launches and its line."""
-    out, launches = bench_run(dev, steps, "throughput", draft_noise)
+    AR over the first third of the window. Returns its launches and its
+    line."""
+    out, launches = bench_run(dev, steps, "throughput", draft_noise, ar_cut=3)
     emit({"phase": "throughput_path", **out})
     wanted = ("prefill_self", "mono_attention", "cache_partials", "write_fresh")
     if not all(launches[k] > 0 for k in wanted) or launches["paged_decode"] or launches["paged_verify"]:
@@ -1350,17 +1466,198 @@ def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 1
     return launches
 
 
+# ------------------------------------------------------------ checkpoints
+
+HF_LAYER_NAMES = {  # pytree key -> (HF tensor name under model.layers.{i}, stored [out, in])
+    "input_ln": ("input_layernorm.weight", False), "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True), "wv": ("self_attn.v_proj.weight", True),
+    "bq": ("self_attn.q_proj.bias", False), "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False), "wo": ("self_attn.o_proj.weight", True),
+    "q_norm": ("self_attn.q_norm.weight", False), "k_norm": ("self_attn.k_norm.weight", False),
+    "post_ln": ("post_attention_layernorm.weight", False), "wgate": ("mlp.gate_proj.weight", True),
+    "wup": ("mlp.up_proj.weight", True), "wdown": ("mlp.down_proj.weight", True),
+}
+ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """``tensors`` (name -> f32 or bf16 CPU tensor) as one safetensors file:
+    an 8-byte little-endian header length, the JSON header (dtype, shape,
+    byte offsets per tensor; padded with spaces to 8 bytes), then the raw
+    little-endian bytes. Written here: the card's host has no safetensors
+    package."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            t = t.contiguous()
+            f.write((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+
+
+def write_checkpoint(directory: str, cfg, tree: dict, dtype: torch.dtype) -> None:
+    """An HF checkpoint directory of ``cfg``'s architecture: ``config.json``
+    and ``model.safetensors`` holding ``tree`` (the JAX package's pytree of
+    f32 numpy arrays, unpadded) under HF's tensor names and [out, in]
+    layout, in ``dtype``; no lm_head where the embeddings are tied."""
+    os.makedirs(directory, exist_ok=True)
+
+    def conv(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+    tensors = {"model.embed_tokens.weight": conv(tree["embed"]), "model.norm.weight": conv(tree["final_ln"])}
+    if not cfg.tie_word_embeddings:
+        tensors["lm_head.weight"] = conv(tree["lm_head"])
+    for key, stacked in tree["layers"].items():
+        name, transpose = HF_LAYER_NAMES[key]
+        for i, a in enumerate(stacked):
+            tensors[f"model.layers.{i}.{name}"] = conv(a.T if transpose else a)
+    write_safetensors(os.path.join(directory, "model.safetensors"), tensors)
+    config = {
+        "architectures": [cfg.architecture], "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads, "num_key_value_heads": cfg.num_key_value_heads,
+        "head_dim": cfg.head_dim, "vocab_size": cfg.vocab_size, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "eos_token_id": cfg.eos_token_id,
+        "torch_dtype": str(dtype).removeprefix("torch."),
+    }
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+
+
+TINY_ARCHS = {  # tests/test_model_parity.py's tiny HF models: hidden 64, 4 heads of 16, 2 KV heads
+    "llama": dict(architecture="LlamaForCausalLM"),
+    "llama_tied": dict(architecture="LlamaForCausalLM", tie_word_embeddings=True),
+    "qwen2": dict(architecture="Qwen2ForCausalLM", qkv_bias=True),
+    "qwen3": dict(architecture="Qwen3ForCausalLM", qk_norm=True),
+}
+
+
+def checkpoint_exactness_phase(dev, root: str) -> None:
+    """The four tiny architectures of tests/test_model_parity.py (3 layers,
+    hidden 64, 4 query heads of 16 over 2 KV heads: Hkv*D 32, vocab 211,
+    f32) written as HF checkpoint directories with seeded random weights and
+    loaded through ``PearlConfig(draft_model=dir, target_model=dir)``: the
+    engine's weights must equal what was written, f32 PEARL == AR (B=4,
+    gamma=4, 16-key blocks), and decode and verify must have run K10a and
+    K10b and not K1/K2 (Hkv*D % 128 != 0); the llama once more over an int8
+    cache, through K10c and K10d."""
+    from nano_pearl_tpu_torch import ModelConfig, PearlConfig, PearlEngine
+    from nano_pearl_tpu_torch.models.transformer import init_params_numpy
+
+    counters = kernel_counters()
+    batch, gamma, prompt_len, vocab = 4, 4, 64, 211
+    max_tokens = 1 + 16 * gamma
+    results = {}
+    for case in (*TINY_ARCHS, "llama, int8 KV"):
+        arch, kv_quant = case.split(",")[0], "int8" if "int8" in case else None
+        mc = ModelConfig(hidden_size=64, intermediate_size=112, num_hidden_layers=3, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=16, vocab_size=vocab, max_position_embeddings=512,
+                         eos_token_id=2, dtype="float32", **TINY_ARCHS[arch])
+        tree = init_params_numpy(mc, np.random.default_rng(3), scale=0.2)
+        path = os.path.join(root, arch)
+        if not os.path.isdir(path):
+            write_checkpoint(path, mc, tree, torch.float32)
+        cfg = PearlConfig(draft_model=path, target_model=path, max_model_len=256, kvcache_block_size=16,
+                          num_kvcache_blocks=72, gamma=gamma, max_num_seqs=8, dtype="float32",
+                          draft_kv_quant=kv_quant, target_kv_quant=kv_quant)
+        engine = PearlEngine(cfg, device=dev)
+        for runner in (engine.draft, engine.target):
+            got = {k: v for k, v in runner.params.items() if k != "layers"} | runner.params["layers"]
+            for k, want in ({k: v for k, v in tree.items() if k != "layers"} | tree["layers"]).items():
+                if not torch.equal(got[k][tuple(slice(0, n) for n in want.shape)].cpu(), torch.from_numpy(want)):
+                    raise AssertionError(f"checkpoint_exactness {case}: loaded {k} differs from what was written")
+        before = {k: fn.launches for k, fn in counters.items()}
+        add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens, vocab)
+        pearl, n_pearl, acc, _ = engine.generate_token_ids()
+        add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens, vocab)
+        ar, _, _, _ = engine.AR_generate_token_ids()
+        launches = {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches - before[k]}
+        if pearl != ar:
+            raise AssertionError(f"checkpoint_exactness {case}: f32 PEARL != AR")
+        q8 = "_q8" if kv_quant else ""
+        check_launches(f"checkpoint_exactness {case}", {**dict.fromkeys(counters, 0), **launches},
+                       ("prefill_self", f"paged_decode_fallback{q8}", f"paged_verify_fallback{q8}"),
+                       ("paged_decode", "paged_verify", "paged_decode_q8", "paged_verify_q8", "mono_attention",
+                        "mono_q8"))
+        results[case] = {"pearl_equals_ar": True, "tokens": n_pearl, "accepted_tokens": [sum(a) for a in acc],
+                         "launches": launches}
+        del engine
+    torch.cuda.empty_cache()
+    emit({"phase": "checkpoint_exactness", "cases": results, "weights_equal_written": True,
+          "config": "tiny HF-layout checkpoints (3L, hidden 64, ffn 112, 4x16 q heads, 2 kv heads, vocab 211, "
+                    "f32, seeded random weights), draft = target directory, B=4, gamma=4, prompt 64, block 16"})
+
+
+SMOLLM2_360M = dict(  # HuggingFaceTB/SmolLM2-360M config.json (public): llama architecture
+    architecture="LlamaForCausalLM", hidden_size=960, intermediate_size=2560, num_attention_heads=15,
+    num_key_value_heads=5, head_dim=64, vocab_size=49152, tie_word_embeddings=True, rope_theta=100000.0,
+    rms_norm_eps=1e-5, max_position_embeddings=8192, eos_token_id=0, dtype="bfloat16",
+)
+
+
+def write_smollm2_pair(root: str) -> tuple[tuple[str, str], float]:
+    """The layer-share pair at SmolLM2-360M's published widths (3-layer
+    draft; 32-layer target, the published depth, whose 29 extra layers pass
+    the residual through), seeded random weights, written as bf16 HF
+    checkpoint directories; returns the directories and the seconds taken."""
+    from nano_pearl_tpu_torch import ModelConfig
+    from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
+
+    t0 = time.perf_counter()
+    md, mt = ModelConfig(num_hidden_layers=3, **SMOLLM2_360M), ModelConfig(num_hidden_layers=32, **SMOLLM2_360M)
+    dp, tp = build_layer_share_pair(md, mt, seed=0)
+    dirs = (os.path.join(root, "smollm2_draft_3l"), os.path.join(root, "smollm2_target_32l"))
+    write_checkpoint(dirs[0], md, dp, torch.bfloat16)
+    write_checkpoint(dirs[1], mt, tp, torch.bfloat16)
+    return dirs, time.perf_counter() - t0
+
+
+def checkpoint_path_phase(dev, dirs, write_s: float, kv_quant=None, steps: int = 145) -> dict:
+    """The bench's run (B=32, gamma=14, prompt 64, greedy, ceiling) on the
+    SmolLM2-360M-width checkpoint pair loaded from ``dirs`` through the
+    engine's normal entry: Hkv*D = 320 sends decode to K10a and the verify
+    to K10b (over an int8 cache, ``checkpoint_quant_path``: K10c / K10d),
+    prefill to K3; K1/K2 (K9a/K9b) must not run. MAT must stay at the
+    layer-share ceiling (K10b rows == K10a's). 145 rounds, AR over the first
+    third of the window."""
+    phase = "checkpoint_quant_path" if kv_quant else "checkpoint_path"
+    label = ("bf16 SmolLM2-360M-width layer-share pair from HF checkpoint directories (3L/32L, hidden 960, "
+             "ffn 2560, 15x64 q heads, 5 kv heads, vocab 49152, tied, seeded random weights)")
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, ar_cut=3, dirs=dirs,
+                              vocab=SMOLLM2_360M["vocab_size"],
+                              label=label)
+    emit({"phase": phase, "checkpoint_write_s": write_s, **out})
+    q8 = "_q8" if kv_quant else ""
+    other = "" if kv_quant else "_q8"
+    check_launches(phase, launches, ("prefill_self", f"paged_decode_fallback{q8}", f"paged_verify_fallback{q8}"),
+                   ("paged_decode", "paged_verify", "paged_decode_q8", "paged_verify_q8", "mono_attention",
+                    "mono_q8", f"paged_decode_fallback{other}", f"paged_verify_fallback{other}"))
+    if out["mat"] != 14:
+        raise AssertionError(f"{phase} MAT {out['mat']} below the layer-share ceiling 14")
+    return launches
+
+
 def kernel_counters() -> dict:
     from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
     from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
     return {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
             "prefill_self": kpf.prefill_self, "prefill_prefix": kpf.prefill_prefix,
             "mono_attention": kmo.mono_attention, "cache_partials": kmo.cache_partials,
             "write_fresh": kkw.write_fresh_kernel, "paged_decode_q8": kpa.paged_decode_q8,
-            "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8, **override_kernel_fns()}
+            "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8, **override_kernel_fns(),
+            **{name: getattr(kfb, name) for name in FALLBACK_KERNELS}}
 
 
 def serve_args(*extra: str):
@@ -1618,6 +1915,8 @@ def main() -> int:
                     ran=("paged_verify_fresh",))
     throughput_exactness_phase(dev, phase="fresh_kernel_exactness", env=OVERRIDE_PATHS["fresh_kernel_path"][2],
                                ran=("mono_fresh",))
+    checkpoints = tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_")
+    checkpoint_exactness_phase(dev, checkpoints.name)
     by_path = {}
     by_path["main_path"], main = main_path_phase(dev)
     by_path["throughput_path"], thr = throughput_path_phase(dev)
@@ -1626,6 +1925,10 @@ def main() -> int:
     for path, ar_of in (("split_path", ("main_path", main)), ("deferred_db_path", ("main_path", main)),
                         ("fresh_kernel_path", ("throughput_path", thr))):
         by_path[path] = override_path_phase(dev, path, (ar_of[0], ar_of[1]["ar_tok_s"]))
+    dirs, write_s = write_smollm2_pair(checkpoints.name)
+    by_path["checkpoint_path"] = checkpoint_path_phase(dev, dirs, write_s)
+    by_path["checkpoint_quant_path"] = checkpoint_path_phase(dev, dirs, write_s, kv_quant="int8")
+    checkpoints.cleanup()
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

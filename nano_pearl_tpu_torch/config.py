@@ -161,7 +161,8 @@ class ModelConfig:
             qkv_bias=raw.get("qkv_bias", True if raw.get("architectures", ["?"])[0] == "Qwen2ForCausalLM" else None),
             qk_norm=qk_norm,
             eos_token_id=raw.get("eos_token_id", 2),
-            dtype=raw.get("torch_dtype", "bfloat16"),
+            # transformers >= 4.56 writes "dtype" where older releases wrote "torch_dtype"
+            dtype=raw.get("torch_dtype") or raw.get("dtype") or "bfloat16",
             rope_scaling=raw.get("rope_scaling"),
             num_experts=num_experts,
             num_experts_per_tok=raw.get("num_experts_per_tok", 2),

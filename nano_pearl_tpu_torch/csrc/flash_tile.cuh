@@ -17,6 +17,12 @@
 // every row the same bits as the decode kernel (one row per block) for the
 // same query and context: the property PEARL's draft/verify agreement at
 // the layer-share ceiling rests on.
+//
+// The head dim d is a run-time value read in 8-element vectors (16 for a
+// 1-byte cache): every multiple of 16 from 16 to 256 runs. A tile holds kT
+// keys, a template parameter: kTile (64) everywhere but in the paged
+// fallback kernels K10a-d, which stage one cache page at a time and take
+// kT 16 or 32 for pages of that size.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,36 +90,38 @@ __host__ __device__ __forceinline__ int kv_pitch(int d) { return d + 8; }
 // Running statistics and operands of one block, all in shared memory.
 template <typename T>
 struct Flash {
-  T* ks;         // [kTile, pitch] staged keys of one KV head
-  T* vs;         // [kTile, pitch] staged values
+  T* ks;         // [kT, pitch] staged keys of one KV head (kT: the tile)
+  T* vs;         // [kT, pitch] staged values
   float* qs;     // [nq, D] query vectors in f32
   float* acc;    // [nq, D] unnormalised output
-  float* s;      // [nq, kTile] scores, then probabilities
+  float* s;      // [nq, kT] scores, then probabilities
   float* m;      // [nq] running max
   float* l;      // [nq] running sum
   float* alpha;  // [nq] rescale of the current tile
   int nq, d, pitch;
 };
 
-// Bytes of shared memory a Flash of nq query vectors needs, plus `extra`.
+// Bytes of shared memory a Flash of nq query vectors over tiles of `tile`
+// keys needs, plus `extra`.
 template <typename T>
-__host__ __device__ inline size_t flash_smem_bytes(int nq, int d, size_t extra) {
-  return 2 * sizeof(T) * kTile * kv_pitch(d) +
-         sizeof(float) * (2 * (size_t)nq * d + (size_t)nq * kTile + 3 * (size_t)nq) + extra;
+__host__ __device__ inline size_t flash_smem_bytes(int nq, int d, size_t extra, int tile = kTile) {
+  return 2 * sizeof(T) * tile * kv_pitch(d) +
+         sizeof(float) * (2 * (size_t)nq * d + (size_t)nq * tile + 3 * (size_t)nq) + extra;
 }
 
-// Carve the dynamic shared memory; returns the first byte after it.
-template <typename T>
+// Carve the dynamic shared memory for tiles of kT keys; returns the first
+// byte after it.
+template <int kT = kTile, typename T>
 __device__ inline unsigned char* flash_carve(Flash<T>& f, int nq, int d) {
   f.nq = nq;
   f.d = d;
   f.pitch = kv_pitch(d);
   f.ks = reinterpret_cast<T*>(smem_raw);
-  f.vs = f.ks + kTile * f.pitch;
-  f.qs = reinterpret_cast<float*>(f.vs + kTile * f.pitch);
+  f.vs = f.ks + kT * f.pitch;
+  f.qs = reinterpret_cast<float*>(f.vs + kT * f.pitch);
   f.acc = f.qs + nq * d;
   f.s = f.acc + nq * d;
-  f.m = f.s + nq * kTile;
+  f.m = f.s + nq * kT;
   f.l = f.m + nq;
   f.alpha = f.l + nq;
   return reinterpret_cast<unsigned char*>(f.alpha + nq);
@@ -128,17 +136,18 @@ __device__ inline void flash_init_stats(Flash<T>& f) {
   }
 }
 
-// One flash update over the staged tile. `visible(qi, t)` says whether
-// key t of the tile is visible to query vector qi. Must be called by all
-// threads of the block; ends with a barrier.
-template <typename T, typename Mask>
+// One flash update over the staged tile of kT keys (the carve's).
+// `visible(qi, t)` says whether key t of the tile is visible to query
+// vector qi. Must be called by all threads of the block; ends with a
+// barrier.
+template <int kT = kTile, typename T, typename Mask>
 __device__ void flash_tile_update(Flash<T>& f, float scale, const Mask& visible) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int nq = f.nq, d = f.d;
 
-  for (int idx = tid; idx < nq * kTile; idx += blockDim.x) {
-    const int qi = idx / kTile, t = idx - qi * kTile;
+  for (int idx = tid; idx < nq * kT; idx += blockDim.x) {
+    const int qi = idx / kT, t = idx - qi * kT;
     float sc = kNegInf;
     if (visible(qi, t)) {
       const float* qv = f.qs + qi * d;
@@ -157,15 +166,15 @@ __device__ void flash_tile_update(Flash<T>& f, float scale, const Mask& visible)
   __syncthreads();
 
   for (int qi = warp; qi < nq; qi += nwarps) {
-    float* srow = f.s + qi * kTile;
+    float* srow = f.s + qi * kT;
     float mx = kNegInf;
-    for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, srow[t]);
+    for (int t = lane; t < kT; t += 32) mx = fmaxf(mx, srow[t]);
 #pragma unroll
     for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float m_prev = f.m[qi];
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
-    for (int t = lane; t < kTile; t += 32) {
+    for (int t = lane; t < kT; t += 32) {
       const float p = expf(srow[t] - m_new);
       srow[t] = p;
       sum += p;
@@ -184,9 +193,9 @@ __device__ void flash_tile_update(Flash<T>& f, float scale, const Mask& visible)
 
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d;
-    const float* prow = f.s + qi * kTile;
+    const float* prow = f.s + qi * kT;
     float pv = 0.f;
-    for (int t = 0; t < kTile; ++t) pv = fmaf(prow[t], to_f32(f.vs[t * f.pitch + c]), pv);
+    for (int t = 0; t < kT; ++t) pv = fmaf(prow[t], to_f32(f.vs[t * f.pitch + c]), pv);
     f.acc[idx] = fmaf(f.acc[idx], f.alpha[qi], pv);
   }
   __syncthreads();
@@ -233,13 +242,13 @@ struct FreshRows {
   }
 };
 
-// Stage keys and values of positions [c0, c0 + kTile) of KV head kh into
+// Stage keys and values of positions [c0, c0 + kT) of KV head kh into
 // f.ks / f.vs with 16-byte loads, zeros at and past c_end; rows(pos, k, v)
 // names the K/V rows of a position below c_end. Does not end with a barrier.
-template <typename T, typename Rows>
+template <int kT = kTile, typename T, typename Rows>
 __device__ void stage_tile(Flash<T>& f, int kh, int c0, int c_end, const Rows& rows) {
   const int d = f.d, vecs = d / 8;
-  for (int idx = threadIdx.x; idx < kTile * vecs; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < kT * vecs; idx += blockDim.x) {
     const int t = idx / vecs, c = (idx - t * vecs) * 8, pos = c0 + t;
     T* kd = f.ks + t * f.pitch + c;
     T* vd = f.vs + t * f.pitch + c;
@@ -324,17 +333,17 @@ __device__ __forceinline__ void dequant16(T* dst, const uint8_t* src, float scal
   copy8(dst + 8, vals + 8);
 }
 
-// Stage keys and values of positions [c0, c0 + kTile) of KV head kh from a
+// Stage keys and values of positions [c0, c0 + kT) of KV head kh from a
 // 1-byte cache (cache [rows, hkv * d], scales [rows, hkv]; layer block
 // offsets k_off / v_off, block table row bt_row of m pages) into f.ks /
 // f.vs, zeros past c_end. Does not end with a barrier.
-template <typename T, typename S>
+template <typename T, typename S, int kT = kTile>
 __device__ void stage_q8_tile(Flash<T>& f, const uint8_t* __restrict__ cache,
                               const __nv_bfloat16* __restrict__ scales, const int* bt_row,
                               int m, int bs, int hkv, int kh, long long k_off, long long v_off,
                               int c0, int c_end) {
   const int d = f.d, hd = hkv * d, vecs = d / 16;
-  for (int idx = threadIdx.x; idx < kTile * vecs; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < kT * vecs; idx += blockDim.x) {
     const int t = idx / vecs, c = (idx - t * vecs) * 16, pos = c0 + t;
     T* kd = f.ks + t * f.pitch + c;
     T* vd = f.vs + t * f.pitch + c;

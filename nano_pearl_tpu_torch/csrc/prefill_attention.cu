@@ -15,9 +15,12 @@
 // and is skipped. The running max starts at kMFloor, so a query that sees
 // no key at all (a padded row) gets 0, not NaN.
 //
-// Grid (query tiles of kQTile rows, KV heads, B); each block folds the
-// kQTile * G query vectors of one KV head over the key tiles up to its
-// diagonal with flash_tile_update.
+// Grid (query tiles of qt rows, KV heads, B); each block folds the qt * G
+// query vectors of one KV head over the key tiles up to its diagonal with
+// flash_tile_update. qt is kQTile, halved until the block's shared memory
+// fits (D 256 with many query heads per KV head, or f32); a row's result
+// does not depend on qt (the tiles past its diagonal are exact no-ops).
+// The head dim is any multiple of 16 from 16 to 256 (flash_tile.cuh).
 //
 // Bound on the H100: at the main path's shapes (Lq = 128, D = 128) each
 // key tile is reused by few query rows, so the kernel moves ~bytes of
@@ -29,10 +32,19 @@
 
 namespace npt {
 
-constexpr int kQTile = 16;  // query rows per block
+constexpr int kQTile = 16;  // query rows per block, at most
+
+// The largest query tile of at most kQTile rows whose block's shared
+// memory (flash_smem_bytes of qt * g query vectors plus extra(qt)) fits.
+template <typename T, typename Extra>
+int query_tile(int g, int d, const Extra& extra) {
+  int qt = kQTile;
+  while (qt > 1 && flash_smem_bytes<T>(qt * g, d, extra(qt)) > (size_t)kMaxSmem) qt /= 2;
+  return qt;
+}
 
 struct CausalMask {
-  const int* qpos;  // [kQTile] positions of the block's query rows
+  const int* qpos;  // [qt] positions of the block's query rows
   const int* kpos;  // [kTile] positions of the staged keys
   int g;
   __device__ bool operator()(int qi, int t) const {
@@ -45,15 +57,15 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 prefill_self_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ pos, T* __restrict__ out, int lq, int hq, int hkv,
-                    int d, float scale) {
-  const int q0 = blockIdx.x * kQTile, kh = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
-  const int g = hq / hkv, nq = kQTile * g, hd = hkv * d;
+                    int d, float scale, int qt) {
+  const int q0 = blockIdx.x * qt, kh = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int g = hq / hkv, nq = qt * g, hd = hkv * d;
   Flash<T> f;
   int* qpos_s = reinterpret_cast<int*>(flash_carve(f, nq, d));
-  int* kpos_s = qpos_s + kQTile;
+  int* kpos_s = qpos_s + qt;
   const long long base = (long long)bi * lq;  // first flat row of the sequence
 
-  for (int r = tid; r < kQTile; r += blockDim.x)
+  for (int r = tid; r < qt; r += blockDim.x)
     qpos_s[r] = (q0 + r < lq) ? pos[base + q0 + r] : -1;
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d, i = q0 + qi / g;
@@ -62,7 +74,7 @@ prefill_self_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   flash_init_stats(f);
   __syncthreads();
 
-  const int k_end = min(lq, q0 + kQTile);  // keys past the diagonal are never visible
+  const int k_end = min(lq, q0 + qt);  // keys past the diagonal are never visible
   const int vecs = d / 8;
   for (int c0 = 0; c0 < k_end; c0 += kTile) {
     for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
@@ -92,14 +104,15 @@ prefill_self_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, void* out, int b,
                    int lq, int hq, int hkv, int d, float scale, cudaStream_t stream) {
-  const size_t smem =
-      flash_smem_bytes<T>(kQTile * (hq / hkv), d, sizeof(int) * (kQTile + kTile));
+  const auto extra = [](int qt) { return sizeof(int) * (qt + kTile); };
+  const int g = hq / hkv, qt = query_tile<T>(g, d, extra);
+  const size_t smem = flash_smem_bytes<T>(qt * g, d, extra(qt));
   cudaError_t err = flash_set_smem(prefill_self_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lq + kQTile - 1) / kQTile, hkv, b);
+  const dim3 grid((lq + qt - 1) / qt, hkv, b);
   prefill_self_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(out), lq, hq, hkv, d, scale);
+      static_cast<T*>(out), lq, hq, hkv, d, scale, qt);
   return cudaGetLastError();
 }
 
@@ -118,8 +131,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, 
 // starts at kMFloor and the sum is clamped at 1e-30, so a sequence with
 // nn = 0 writes zeros, not NaN.
 //
-// Grid (query tiles of kQTile rows, KV heads, B), as K3. Each block folds
-// its kQTile * G query vectors first over the prefix in kTile-key tiles
+// Grid (query tiles of qt rows, KV heads, B), as K3. Each block folds
+// its qt * G query vectors first over the prefix in kTile-key tiles
 // staged from the block table with 16-byte loads (one table read per
 // key), then over the fresh tiles up to its diagonal, all with
 // flash_tile_update. A tile with no real row returns after writing zeros.
@@ -151,12 +164,12 @@ prefill_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const T* __restrict__ cache, const int* __restrict__ bt,
                       const int* __restrict__ ncs, const int* __restrict__ nns,
                       T* __restrict__ out, int lq, int mpre, int hq, int hkv, int d, int bs,
-                      long long k_off, long long v_off, float scale) {
-  const int q0 = blockIdx.x * kQTile, kh = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
-  const int g = hq / hkv, nq = kQTile * g, hd = hkv * d;
+                      long long k_off, long long v_off, float scale, int qt) {
+  const int q0 = blockIdx.x * qt, kh = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int g = hq / hkv, nq = qt * g, hd = hkv * d;
   const int nc = ncs[bi], nn = min(nns[bi], lq);
   const long long base = (long long)bi * lq;  // first flat row of the sequence
-  const int rows = min(kQTile, lq - q0);
+  const int rows = min(qt, lq - q0);
 
   if (q0 >= nn) {  // no real row in this tile: uniform over the block
     for (int idx = tid; idx < rows * g * d; idx += blockDim.x) {
@@ -196,7 +209,7 @@ prefill_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     flash_tile_update(f, scale, PrefixMask{q0, g, nn, nc, c0});
   }
 
-  const int k_end = min(nn, q0 + kQTile);  // fresh keys past the diagonal are never visible
+  const int k_end = min(nn, q0 + qt);  // fresh keys past the diagonal are never visible
   for (int c0 = 0; c0 < k_end; c0 += kTile) {
     for (int idx = tid; idx < kTile * vecs; idx += blockDim.x) {
       const int t = idx / vecs, c = (idx - t * vecs) * 8, j = c0 + t;
@@ -226,14 +239,16 @@ cudaError_t launch_prefix(const void* q, const void* k, const void* v, const voi
                           const int* bt, const int* nc, const int* nn, void* out, int b, int lq,
                           int mpre, int hq, int hkv, int d, int bs, long long k_off,
                           long long v_off, float scale, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<T>(kQTile * (hq / hkv), d, 0);
+  const auto extra = [](int) { return (size_t)0; };
+  const int g = hq / hkv, qt = query_tile<T>(g, d, extra);
+  const size_t smem = flash_smem_bytes<T>(qt * g, d, 0);
   cudaError_t err = flash_set_smem(prefill_prefix_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lq + kQTile - 1) / kQTile, hkv, b);
+  const dim3 grid((lq + qt - 1) / qt, hkv, b);
   prefill_prefix_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(cache), bt, nc, nn, static_cast<T*>(out), lq, mpre, hq, hkv, d, bs,
-      k_off, v_off, scale);
+      k_off, v_off, scale, qt);
   return cudaGetLastError();
 }
 

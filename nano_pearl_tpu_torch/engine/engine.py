@@ -25,6 +25,13 @@ Kernels by ``PearlConfig.perf_profile`` (engine/runner.py):
   profile verifies through K6a, ``FRESH_MODE=kernel`` on the throughput
   profile through K6b.
 
+At a folded head axis ``Hkv * D`` that is not a multiple of 128 (and,
+over a 1-byte cache, at blocks that are not a multiple of 32) decode and
+verify take the fallbacks K10a/K10b (K10c/K10d), as the JAX package does.
+``draft_model`` / ``target_model`` may be HF checkpoint directories: the
+engine loads them (``utils/loader.py``); weights handed in take
+precedence, and random ones are drawn only when neither is given.
+
 The port runs the fused path on one device: draft and target share it,
 and with ``num_kvcache_blocks=-1`` their KV pools are sized together
 from one budget. Its entry points run on CUDA unless the caller asks
@@ -88,8 +95,9 @@ class PearlEngine:
         device=None,
     ):
         """``draft_params``/``target_params``: weights in the JAX package's
-        pytree layout, as numpy arrays or as the port's tensors; random
-        weights from ``config.seed`` when omitted."""
+        pytree layout, as numpy arrays or as the port's tensors; when
+        omitted, the checkpoint of a model given as a directory, else
+        random weights from ``config.seed``."""
         _check_config(config)
         self.config = config
         self.device = resolve_device(device)

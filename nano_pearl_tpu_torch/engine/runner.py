@@ -2,7 +2,10 @@
 (counterpart of nano_pearl_tpu/engine/runner.py).
 
 One ``GroupRunner`` owns one model's weights, rope table and KV cache on
-one device and runs its phases eagerly:
+one device and runs its phases eagerly. Its weights are the ones handed
+in, else the HF checkpoint at ``ModelConfig.model_path`` (a directory
+given to ``PearlConfig``, read by ``utils/loader.load_params``), else
+random ones from the seed (with a warning):
 
 - ``prefill``: prefill of a batch, or one block-aligned pass of a
   chunked prefill. A batch with no prefix-cache hit attends over its
@@ -66,6 +69,13 @@ verify is the classic write-then-read one, through K9b under "ceiling"
 and K9c under "throughput"; decode goes through K9a or K9c; a prefix hit
 prefills through torch ops (the JAX package's jnp path).
 
+Decode and verify attention go through the route
+``ops/attention.attention_kernel``, by the JAX package's gates: at a folded
+head axis ``Hkv * D`` that is not a multiple of 128 (over a 1-byte cache
+also at blocks that are not a multiple of 32) every schedule takes the
+fallbacks K10a (decode) and K10b (verify), K10c / K10d over a quantized
+cache, in place of K1/K2, K5 or K9a-c.
+
 The KV cache is allocated after both models' weights are on the device
 (``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
 shared card from one budget.
@@ -102,6 +112,7 @@ from nano_pearl_tpu_torch.ops.attention import (
 from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes, make_kv_cache, write_fresh
 from nano_pearl_tpu_torch.ops.quant import is_quantized
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
+from nano_pearl_tpu_torch.utils.loader import load_params
 from nano_pearl_tpu_torch.utils.logging import logger
 
 _DEFAULT_CPU_BLOCKS = 512
@@ -155,7 +166,7 @@ class GroupRunner:
         params: dict | None = None,
         seed: int = 0,
     ):
-        check_supported(mcfg)
+        check_supported(mcfg, device)
         self.pcfg = pcfg
         self.cfg = mcfg
         self.device = device
@@ -163,8 +174,10 @@ class GroupRunner:
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
         self._resolve_schedule(pcfg, mcfg)
-        if params is None:
-            logger.warning(f"[{name}] no weights given; random-initializing")
+        if params is None and mcfg.model_path:
+            params = load_params(mcfg, mcfg.model_path)
+        elif params is None:
+            logger.warning(f"[{name}] no weights given and no checkpoint path; random-initializing")
             params = init_params_numpy(mcfg, np.random.default_rng(seed))
         if _is_numpy_tree(params):
             params = params_from_numpy(params, mcfg, device)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from nano_pearl_tpu_torch.config import ModelConfig
+from nano_pearl_tpu_torch.ops.attention import check_head_dim
 from nano_pearl_tpu_torch.ops.kv_cache import write_kv
 from nano_pearl_tpu_torch.ops.quant import (
     QUANTIZED_LAYER_KEYS,
@@ -55,13 +56,17 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise on model features the port does not run yet."""
+def check_supported(cfg: ModelConfig, device=None) -> None:
+    """Raise on model features the port does not run yet, and on a CUDA
+    ``device`` on a head dim the kernels do not take (``check_head_dim``:
+    multiples of 16 from 16 to 256; the CPU's plain versions take any)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not ported yet")
     if cfg.fuse_proj:
         raise NotImplementedError("fused projections are not ported yet")
     torch_dtype(cfg)
+    if device is not None and torch.device(device).type == "cuda":
+        check_head_dim(cfg.head_dim)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, out_dtype=None) -> torch.Tensor:

@@ -32,10 +32,15 @@ against, and what the kernels' wrappers run for tensors on the CPU:
 - Kernel K8a (the split-boundary decode) computes what K1 computes, with
   another rounding: its plain version is ``paged_attention_ref``, which
   ignores the boundary, as the JAX package's jnp path does.
+- Kernels K10a/K10b (the fallbacks of decode and packed verify, at the
+  shapes the JAX package's fast kernels do not take: ``Hkv * D % 128``,
+  and ``BS % 32`` over a 1-byte cache, see ``attention_kernel``) compute
+  what K1/K2 compute; their plain versions are ``paged_attention_ref``
+  and ``paged_attention_grouped_ref``.
 
 Every plain version reads either cache kind. Over a quantized cache
 (``QuantKVCache``) the decode, packed-verify and mono plain versions are
-those of kernels K9a, K9b and K9c: the gathered 1-byte rows are
+those of kernels K9a, K9b and K9c (K10c and K10d): the gathered 1-byte rows are
 dequantized per (slot, head) and rounded to the query's dtype, as the
 kernels round their dequantized tiles; the prefix prefill dequantizes to
 f32 and attends with torch ops on every device, as the JAX package falls
@@ -44,10 +49,11 @@ back to its jnp path there (its K4 takes no quantized cache).
 The dispatchers ``paged_attention``, ``paged_attention_grouped``,
 ``paged_attention_mono``, ``paged_attention_grouped_fresh``,
 ``paged_attention_split``, ``prefill_self_attention`` and
-``prefill_prefix_attention`` hand every
-kernel call to the kernel's wrapper in
-``ops/cuda``, which takes the plain version only for CPU tensors and
-launches the kernel (or raises) for CUDA tensors.
+``prefill_prefix_attention`` hand every kernel call to the kernel's
+wrapper in ``ops/cuda`` (decode, verify and mono through the route
+``attention_kernel``), which takes the plain version only for CPU tensors
+and launches the kernel (or raises) for CUDA tensors. Every kernel takes
+the head dims ``check_head_dim`` allows.
 """
 
 from __future__ import annotations
@@ -64,6 +70,13 @@ from nano_pearl_tpu_torch.ops.kv_cache import (
 
 NEG_INF = -1e30
 M_FLOOR = -1e29  # running-max floor of the partials: nothing visible gives l = 0
+
+
+def check_head_dim(d: int) -> None:
+    """The head dims every attention kernel takes: multiples of 16 (one
+    16-byte load of a 1-byte cache) from 16 to 256."""
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"head_dim {d} not supported (a multiple of 16 from 16 to 256)")
 
 
 def _gather_kv(cache, layer_idx: int, block_tables: torch.Tensor, head_dim: int, out_dtype=None):
@@ -334,33 +347,65 @@ def prefill_prefix_attention_ref(
     return torch.cat(outs, dim=1).reshape(n, hq, d).to(q.dtype)
 
 
-def paged_attention(q, cache, layer_idx, block_tables, context_lens, scale):
-    """Decode attention: kernel K1 (K9a over a quantized cache) on the
-    card, the plain version on the CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_decode, paged_decode_q8
+def attention_kernel(kind: str, cache, mono: bool = False):
+    """The wrapper of the kernel that runs a decode (``kind`` "decode", one
+    row per block-table row) or a packed verify ("verify", rows sharing a
+    group's table) over ``cache``, by the JAX package's gates: its fast
+    kernels take a folded head axis ``Hkv * D`` that is a multiple of 128
+    and, over a 1-byte cache, block sizes that are multiples of 32
+    (``_q8_fastpath_ok``; on one device its strided scale width always
+    passes). There:
 
-    fn = paged_decode_q8 if cache_is_quantized(cache) else paged_decode
+    - decode: K1 (K9a over a quantized cache); verify: K2 (K9b);
+    - on the mono schedule (``mono``) both K5 (K9c).
+
+    Every other shape goes to the fallbacks, on either schedule: decode
+    K10a (K10c over a quantized cache), verify K10b (K10d)."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+
+    if kind not in ("decode", "verify"):
+        raise ValueError(f"kind must be 'decode' or 'verify', got {kind!r}")
+    quant = cache_is_quantized(cache)
+    fast = cache.shape[-1] % 128 == 0 and (not quant or cache.shape[3] % 32 == 0)
+    if not fast:
+        if kind == "decode":
+            return kfb.paged_decode_fallback_q8 if quant else kfb.paged_decode_fallback
+        return kfb.paged_verify_fallback_q8 if quant else kfb.paged_verify_fallback
+    if mono:
+        return kmo.mono_q8 if quant else kmo.mono_attention
+    if kind == "decode":
+        return kpa.paged_decode_q8 if quant else kpa.paged_decode
+    return kpa.paged_verify_q8 if quant else kpa.paged_verify
+
+
+def paged_attention(q, cache, layer_idx, block_tables, context_lens, scale):
+    """Decode attention: the kernel ``attention_kernel`` picks (K1, K9a,
+    K10a or K10c) on the card, its plain version on the CPU."""
+    fn = attention_kernel("decode", cache)
     return fn(q, cache, layer_idx, block_tables, context_lens, scale)
 
 
 def paged_attention_grouped(
     q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
 ):
-    """Packed-verify attention: kernel K2 (K9b over a quantized cache) on
-    the card, the plain version on the CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.paged_attention import paged_verify, paged_verify_q8
-
-    fn = paged_verify_q8 if cache_is_quantized(cache) else paged_verify
+    """Packed-verify attention: the kernel ``attention_kernel`` picks (K2,
+    K9b, K10b or K10d) on the card, its plain version on the CPU."""
+    fn = attention_kernel("verify", cache)
     return fn(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
 
 
 def paged_attention_mono(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group=1):
     """Grouped paged attention on the mono schedule (decode at
-    ``rows_per_group`` 1): kernel K5 (K9c over a quantized cache) on the
-    card, the plain version on the CPU."""
-    from nano_pearl_tpu_torch.ops.cuda.mono_attention import mono_attention, mono_q8
-
-    fn = mono_q8 if cache_is_quantized(cache) else mono_attention
+    ``rows_per_group`` 1): K5 (K9c over a quantized cache) where its gate
+    passes, else the fallback of the call's kind (K10a-d, as the JAX
+    package gates before it resolves the schedule); the plain version on
+    the CPU."""
+    kind = "decode" if rows_per_group == 1 else "verify"
+    fn = attention_kernel(kind, cache, mono=True)
+    if fn.__name__.startswith("paged_decode"):
+        return fn(q, cache, layer_idx, group_tables, context_lens, scale)
     return fn(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
 
 

@@ -21,7 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("paged_attention", "prefill_attention", "mono_attention", "kv_writeback")
+SOURCES = (
+    "paged_attention", "prefill_attention", "mono_attention", "kv_writeback",
+    "paged_attention_fallback",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -62,6 +62,7 @@ import ctypes
 import torch
 
 from nano_pearl_tpu_torch.ops.attention import (
+    check_head_dim,
     paged_attention_grouped_fresh_ref,
     paged_attention_grouped_ref,
     paged_attention_ref,
@@ -131,8 +132,7 @@ def _check_inputs(q, cache, block_tables, context_lens, n_tables: int, n_rows: i
     if q.ndim != 3 or cache.ndim != 5:
         raise ValueError(f"q must be [N, Hq, D] and cache [L, 2, NB+1, BS, Hkv*D]: {q.shape}, {cache.shape}")
     n, hq, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported (64 or 128)")
+    check_head_dim(d)
     if cache.shape[1] != 2 or cache.shape[-1] % d:
         raise ValueError(f"cache shape {tuple(cache.shape)} does not fold head_dim {d}")
     hkv = cache.shape[-1] // d

@@ -1,0 +1,125 @@
+"""Kernels K10a-d (the paged-attention fallbacks): wrappers of
+``csrc/paged_attention_fallback.cu``.
+
+K10a ``paged_decode_fallback`` and K10b ``paged_verify_fallback`` replace
+``_kernel`` and ``_grouped_kernel``, K10c ``paged_decode_fallback_q8`` and
+K10d ``paged_verify_fallback_q8`` replace ``_kernel_q8`` and
+``_grouped_kernel_q8`` (entries ``paged_attention_pallas`` and
+``paged_attention_pallas_grouped``, their BlockSpec fallbacks), all in
+nano_pearl_tpu/ops/pallas/paged_attention.py. The JAX package runs them
+where its fast kernels' gates fail: ``Hkv * D % 128 != 0``, and over a
+1-byte cache also ``BS % 32 != 0``; ``ops/attention.attention_kernel``
+routes the port's calls the same way. Their plain versions are
+``paged_attention_ref`` (K10a, K10c) and ``paged_attention_grouped_ref``
+(K10b, K10d), which read either cache kind (ops/attention.py).
+
+What bounds them on the H100: bytes, as K1/K2 (a group reads its
+context's K/V once per KV head). The design answer is simplicity, not
+speed: one block per (row group, KV head) walks the table one page at a
+time with no split-K and no combine pass, folding tiles of at most 64 keys
+of each page into every row of the group, so a K10b row equals the K10a
+row of the same query and context bit for bit (and K10d's K10c's): the
+decode <-> verify agreement of the layer-share ceiling at these shapes.
+
+Each wrapper takes the plain version for CPU tensors, launches the kernel
+for CUDA tensors (counting the launch in ``.launches``), and raises on
+anything else, a cache of the other kind included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nano_pearl_tpu_torch.ops.attention import paged_attention_grouped_ref, paged_attention_ref
+from nano_pearl_tpu_torch.ops.cuda import build
+from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_inputs
+from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+
+plain_decode = paged_attention_ref
+plain_verify = paged_attention_grouped_ref
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("paged_attention_fallback")
+    if not getattr(lib, "_npt_typed", False):
+        tail = [_I] * 7 + [_LL, _LL, _F, _I]
+        lib.npt_fallback.argtypes = [_P] * 5 + tail + [_P]
+        lib.npt_fallback_q8.argtypes = [_P] * 6 + tail + [_I, _P]
+        lib.npt_fallback.restype = _I
+        lib.npt_fallback_q8.restype = _I
+        lib._npt_typed = True
+    return lib
+
+
+def _launch(quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int):
+    """K10a/K10b (K10c/K10d with ``quant``) on ``tables.shape[0]`` groups of
+    ``rows`` rows; returns the output."""
+    if rows < 1:
+        raise ValueError(f"rows_per_group must be >= 1, got {rows}")
+    groups = tables.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, tables, context_lens, groups, groups * rows, quant=quant)
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    out = torch.empty_like(q)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (groups, rows, m, hq, hkv, d, bs, k_off, v_off, float(scale), int(q.dtype == torch.bfloat16))
+    if quant:
+        err = lib.npt_fallback_q8(
+            q.data_ptr(), cache.q.data_ptr(), cache.s.data_ptr(), tables.data_ptr(),
+            context_lens.data_ptr(), out.data_ptr(), *common,
+            int(cache.q.dtype == torch.float8_e4m3fn), stream,
+        )
+    else:
+        err = lib.npt_fallback(
+            q.data_ptr(), cache.data_ptr(), tables.data_ptr(), context_lens.data_ptr(),
+            out.data_ptr(), *common, stream,
+        )
+    build.check(lib, err, "paged_attention_fallback" + ("_q8" if quant else ""))
+    return out
+
+
+def paged_decode_fallback(q, cache, layer_idx, block_tables, context_lens, scale):
+    """K10a: q [N, Hq, D] against its own block table row and context."""
+    if q.device.type == "cpu":
+        return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+    out = _launch(False, q, cache, layer_idx, block_tables, context_lens, scale, 1)
+    paged_decode_fallback.launches += 1
+    return out
+
+
+def paged_verify_fallback(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group):
+    """K10b: q [B*R, Hq, D]; the R rows of a group share its block table row
+    and each has its own context length."""
+    if q.device.type == "cpu":
+        return plain_verify(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    out = _launch(False, q, cache, layer_idx, group_tables, context_lens, scale, int(rows_per_group))
+    paged_verify_fallback.launches += 1
+    return out
+
+
+def paged_decode_fallback_q8(q, cache, layer_idx, block_tables, context_lens, scale):
+    """K10c: K10a over a quantized cache."""
+    if q.device.type == "cpu":
+        return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+    out = _launch(True, q, cache, layer_idx, block_tables, context_lens, scale, 1)
+    paged_decode_fallback_q8.launches += 1
+    return out
+
+
+def paged_verify_fallback_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group):
+    """K10d: K10b over a quantized cache."""
+    if q.device.type == "cpu":
+        return plain_verify(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
+    out = _launch(True, q, cache, layer_idx, group_tables, context_lens, scale, int(rows_per_group))
+    paged_verify_fallback_q8.launches += 1
+    return out
+
+
+paged_decode_fallback.launches = 0
+paged_verify_fallback.launches = 0
+paged_decode_fallback_q8.launches = 0
+paged_verify_fallback_q8.launches = 0

@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from nano_pearl_tpu_torch.ops.attention import (
+    check_head_dim,
     prefill_prefix_attention_ref,
     prefill_self_attention_ref,
 )
@@ -72,8 +73,7 @@ def _check_fresh(q, k, v, extra: dict):
         raise ValueError(f"q/k/v must be [N, H, D]: {q.shape}, {k.shape}, {v.shape}")
     n, hq, d = q.shape
     hkv = k.shape[1]
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported (64 or 128)")
+    check_head_dim(d)
     if k.shape[0] != n or k.shape[2] != d or hq % hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}")
     return n, hq, hkv, d

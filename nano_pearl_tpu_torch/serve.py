@@ -27,6 +27,7 @@ pre-verify state, without draining it.
 
     python -m nano_pearl_tpu_torch.serve --layer-share          # on the GPU
     python -m nano_pearl_tpu_torch.serve --layer-share --cpu    # plain versions, f32
+    python -m nano_pearl_tpu_torch.serve -d DRAFT_DIR -t TARGET_DIR   # HF checkpoints
 
 Without ``--cpu`` the engine needs a CUDA device and raises without one.
 """
@@ -34,6 +35,7 @@ Without ``--cpu`` the engine needs a CUDA device and raises without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import queue
 import threading
@@ -313,25 +315,38 @@ def layer_share_models(args) -> tuple[ModelConfig, ModelConfig]:
 
 
 def build_engine(args, **config):
-    """The engine ``args`` ask for: the layer-share pair with random weights
-    from ``--seed``, on the CUDA device unless ``--cpu``. ``config`` sets
-    further ``PearlConfig`` fields (the command line keeps their defaults)."""
+    """The engine ``args`` ask for, on the CUDA device unless ``--cpu`` (f32
+    there): the layer-share pair with random weights from ``--seed``
+    (``--layer-share``, the ceiling profile), or the HF checkpoint
+    directories ``--draft-model`` / ``--target-model``, loaded by the engine,
+    under the throughput profile, as the repository's ``serve.py`` picks it
+    for real pairs. ``config`` sets further ``PearlConfig`` fields (the
+    command line keeps their defaults)."""
     from nano_pearl_tpu_torch.engine.engine import PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
-    if not args.layer_share:
-        raise NotImplementedError("the port loads no checkpoints yet: pass --layer-share")
-    draft, target = layer_share_models(args)
-    dparams, tparams = build_layer_share_pair(draft, target, args.seed)
+    dparams = tparams = None
+    if args.layer_share:
+        draft, target = layer_share_models(args)
+        dparams, tparams = build_layer_share_pair(draft, target, args.seed)
+    elif args.draft_model and args.target_model:
+        draft, target = (ModelConfig.from_json(p) for p in (args.draft_model, args.target_model))
+        if args.cpu:
+            draft, target = (dataclasses.replace(m, dtype="float32") for m in (draft, target))
+    else:
+        raise ValueError("--draft-model/--target-model required without --layer-share")
     cfg = PearlConfig(
         draft_model=draft, target_model=target, max_model_len=args.max_model_len,
-        gamma=args.gamma, seed=args.seed, perf_profile="ceiling", dtype=draft.dtype, **config,
+        gamma=args.gamma, seed=args.seed, perf_profile="ceiling" if args.layer_share else "throughput",
+        dtype=draft.dtype, **config,
     )
     return PearlEngine(cfg, dparams, tparams, device="cpu" if args.cpu else None)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="nano-PEARL HTTP server (PyTorch port)")
+    p.add_argument("--draft-model", "-d", default=None, help="HF checkpoint directory of the draft")
+    p.add_argument("--target-model", "-t", default=None, help="HF checkpoint directory of the target")
     p.add_argument("--layer-share", action="store_true",
                    help="serve the weightless layer-share pair (random weights)")
     p.add_argument("--draft-layers", type=int, default=3)

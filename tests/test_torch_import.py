@@ -16,13 +16,13 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "nano_pearl_tpu_torch"
 
 
-def _modules_loaded_by(imports: str) -> list[str]:
-    """JAX and JAX-package modules loaded by ``imports`` in a fresh process."""
+def _modules_loaded_by(imports: str, roots=("jax", "jaxlib", "nano_pearl_tpu")) -> list[str]:
+    """Modules under ``roots`` (by default JAX and the JAX package) loaded by
+    ``imports`` in a fresh process."""
     code = (
         "import json, sys\n"
         f"{imports}\n"
-        "mods = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nano_pearl_tpu.'))"
-        " or m == 'nano_pearl_tpu']\n"
+        f"mods = [m for m in sys.modules if m.split('.')[0] in {tuple(roots)!r}]\n"
         "print(json.dumps(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -39,7 +39,7 @@ def test_import_loads_no_jax_in_fresh_process():
         "import nano_pearl_tpu_torch\n"
         "from nano_pearl_tpu_torch.engine import engine, fused, pearl, runner\n"
         "from nano_pearl_tpu_torch.ops.cuda import build, paged_attention, prefill_attention\n"
-        "from nano_pearl_tpu_torch.ops.cuda import kv_writeback, mono_attention\n"
+        "from nano_pearl_tpu_torch.ops.cuda import kv_writeback, mono_attention, paged_attention_fallback\n"
         "from nano_pearl_tpu_torch.ops import kv_cache, quant\n"
         "from nano_pearl_tpu_torch.utils import layer_share"
     ) == []
@@ -47,6 +47,13 @@ def test_import_loads_no_jax_in_fresh_process():
 
 def test_server_import_loads_no_jax_in_fresh_process():
     assert _modules_loaded_by("import nano_pearl_tpu_torch.serve") == []
+
+
+def test_loader_loads_no_jax_safetensors_or_transformers():
+    """The checkpoint loader reads safetensors files itself: the card's
+    host has neither package."""
+    roots = ("jax", "jaxlib", "nano_pearl_tpu", "safetensors", "transformers")
+    assert _modules_loaded_by("from nano_pearl_tpu_torch.utils import loader", roots) == []
 
 
 def _imported_modules(path: Path) -> set[str]:

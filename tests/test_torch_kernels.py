@@ -5,8 +5,11 @@ verify), K12 (the deferred verify's writeback), K9a/K9b/K9c (K1, K2
 and K5 over an int8 or e4m3 cache with bf16 scales) and the kernels of
 the schedule overrides, K6a/K6b (the deferred verify on the db and mono
 schedules, the fresh window in the kernel), K8a (split-boundary decode)
-and K8b (split-boundary deferred verify), against their plain PyTorch
-versions; K8b's rows against K8a's bit for bit.
+and K8b (split-boundary deferred verify), and the fallbacks K10a-d (decode
+and packed verify at the shapes the fast kernels are not routed to, over a
+bf16/f32 or a 1-byte cache), against their plain PyTorch versions; K8b's
+rows against K8a's, K10b's against K10a's and K10d's against K10c's bit
+for bit; every kernel at head dims 16 to 256.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -29,6 +32,7 @@ import torch
 from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
 from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
 from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
 from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache
 
@@ -310,8 +314,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kpa.paged_decode(q, cache.cpu(), 0, bt, ctx, scale)
     with pytest.raises(ValueError):  # int64 block table
         kpa.paged_decode(q, cache, 0, bt.long(), ctx, scale)
-    with pytest.raises(ValueError):  # head_dim 32
-        kpa.paged_decode(q[..., :32].contiguous(), cache[..., :64].contiguous(), 0, bt, ctx, scale)
+    with pytest.raises(ValueError):  # head_dim 24: not a multiple of 16
+        kpa.paged_decode(q[..., :24].contiguous(), cache[..., :48].contiguous(), 0, bt, ctx, scale)
     with pytest.raises(ValueError):  # dtype mismatch
         kpa.paged_decode(q.to(torch.bfloat16), cache, 0, bt, ctx, scale)
     qp, k, v, pos, s = prefill_case(15, torch.float32, cuda)
@@ -467,8 +471,8 @@ def test_q8_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             scale, 2)
     with pytest.raises(ValueError):  # values on the CPU
         kmo.mono_q8(q, QuantKVCache(cache.q.cpu(), cache.s), layer, bt, ctx, scale, 2)
-    with pytest.raises(ValueError):  # head_dim 32
-        kmo.mono_q8(q[..., :32].contiguous(), QuantKVCache(cache.q[..., :64].contiguous(), cache.s),
+    with pytest.raises(ValueError):  # head_dim 24: not a multiple of 16
+        kmo.mono_q8(q[..., :24].contiguous(), QuantKVCache(cache.q[..., :48].contiguous(), cache.s),
                     layer, bt, ctx, scale, 2)
 
 
@@ -531,3 +535,104 @@ def test_override_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kpa.paged_verify_fresh_split(q, cache, layer, bt, ctx, ctx0, fk, fv, scale, 257)
     with pytest.raises(ValueError):  # b1 of another length
         kpa.paged_decode_split(q, drafted, layer, bt.repeat_interleave(3, 0), ctx, ctx0, scale)
+
+
+FALLBACKS = {  # cache kind -> (decode, verify) wrappers: K10a/K10b, K10c/K10d
+    None: (kfb.paged_decode_fallback, kfb.paged_verify_fallback),
+    "int8": (kfb.paged_decode_fallback_q8, kfb.paged_verify_fallback_q8),
+}
+
+
+def test_fallback_wrappers_take_the_plain_version_on_cpu(monkeypatch):
+    """K10a-d's wrappers: CPU tensors go to K1/K2's plain versions and
+    launch nothing."""
+    returned = []
+    for name in ("plain_decode", "plain_verify"):
+        fn = getattr(kfb, name)
+        monkeypatch.setattr(kfb, name, lambda *a, fn=fn: returned.append(fn(*a)) or returned[-1])
+    counters = [fn for pair in FALLBACKS.values() for fn in pair]
+    before = [fn.launches for fn in counters]
+    for kind, (dec, ver) in FALLBACKS.items():
+        case = q8_case(60, 3, 2, torch.float32, kind, "cpu", hq=4, d=16) if kind else \
+            paged_case(60, 3, 2, torch.float32, "cpu", hq=4, d=16)
+        q, cache, layer, bt, ctx, scale = case
+        assert ver(q, cache, layer, bt, ctx, scale, 2) is returned[-1]
+        assert dec(q, cache, layer, bt.repeat_interleave(2, 0), ctx, scale) is returned[-1]
+    assert len(returned) == 4
+    assert [fn.launches for fn in counters] == before
+
+
+# (Hq, Hkv, D): the tiny HF models' heads (Hkv * D 32), SmolLM2-360M's (320),
+# and the bench pair's (256, aligned: K10 takes it all the same)
+FALLBACK_HEADS = [(4, 2, 16), (15, 5, 64), (8, 2, 128)]
+
+
+@pytest.mark.parametrize("kind", [None, "int8"])
+@pytest.mark.parametrize("bs", [16, 256])
+@pytest.mark.parametrize("heads", FALLBACK_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fallback_matches_plain_and_verify_rows_equal_decode_bitwise(cuda, dtype, heads, bs, kind):
+    """K10b (K10d) against its plain version, and its rows against K10a
+    (K10c) on the same query, table and context, bit for bit."""
+    hq, hkv, d = heads
+    rows, kw = 5, dict(hq=hq, hkv=hkv, d=d, bs=bs, m=16 if bs == 16 else 4, nb=60 if bs == 16 else 16)
+    case = q8_case(61, 4, rows, dtype, kind, cuda, **kw) if kind else paged_case(61, 4, rows, dtype, cuda, **kw)
+    q, cache, layer, bt, ctx, scale = case
+    dec, ver = FALLBACKS[kind]
+    n0 = (dec.launches, ver.launches)
+    grouped = ver(q, cache, layer, bt, ctx, scale, rows)
+    single = dec(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
+    assert (dec.launches, ver.launches) == (n0[0] + 1, n0[1] + 1)
+    want = kfb.plain_verify(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(grouped.float(), want.float(), **TOL[dtype])
+    assert torch.equal(grouped, single)
+
+
+def test_fallback_splits_rows_that_do_not_fit(cuda):
+    """At D 256 in f32 a group of 14 rows x 4 query heads does not fit in
+    one block's shared memory: the rows go to two blocks, with the same
+    bits per row."""
+    q, cache, layer, bt, ctx, scale = paged_case(62, 3, 14, torch.float32, cuda, hq=8, hkv=2, d=256, m=4)
+    grouped = kfb.paged_verify_fallback(q, cache, layer, bt, ctx, scale, 14)
+    want = kfb.plain_verify(q, cache, layer, bt, ctx, scale, 14)
+    torch.testing.assert_close(grouped, want, **TOL[torch.float32])
+    single = kfb.paged_decode_fallback(q, cache, layer, bt.repeat_interleave(14, 0).contiguous(), ctx, scale)
+    assert torch.equal(grouped, single)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(8, 4, 32), (4, 2, 256)])
+def test_fast_kernels_take_head_dims_32_and_256(cuda, dtype, heads):
+    """K1, K2, K5 and K9a/K9b at D 32 and 256 with an aligned Hkv * D (the
+    route's fast shapes): against their plain versions, K2 rows == K1."""
+    hq, hkv, d = heads
+    rows = 6
+    q, cache, layer, bt, ctx, scale = paged_case(63, 3, rows, dtype, cuda, hq=hq, hkv=hkv, d=d, m=8)
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    want = kpa.plain_verify(q, cache, layer, bt, ctx, scale, rows)
+    grouped = kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(grouped.float(), want.float(), **TOL[dtype])
+    assert torch.equal(grouped, kpa.paged_decode(q, cache, layer, bt_rows, ctx, scale))
+    mono = kmo.mono_attention(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(mono.float(), want.float(), **TOL[dtype])
+    q, qc, layer, bt, ctx, scale = q8_case(64, 3, rows, dtype, "int8", cuda, hq=hq, hkv=hkv, d=d, m=8)
+    grouped = kpa.paged_verify_q8(q, qc, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(grouped.float(), kpa.plain_verify(q, qc, layer, bt, ctx, scale, rows).float(),
+                               **TOL[dtype])
+    assert torch.equal(grouped, kpa.paged_decode_q8(q, qc, layer, bt.repeat_interleave(rows, 0).contiguous(),
+                                                    ctx, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(4, 2, 16), (8, 2, 256)])
+def test_prefill_kernels_take_head_dims_16_and_256(cuda, dtype, heads):
+    """K3 and K4 at D 16 and 256 (at 256 the query tile shrinks to fit the
+    block's shared memory) against their plain versions."""
+    hq, hkv, d = heads
+    q, k, v, pos, scale = prefill_case(65, dtype, cuda, hq=hq, hkv=hkv, d=d)
+    got, want = kpf.prefill_self(q, k, v, pos, scale), kpf.plain_prefill(q, k, v, pos, scale)
+    real = (pos >= 0).reshape(-1)
+    torch.testing.assert_close(got[real].float(), want[real].float(), **TOL[dtype])
+    args = prefix_case(66, dtype, cuda, hq=hq, hkv=hkv, d=d)
+    torch.testing.assert_close(kpf.prefill_prefix(*args).float(), kpf.plain_prefix(*args).float(),
+                               **TOL[dtype])
