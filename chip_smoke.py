@@ -32,12 +32,20 @@ script exits non-zero without its last line):
    are not a multiple of 32: SmolLM2-360M's 15x64 heads over 5 KV heads
    over bf16 and int8 caches, 4x16 heads, and the bench pair's heads over
    an int8 cache of 16-key blocks; K10b rows == K10a and K10d == K10c bit
-   for bit), K1, K2, K5, K9b and K3/K4 at head dims 16, 32 and 256, and
+   for bit), K1, K2, K5, K9b and K3/K4 at head dims 16, 32 and 256, K2
+   and K9b at D 256 with 8 query heads per KV head (bf16 and f32: the
+   launchers spread a 14-row group over blocks; K2 rows == K1, K9b ==
+   K9a), the per-shard partials kernels of sequence parallelism K11a-d
+   (decode and packed verify over a bf16 and an int8 cache split into two
+   shards of 260 blocks: each shard's (o, m, l) against the plain version,
+   the merged result against K1/K2/K9a/K9b), and
    kernel / plain / library
    (scaled_dot_product_attention or index_copy_, yardsticks the port
    never calls) times from CUDA events with the L2 cache flushed before
    each launch; split_bitwise: K8b's rows against K8a's bit for bit
    (windows inside a 256-key chunk and across one, num_input 1, ctx0 0);
+   sp_bitwise: K11c's rows against K11a's, K11d's against K11b's, bit for
+   bit per shard and after the merge;
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
@@ -53,6 +61,11 @@ script exits non-zero without its last line):
    split_exactness, deferred_db_exactness, fresh_kernel_exactness: the
    ceiling check under NANO_PEARL_SPLIT=1 and NANO_PEARL_DEFERRED_VERIFY=1,
    the throughput check under NANO_PEARL_FRESH_MODE=kernel;
+   sp_exactness (after sp_exactness_unsharded): the f32 pair with
+   draft_sp = target_sp = 2, both shards on the one card, 321-token
+   sequences over 9-block pools so that contexts span both shards: PEARL
+   == AR and == the unsharded stream, over a bf16 and an int8 cache, with
+   only K3 and K11a/K11c (K11b/K11d) launched;
    checkpoint_exactness: tiny llama, tied llama, qwen2 and qwen3 HF
    checkpoint directories (head dim 16) written by this script, loaded
    through PearlConfig(draft_model=dir, target_model=dir): weights equal
@@ -81,14 +94,19 @@ script exits non-zero without its last line):
    loaded by the engine, the bench's run over a bf16 and an int8 cache
    (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 145
    rounds, AR over the first third of the window;
+   sp_path: the main path with draft_sp = target_sp = 2 (the shards share
+   the one card; K3, K11a, K11c, MAT 14 asserted), 145 rounds, AR over the
+   first third of the window; sp_quant_path: the same over an int8 cache
+   with int8 weights (K11b, K11d), 73 rounds, AR over a sixth;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
 Each path (main path, throughput path, the two quantized paths, the
-three override paths, the two checkpoint paths, serving) sets every launch
-counter to 0 just before it and reads them just after. Then one
+three override paths, the two checkpoint paths, the two sp paths,
+serving) sets every launch counter to 0 just before it and reads them
+just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -155,12 +173,13 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ kernels
 
 
-def paged_inputs(gen, dev, n_tables, rows, ctx0, nl=3, nb=520, bs=256, hq=8, hkv=2, d=128, m=16):
+def paged_inputs(gen, dev, n_tables, rows, ctx0, nl=3, nb=520, bs=256, hq=8, hkv=2, d=128, m=16,
+                 dtype=torch.bfloat16):
     """A cache of the draft's shape, distinct pages per sequence as the
     block manager hands them out, garbage-block padding of the tables,
     and per-row contexts (staircase when rows > 1)."""
-    cache = torch.randn((nl, 2, nb + 1, bs, hkv * d), generator=gen, device=dev).to(torch.bfloat16)
-    q = torch.randn((n_tables * rows, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    cache = torch.randn((nl, 2, nb + 1, bs, hkv * d), generator=gen, device=dev).to(dtype)
+    q = torch.randn((n_tables * rows, hq, d), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     bt = torch.full((n_tables, m), nb, dtype=torch.int32, device=dev)
     ctx = torch.empty((n_tables, rows), dtype=torch.int32, device=dev)
@@ -194,9 +213,10 @@ def lib_yardstick(fn, layout, want, real=None):
     return fn
 
 
-def grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale):
+def grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale, key_mask=None):
     """One SDPA call over each group's gathered K/V with an explicit mask
-    (``rows`` query rows per group), and the layout back to [N, Hq, D]."""
+    (``rows`` query rows per group; ``key_mask`` [groups, S]: only these
+    keys, as one shard's), and the layout back to [N, Hq, D]."""
     import torch.nn.functional as F
 
     groups = bt.shape[0]
@@ -205,6 +225,8 @@ def grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale):
     qg = q.reshape(groups, rows, hq, d).transpose(1, 2)
     cr = ctx.reshape(groups, rows)
     mask = (torch.arange(k.shape[2], device=q.device)[None, None, :] < cr[:, :, None])[:, None]
+    if key_mask is not None:
+        mask = mask & key_mask[:, None, None, :]
     return (lambda: F.scaled_dot_product_attention(qg, k, v, attn_mask=mask, scale=scale),
             lambda o: o.transpose(1, 2).reshape(-1, hq, d))
 
@@ -234,13 +256,15 @@ def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> di
     )
 
 
-def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
+def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1, dtype=torch.bfloat16) -> dict:
     """K2 on one verify chunk: a group of ``rows`` staircase rows per
-    context in ``ctx0``; its rows must equal K1's bit for bit."""
+    context in ``ctx0``; its rows must equal K1's bit for bit. Where the
+    group's query vectors do not fit one block's shared memory (D 256 at 8
+    query heads per KV head) the launcher spreads its rows over blocks."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     groups = len(ctx0)
-    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d)
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d, dtype=dtype)
     args = (q, cache, layer, bt, ctx, scale, rows)
     got, want = kpa.paged_verify(*args), kpa.plain_verify(*args)
     torch.cuda.synchronize()
@@ -251,10 +275,15 @@ def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict
         raise AssertionError(f"{name}: K2 rows differ from K1 on the same query and context")
     lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale), want)
     kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
-    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * 2
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * es
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
+    rpb = kpa.rows_per_block(rows, hq // hkv, d, es)
+    if rpb != kpa._lib().npt_rows_per_block(rows, hq // hkv, d, int(es == 2), 0, 64):
+        raise AssertionError(f"{name}: the launchers' rows per block differ from rows_per_block's {rpb}")
     return dict(
         name=name, kernel="paged_verify", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
+        dtype=str(dtype).removeprefix("torch."), rows_per_block=rpb,
         replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:510",
         max_abs_err=err, ms=time_ms(lambda: kpa.paged_verify(*args), 50, flush),
         plain_ms=time_ms(lambda: kpa.plain_verify(*args), 10, flush),
@@ -651,6 +680,18 @@ def kernel_phase(dev, flush) -> list[dict]:
         # every head dim the kernels take: K1, K2, K5 and K9b at D 16, 32 and
         # 256 with an aligned Hkv*D (the fast route); K3 at D 16, 32 and 256
         # (K4's in prefix_kernel_rows)
+        # sequence parallelism: K11a-d on two 260-block shards of one cache,
+        # at the sp path's B=32 decode and a verify chunk of 16 groups x 14 rows
+        partials_row(gen, dev, flush, "paged_decode_partials", spread(32, 2300, 0), 1),
+        partials_row(gen, dev, flush, "paged_verify_partials", spread(16, 2300, 1), 14),
+        partials_row(gen, dev, flush, "paged_decode_partials_q8", spread(32, 2300, 0), 1, "int8"),
+        partials_row(gen, dev, flush, "paged_verify_partials_q8", spread(16, 2300, 1), 14, "int8"),
+        # D 256 at 8 query heads per KV head: a 14-row group spread over
+        # blocks (7 rows in bf16, 4 in f32), K2 rows == K1 and K9b == K9a
+        verify_row(gen, dev, flush, "paged_verify_d256_g8", spread(16, 2300, 1), 14, hq=16, d=256),
+        verify_row(gen, dev, flush, "paged_verify_d256_g8_f32", spread(16, 2300, 1), 14, hq=16, d=256,
+                   dtype=torch.float32),
+        q8_row(gen, dev, flush, "paged_verify_q8_d256_g8", "int8", spread(16, 2300, 1), 14, hq=16, d=256),
         *(r for d, hq, hkv in ((16, 16, 8), (32, 16, 4), (256, 8, 2)) for r in (
             decode_row(gen, dev, flush, f"paged_decode_d{d}", spread(32, 2300, 0), hq=hq, d=d, hkv=hkv),
             verify_row(gen, dev, flush, f"paged_verify_d{d}", spread(16, 2300, 1), 14, hq=hq, d=d, hkv=hkv),
@@ -781,6 +822,127 @@ def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, l
     )
 
 
+PARTIALS_KERNELS = {  # K11a-d's wrappers -> the TPU kernel body each replaces
+    "paged_decode_partials": "nano_pearl_tpu/ops/pallas/paged_attention.py:1251",
+    "paged_decode_partials_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:1282",
+    "paged_verify_partials": "nano_pearl_tpu/ops/pallas/paged_attention.py:1314",
+    "paged_verify_partials_q8": "nano_pearl_tpu/ops/pallas/paged_attention.py:1348",
+}
+
+
+def sp_inputs(gen, dev, groups, rows, ctx0, kind=None):
+    """``paged_inputs`` over one cache of 520 blocks (519 and the garbage
+    block; ``kind`` "int8": quantized as ``write_kv`` stores it) and the
+    same cache split into two shards of 260 blocks; the tables draw pages
+    from both shards. Returns (q, whole cache, ShardedKVCache, tables,
+    contexts, scale)."""
+    from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, ShardedKVCache, _quantize_rows
+
+    q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, nb=519)
+    if kind:
+        hkv, d = cache.shape[-1] // q.shape[-1], q.shape[-1]
+        values, scales = _quantize_rows(cache.view(-1, hkv, d), torch.int8)
+        cache = QuantKVCache(values.view(cache.shape), scales.view(cache.shape[:-1] + (hkv,)))
+        shards = tuple(QuantKVCache(cache.q[:, :, i * 260 : (i + 1) * 260].contiguous(),
+                                    cache.s[:, :, i * 260 : (i + 1) * 260].contiguous()) for i in range(2))
+    else:
+        shards = tuple(cache[:, :, i * 260 : (i + 1) * 260].contiguous() for i in range(2))
+    return q, cache, ShardedKVCache(shards, ()), bt, ctx, scale
+
+
+def partials_row(gen, dev, flush, name, ctx0, rows, kind=None, layer=1, hq=8, hkv=2, d=128) -> dict:
+    """K11a (``rows`` 1, one row per context) or K11c, or over an int8
+    cache K11b / K11d, on each of two 260-block shards of one cache: (o, m,
+    l) of every shard against the plain version (o at TOL, m and l at
+    1e-4); the shards' partials merged (``parallel/sp.merge_partials``)
+    against K1 / K2 (K9a / K9b) over the whole cache at TOL. Times, the
+    bound and the yardstick are shard 0's: the bound counts the shard's
+    local K/V of each group's context once (1-byte values and 2 scale bytes
+    per slot and KV head over int8), q, o, m and l; the yardstick is SDPA
+    over the shard's gathered rows masked to its local visible keys, o
+    only (rows with no such key left out)."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
+    from nano_pearl_tpu_torch.parallel import sp as tsp
+
+    q8 = "_q8" if kind else ""
+    kind_name = "verify" if rows > 1 else "decode"
+    kernel = f"paged_{kind_name}_partials{q8}"
+    fn, plain = getattr(kpp, kernel), (kpp.plain_verify if rows > 1 else kpp.plain_decode)
+    whole = getattr(kpa, f"paged_{kind_name}{q8}")
+    extra = (rows,) if rows > 1 else ()
+    groups = len(ctx0)
+    q, cache, sharded, bt, ctx, scale = sp_inputs(gen, dev, groups, rows, ctx0, kind)
+    tables = tsp.shard_tables(bt, sharded)
+    parts, errs, plains = [], [], []
+    for shard, (local, is_local) in zip(sharded.shards, tables):
+        args = (q, shard, layer, local, ctx, is_local, scale) + extra
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0].float(), want[0].float(), **TOL)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        errs.append((got[0].float() - want[0].float()).abs().max().item())
+        parts.append(got)
+        plains.append(want)
+    merged = tsp.merge_partials(parts, q.dtype)
+    ref = whole(q, cache, layer, bt, ctx, scale, *extra)
+    torch.testing.assert_close(merged.float(), ref.float(), **TOL)
+    shard0, (local0, is_local0) = sharded.shards[0], tables[0]
+    args0 = (q, shard0, layer, local0, ctx, is_local0, scale) + extra
+    bs, m = 256, bt.shape[1]
+    key_mask = is_local0.bool().repeat_interleave(bs, dim=1)
+    real = (plains[0][2] > 0).all(dim=1)
+    lib = lib_yardstick(*grouped_sdpa(q, shard0, layer, local0, ctx, rows, hq, hkv, d, scale, key_mask),
+                        plains[0][0], real)
+    starts = torch.arange(m, device=dev) * bs
+    ctx_g = ctx.reshape(groups, rows)
+    kv_tokens = float(((ctx_g.max(dim=1).values[:, None] - starts).clamp(0, bs) * is_local0).sum())
+    seen = float(((ctx_g[:, :, None] - starts).clamp(0, bs) * is_local0[:, None, :]).sum())
+    per_token = 2 * hkv * (d + 2) if kind else 2 * hkv * d * 2
+    nbytes = 2 * q.numel() * 2 + 2 * q.shape[0] * hq * 4 + 2 * bt.numel() * 4 + ctx.numel() * 4 \
+        + kv_tokens * per_token
+    b_ms, b_by = bound(nbytes, 4 * seen * hq * d)
+    return dict(
+        name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention_partials.cu",
+        replaces=PARTIALS_KERNELS[kernel], cache=kind or "bf16",
+        max_abs_err=max(errs), merged_max_abs_err=(merged.float() - ref.float()).abs().max().item(),
+        merged_against=whole.__name__,
+        ms=time_ms(lambda: fn(*args0), 50, flush), plain_ms=time_ms(lambda: plain(*args0), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        library="SDPA over shard 0's gathered (dequantized) rows, masked to its local visible keys, o only",
+        timed="shard 0 of 2 (260 of 520 blocks)", shard0_local_kv_tokens=kv_tokens,
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, block=bs, ctx_min=int(ctx.min()),
+                   ctx_max=int(ctx.max())),
+    )
+
+
+def sp_bitwise_phase(dev, rows=14, layer=1) -> None:
+    """After the merge, K11c rows equal K11a rows (K11d's K11b's) bit for
+    bit: a verify chunk of 16 groups x 14 rows over two shards against the
+    decode of each row with its group's table, bf16, for the bf16 and the
+    int8 cache; each shard's (o, m, l) equal too."""
+    from nano_pearl_tpu_torch.parallel import sp as tsp
+
+    gen = torch.Generator(dev).manual_seed(7)
+    ctx0 = np.random.default_rng(8).permutation(np.linspace(65, 2300, 16).astype(int))
+    for kind in (None, "int8"):
+        q, _, sharded, bt, ctx, scale = sp_inputs(gen, dev, 16, rows, ctx0, kind)
+        bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+        tables, tables_rows = tsp.shard_tables(bt, sharded), tsp.shard_tables(bt_rows, sharded)
+        for shard, (lg, ig), (lr, ir) in zip(sharded.shards, tables, tables_rows):
+            grouped = tsp.partials_kernel("verify", shard)(q, shard, layer, lg, ctx, ig, scale, rows)
+            single = tsp.partials_kernel("decode", shard)(q, shard, layer, lr, ctx, ir, scale)
+            if not all(torch.equal(a, b) for a, b in zip(grouped, single)):
+                raise AssertionError(f"sp_bitwise ({kind or 'bf16'}): a shard's verify partials differ from decode's")
+        grouped = tsp.sp_paged_attention_grouped(q, sharded, layer, bt, ctx, scale, rows)
+        single = tsp.sp_paged_attention(q, sharded, layer, bt_rows, ctx, scale)
+        if not torch.equal(grouped, single):
+            raise AssertionError(f"sp_bitwise ({kind or 'bf16'}): merged verify rows differ from merged decode")
+    emit({"phase": "sp_bitwise", "k11c_rows_equal_k11a": True, "k11d_rows_equal_k11b": True,
+          "shape": "16 groups x 14 rows, 8x128 q heads over 2 KV heads, 2 shards of 260 blocks of 256, bf16 q"})
+
+
 def prefix_inputs(gen, dev, b, n_cached, lq, n_new, hq, hkv, d, nl=3, nb=64, bs=256):
     """K4's arguments: a random bf16 cache, each sequence's prefix on its
     own pages (the table padded with the garbage block to a power of two,
@@ -891,12 +1053,14 @@ def overrides(env: dict | None):
 
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
-                kv_quant=None, quant=None, env=None, dirs=None):
+                kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
     models); ``env``: schedule overrides set around the construction;
     ``dirs``: (draft, target) HF checkpoint directories the engine loads,
-    in place of the bench's layer-share pair."""
+    in place of the bench's layer-share pair; ``sp``: draft_sp = target_sp
+    (sequence parallelism, the shards sharing the one card); ``num_blocks``:
+    the pools' blocks, in place of the bench's count."""
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
@@ -909,9 +1073,10 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
     cfg = PearlConfig(
         draft_model=md, target_model=mt, max_model_len=max_len,
         max_num_batched_tokens=max(16384, batch * prompt_len), kvcache_block_size=256,
-        num_kvcache_blocks=batch * (max_len // 256) + 8, gamma=gamma,
+        num_kvcache_blocks=num_blocks or batch * (max_len // 256) + 8, gamma=gamma,
         max_num_seqs=max(batch, 8), seed=0, dtype=dtype, perf_profile=profile,
         draft_kv_quant=kv_quant, target_kv_quant=kv_quant, draft_quant=quant, target_quant=quant,
+        draft_sp=sp, target_sp=sp,
     )
     with overrides(env):
         return PearlEngine(cfg, dp, tp, device=dev)
@@ -1206,14 +1371,20 @@ def override_launch_check(phase, env, counters, before, ran) -> dict:
     return launches
 
 
-def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=()) -> None:
+def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=(), sp=1,
+                    unsharded=None, windows: int = 16, num_blocks=None) -> list:
     """f32 layer-share pair: the PEARL stream must equal the AR stream
     (``kv_quant`` / ``quant``: over a quantized cache / weights; ``env``:
-    under schedule overrides, whose kernels ``ran`` must have launched)."""
+    under schedule overrides, whose kernels ``ran`` must have launched;
+    ``windows`` accepted windows per request; ``num_blocks``: the pools'
+    blocks). With ``sp`` > 1 (draft_sp = target_sp, the shards on the one
+    card) the stream must also equal ``unsharded``, the same run's stream
+    without sp, and exactly the sp kernels (``sp_kernels``) must have
+    launched. Returns the PEARL stream."""
     batch, gamma, prompt_len = 4, 4, 64
-    max_tokens = 1 + 16 * gamma  # a whole number of accepted windows
-    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, kv_quant=kv_quant, quant=quant,
-                         env=env)
+    max_tokens = 1 + windows * gamma  # a whole number of accepted windows
+    engine = pair_engine(2, 6, "float32", batch, gamma, windows, prompt_len, dev, kv_quant=kv_quant,
+                         quant=quant, env=env, sp=sp, num_blocks=num_blocks)
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -1226,14 +1397,45 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
             for j in range(min(len(p), len(a)) + 1) if p[:j + 1] != a[:j + 1]
         )
         raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) {first}")
-    q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
+    extra = {}
+    if sp > 1:
+        if pearl != unsharded:
+            raise AssertionError(f"{phase}: the sp stream differs from the unsharded stream")
+        launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+        check_launches(phase, launches, *sp_kernels(kv_quant))
+        extra = {"equals_unsharded_stream": True, "launches": {k: n for k, n in launches.items() if n},
+                 "kv_shards": sp}
+    else:
+        q8 = quant_launch_check(engine, phase, quant, kv_quant, before, counters)
+        extra = {"k9_launches": q8} if kv_quant else {}
     ov = override_launch_check(phase, env, counters, before, ran)
     emit({"phase": phase, "pearl_equals_ar": True, "tokens": n_pearl,
-          "accepted_tokens": [sum(a) for a in acc],
-          **({"k9_launches": q8} if kv_quant else {}), **({"env": env, "launches": ov} if env else {}),
-          "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)})
+          "accepted_tokens": [sum(a) for a in acc], **extra,
+          **({"env": env, "launches": ov} if env else {}),
+          "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)
+                    + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "")})
     del engine
     torch.cuda.empty_cache()
+    return pearl
+
+
+def sp_exactness_phase(dev, kv_quant=None, quant=None) -> None:
+    """f32 PEARL == AR under draft_sp = target_sp = 2, and the stream equal
+    to the same run's without sp. 321-token sequences (2 blocks of 256)
+    over pools of 9 blocks (5 per shard with the garbage block): each
+    sequence's page 0 lies in shard 0 and its page 1 in shard 1 (the block
+    manager stripes pages over the shards), so every context spans both."""
+    kw = dict(kv_quant=kv_quant, quant=quant, windows=64, num_blocks=9)
+    unsharded = exactness_phase(dev, phase="sp_exactness_unsharded", **kw)
+    exactness_phase(dev, phase="sp_exactness", sp=2, unsharded=unsharded, **kw)
+
+
+def sp_kernels(kv_quant=None) -> tuple[tuple, tuple]:
+    """(kernels an sp run launches, kernels it must not): prefill K3, decode
+    K11a and verify K11c (K11b / K11d over a 1-byte cache); nothing else."""
+    q8 = "_q8" if kv_quant else ""
+    ran = ("prefill_self", f"paged_decode_partials{q8}", f"paged_verify_partials{q8}")
+    return ran, tuple(k for k in kernel_counters() if k not in ran)
 
 
 def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, quant=None,
@@ -1278,7 +1480,7 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
 
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
               ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
-              label: str | None = None) -> tuple[dict, dict]:
+              label: str | None = None, sp: int = 1) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
@@ -1290,8 +1492,9 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     window only (the quantized paths, to keep the script inside its time
     limit). ``dirs``: the (draft, target) checkpoint directories to load in
     place of the layer-share pair (``label`` its description, ``vocab`` its
-    vocabulary). The launch counters are set to 0 just before the measured
-    runs. Returns (the phase's line without its name, launches)."""
+    vocabulary). ``sp``: draft_sp = target_sp. The launch counters are set
+    to 0 just before the measured runs. Returns (the phase's line without
+    its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
     counters = kernel_counters()
@@ -1300,10 +1503,15 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant, env, dirs)
+                         kv_quant, quant, env, dirs, sp)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
+    shards = {}
+    if sp > 1:  # each pool's shards: their blocks and bytes (sink rows included)
+        shards = {"kv_shards": sp, "kv_blocks_per_shard": engine.target.kv.nb1_local,
+                  "kv_pool_bytes_per_shard": {r.name: [cache_nbytes(f) for f in r.kv.flats]
+                                              for r in (engine.draft, engine.target)}}
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
     add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens, vocab)
     engine.bench_generate(num_pearl_steps=2, reserve_steps=steps)
@@ -1341,13 +1549,14 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     pair = label or "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, vocab 32768"
     out = {
         "config": f"{pair}, B=32, gamma=14, prompt 64, greedy, {profile} profile"
-                  + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant),
+                  + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant)
+                  + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else ""),
         **({"env": env, "schedule": schedule} if env else {}),
         "pearl_rounds": steps, "pearl_tok_s": pearl_tps, "mat": mat, "pearl_s": pearl_t,
         "round_ms": pearl_t / steps * 1e3, "engine_build_s": build_s,
         "launches": launches, "launches_pearl_run": pearl_launches,
         "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
-        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes,
+        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes, **shards,
     }
     if ar_of is not None:
         out.update(ar_of=ar_of[0], ar_tok_s=ar_of[1], speedup=pearl_tps / ar_of[1])
@@ -1463,6 +1672,24 @@ def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 1
     check_launches(path, launches, ran, not_ran)
     if path == "split_path" and out["mat"] != 14:
         raise AssertionError(f"split_path MAT {out['mat']} below the layer-share ceiling 14")
+    return launches
+
+
+def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 145, ar_cut: int = 3) -> dict:
+    """The main path's run with draft_sp = target_sp = 2 (PearlConfig; the
+    two shards of each pool share the one card): decode through K11a, the
+    classic packed verify through K11c, both merged over the shards,
+    prefill K3 (K11b / K11d over ``kv_quant``, with ``quant`` weights:
+    ``sp_quant_path``); MAT at the layer-share ceiling (K11c rows equal
+    K11a's after the merge); AR over the first 1 / ``ar_cut`` of the
+    window. Prints PEARL and AR tok/s, the pools' bytes per shard and the
+    launches."""
+    phase = "sp_quant_path" if kv_quant else "sp_path"
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, quant=quant, ar_cut=ar_cut, sp=2)
+    emit({"phase": phase, **out})
+    check_launches(phase, launches, *sp_kernels(kv_quant))
+    if out["mat"] != 14:
+        raise AssertionError(f"{phase} MAT {out['mat']} below the layer-share ceiling 14")
     return launches
 
 
@@ -1650,6 +1877,7 @@ def kernel_counters() -> dict:
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
     from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
     from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
     return {"paged_decode": kpa.paged_decode, "paged_verify": kpa.paged_verify,
@@ -1657,7 +1885,8 @@ def kernel_counters() -> dict:
             "mono_attention": kmo.mono_attention, "cache_partials": kmo.cache_partials,
             "write_fresh": kkw.write_fresh_kernel, "paged_decode_q8": kpa.paged_decode_q8,
             "paged_verify_q8": kpa.paged_verify_q8, "mono_q8": kmo.mono_q8, **override_kernel_fns(),
-            **{name: getattr(kfb, name) for name in FALLBACK_KERNELS}}
+            **{name: getattr(kfb, name) for name in FALLBACK_KERNELS},
+            **{name: getattr(kpp, name) for name in PARTIALS_KERNELS}}
 
 
 def serve_args(*extra: str):
@@ -1908,6 +2137,9 @@ def main() -> int:
     exactness_phase(dev)
     throughput_exactness_phase(dev)
     exactness_phase(dev, kv_quant="int8", quant="int8", phase="quant_exactness")
+    sp_bitwise_phase(dev)
+    sp_exactness_phase(dev)
+    sp_exactness_phase(dev, kv_quant="int8", quant="int8")
     throughput_exactness_phase(dev, kv_quant="fp8", quant="fp8", phase="quant_exactness")
     exactness_phase(dev, phase="split_exactness", env=OVERRIDE_PATHS["split_path"][2],
                     ran=("paged_decode_split", "paged_verify_fresh_split"))
@@ -1929,6 +2161,8 @@ def main() -> int:
     by_path["checkpoint_path"] = checkpoint_path_phase(dev, dirs, write_s)
     by_path["checkpoint_quant_path"] = checkpoint_path_phase(dev, dirs, write_s, kv_quant="int8")
     checkpoints.cleanup()
+    by_path["sp_path"] = sp_path_phase(dev)
+    by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8", steps=73, ar_cut=6)
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

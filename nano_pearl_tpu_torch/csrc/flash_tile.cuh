@@ -109,6 +109,20 @@ __host__ __device__ inline size_t flash_smem_bytes(int nq, int d, size_t extra, 
          sizeof(float) * (2 * (size_t)nq * d + (size_t)nq * tile + 3 * (size_t)nq) + extra;
 }
 
+// Rows of a group one block folds: all `rows`, halved (rounding up) while
+// their query vectors (g each), one int per row and `fixed` bytes more do
+// not fit in one block's shared memory. Rows are independent (the tile
+// update is row-independent, flash_tile_update), so spreading a group's
+// rows over several blocks changes no bit of any row. Mirrored by
+// ops/cuda/paged_attention.py rows_per_block.
+template <typename T>
+inline int flash_rows_per_block(int rows, int g, int d, size_t fixed = 0, int tile = kTile) {
+  auto smem = [&](int r) { return flash_smem_bytes<T>(r * g, d, sizeof(int) * r + fixed, tile); };
+  int rpb = rows;
+  while (rpb > 1 && smem(rpb) > (size_t)kMaxSmem) rpb = (rpb + 1) / 2;
+  return rpb;
+}
+
 // Carve the dynamic shared memory for tiles of kT keys; returns the first
 // byte after it.
 template <int kT = kTile, typename T>

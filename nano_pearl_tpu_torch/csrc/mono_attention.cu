@@ -105,7 +105,10 @@ __device__ void chunk_prefix(const int* ctx, const int* ctx0, int groups, int ro
 // kPartial: also m_out, l_out [groups * rows, hq] f32. part_acc [pairs,
 // hkv, rows * G, d] and part_ml [pairs, hkv, rows * G, 2] f32 scratch with
 // pairs = groups * max_chunks (groups * (max_chunks + 1) with kFresh);
-// counters [groups * hkv], zero on entry and on exit.
+// counters [groups * hkv * slices], zero on entry and on exit. An item
+// folds the rows [r0, r0 + rpb) of its group (slice r0 / rpb): all of
+// them unless their query vectors do not fit in shared memory
+// (flash_rows_per_block); each slice has its own arrival counter.
 // S is the cache's storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
 // kFresh (K6b): ctx0 [groups] pre-round contexts and fk / fv [groups * rows,
 // hkv * d] fresh rows (row t of group g at position ctx0[g] + t); the cache
@@ -116,36 +119,41 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
             const __nv_bfloat16* __restrict__ scales, const int* __restrict__ bt,
             const int* __restrict__ ctx, T* __restrict__ out, float* __restrict__ m_out,
             float* __restrict__ l_out, float* part_acc, float* part_ml, int* counters,
-            int groups, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
+            int groups, int rows, int rpb, int m, int hq, int hkv, int d, int bs, long long k_off,
             long long v_off, float scale, int max_chunks, const int* __restrict__ ctx0,
             const T* __restrict__ fk, const T* __restrict__ fv) {
-  const int tid = threadIdx.x, g_heads = hq / hkv, nq = rows * g_heads, hd = hkv * d;
+  const int tid = threadIdx.x, g_heads = hq / hkv, hd = hkv * d;
+  const int slices = (rows + rpb - 1) / rpb, nq_grp = rows * g_heads;
   Flash<T> f;
-  int* ctx_s = reinterpret_cast<int*>(flash_carve(f, nq, d));  // [rows]
-  int* cum = ctx_s + rows;                                      // [groups + 1]
+  int* ctx_s = reinterpret_cast<int*>(flash_carve(f, rpb * g_heads, d));  // [rpb]
+  int* cum = ctx_s + rpb;                                                 // [groups + 1]
   __shared__ int s_last;
 
   chunk_prefix(ctx, kFresh ? ctx0 : nullptr, groups, rows, max_chunks, cum);
-  const int total = cum[groups] * hkv;
+  const int total = cum[groups] * hkv * slices;
 
   for (int item = blockIdx.x; item < total; item += gridDim.x) {
-    const int p = item / hkv, kh = item - p * hkv;
+    const int p = item / (hkv * slices), hs = item - p * hkv * slices;
+    const int kh = hs / slices, sl = hs - kh * slices, r0 = sl * rpb;
+    const int nr = min(rpb, rows - r0), nq = nr * g_heads;
+    f.nq = nq;  // the carve's layout is for rpb rows; this slice uses nr of them
     int lo = 0, hi = groups - 1;  // the last group with cum[g] <= p
     while (lo < hi) {
       const int mid = (lo + hi + 1) >> 1;
       if (cum[mid] <= p) lo = mid; else hi = mid - 1;
     }
     const int grp = lo, ci = p - cum[grp], nch = cum[grp + 1] - cum[grp];
-    for (int r = tid; r < rows; r += blockDim.x) ctx_s[r] = ctx[grp * rows + r];
+    const long long row0 = (long long)grp * rows + r0;
+    for (int r = tid; r < nr; r += blockDim.x) ctx_s[r] = ctx[row0 + r];
     for (int idx = tid; idx < nq * d; idx += blockDim.x) {
       const int qi = idx / d, c = idx - qi * d;
-      const long long row = (long long)grp * rows + qi / g_heads;
+      const long long row = row0 + qi / g_heads;
       f.qs[idx] = to_f32(q[(row * hq + kh * g_heads + qi % g_heads) * d + c]);
     }
     flash_init_stats(f);
     __syncthreads();
     int ctx_max = 0;
-    for (int r = 0; r < rows; ++r) ctx_max = max(ctx_max, ctx_s[r]);
+    for (int r = 0; r < nr; ++r) ctx_max = max(ctx_max, ctx_s[r]);
     // the item's keys [c_lo, c_hi): a key chunk (K6b: of the cache below
     // ctx0), or K6b's fresh window [ctx0, ctx0 + rows), its tiles from ctx0
     const int c0g = kFresh ? ctx0[grp] : 0;
@@ -171,7 +179,7 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
     if (nch == 1) {  // the group's only chunk: write the result directly
       for (int idx = tid; idx < nq * d; idx += blockDim.x) {
         const int qi = idx / d, c = idx - qi * d;
-        const long long slot = ((long long)grp * rows + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
+        const long long slot = (row0 + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
         out[slot * d + c] = flash_out(f, idx);
         if (kPartial && c == 0) {
           m_out[slot] = f.m[qi];
@@ -179,7 +187,7 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
         }
       }
     } else {
-      const long long base = ((long long)p * hkv + kh) * nq;
+      const long long base = ((long long)p * hkv + kh) * nq_grp + (long long)r0 * g_heads;
       for (int idx = tid; idx < nq * d; idx += blockDim.x) {
         const int qi = idx / d, c = idx - qi * d;
         part_acc[(base + qi) * d + c] = f.acc[idx];
@@ -190,7 +198,8 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
       }
       __threadfence();  // this block's partials are visible before its arrival
       __syncthreads();
-      if (tid == 0) s_last = atomicAdd(counters + grp * hkv + kh, 1) == nch - 1;
+      int* counter = counters + ((long long)grp * hkv + kh) * slices + sl;
+      if (tid == 0) s_last = atomicAdd(counter, 1) == nch - 1;
       __syncthreads();
       if (s_last) {
         __threadfence();
@@ -198,23 +207,24 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
         for (int idx = tid; idx < nq * d; idx += blockDim.x) {
           const int qi = idx / d, c = idx - qi * d;
           float mg = kMFloor;
+          const long long qg = (long long)r0 * g_heads + qi;  // the group's query vector
           for (int ch = 0; ch < nch; ++ch)
-            mg = fmaxf(mg, __ldcg(part_ml + (((first + ch) * hkv + kh) * nq + qi) * 2));
+            mg = fmaxf(mg, __ldcg(part_ml + (((first + ch) * hkv + kh) * nq_grp + qg) * 2));
           float l = 0.f, a = 0.f;
           for (int ch = 0; ch < nch; ++ch) {
-            const long long at = ((first + ch) * hkv + kh) * nq + qi;
+            const long long at = ((first + ch) * hkv + kh) * nq_grp + qg;
             const float w = expf(__ldcg(part_ml + at * 2) - mg);
             l = fmaf(__ldcg(part_ml + at * 2 + 1), w, l);
             a = fmaf(__ldcg(part_acc + at * d + c), w, a);
           }
-          const long long slot = ((long long)grp * rows + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
+          const long long slot = (row0 + qi / g_heads) * hq + kh * g_heads + qi % g_heads;
           out[slot * d + c] = from_f32<T>(a / fmaxf(l, 1e-30f));
           if (kPartial && c == 0) {
             m_out[slot] = mg;
             l_out[slot] = l;
           }
         }
-        if (tid == 0) counters[grp * hkv + kh] = 0;
+        if (tid == 0) *counter = 0;
       }
     }
     __syncthreads();  // shared memory is reused by the next item
@@ -230,8 +240,9 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
                    const int* ctx0 = nullptr, const void* fk = nullptr,
                    const void* fv = nullptr) {
   auto kernel = mono_kernel<T, S, kPartial, kFresh>;
-  const size_t smem =
-      flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * ((size_t)rows + groups + 1));
+  const int g = hq / hkv, fixed = sizeof(int) * (groups + 1);
+  const int rpb = flash_rows_per_block<T>(rows, g, d, fixed);
+  const size_t smem = flash_smem_bytes<T>(rpb * g, d, sizeof(int) * rpb + fixed);
   cudaError_t err = flash_set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -241,14 +252,15 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long most = (long long)groups * (max_chunks + kFresh) * hkv;  // items, at most
+  const long long slices = (rows + rpb - 1) / rpb;
+  const long long most = (long long)groups * (max_chunks + kFresh) * hkv * slices;  // items, at most
   const long long resident = (long long)sms * per_sm;
   const int grid = (int)(most < resident ? most : resident);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const S*>(cache),
       static_cast<const __nv_bfloat16*>(scales), bt, ctx, static_cast<T*>(out),
-      m_out, l_out, part_acc, part_ml, counters, groups, rows, m, hq, hkv, d, bs, k_off, v_off,
-      scale, max_chunks, ctx0, static_cast<const T*>(fk), static_cast<const T*>(fv));
+      m_out, l_out, part_acc, part_ml, counters, groups, rows, rpb, m, hq, hkv, d, bs, k_off,
+      v_off, scale, max_chunks, ctx0, static_cast<const T*>(fk), static_cast<const T*>(fv));
   return cudaGetLastError();
 }
 
@@ -293,7 +305,7 @@ int npt_mono_chunk_tokens() { return npt::kMonoChunk; }
 // K5. q, out [b * rows, hq, d]; bt [b, m]; ctx [b * rows], each >= 1;
 // part_acc [b * max_chunks, hkv, rows * hq / hkv, d] and part_ml [..., 2]
 // f32 scratch, max_chunks = ceil(m * bs / npt_mono_chunk_tokens());
-// counters [b * hkv] int32, zero. Returns cudaGetLastError().
+// counters [b * hkv * rows] int32, zero. Returns cudaGetLastError().
 int npt_mono_attention(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
                        float* part_acc, float* part_ml, int* counters, int b, int rows, int m,
                        int hq, int hkv, int d, int bs, long long k_off, long long v_off,

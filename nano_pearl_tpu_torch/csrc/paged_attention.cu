@@ -19,6 +19,10 @@
 //    query vectors (G = Hq / Hkv) of the sequence with flash_tile_update,
 //    writing one (acc, m, l) partial per row, head and chunk. A chunk
 //    that starts at or past every row's context does nothing.
+//    Where a group's R * G query vectors do not fit in one block's shared
+//    memory (D 256 at large R * G), its rows are spread over several
+//    blocks (flash_rows_per_block), each folding the same tiles into its
+//    own rows: no bit of a row changes.
 // 2. combine, one block per row: folds the row's partials of chunks
 //    0 .. ceil(ctx / kChunk) - 1 in order and rounds once to the output
 //    type.
@@ -64,34 +68,39 @@ namespace npt {
 
 constexpr int kChunk = 256;  // key positions per partial (4 tiles)
 
-// Partials of one (sequence, KV head, chunk). part_acc [rows_total, Hq,
-// n_chunks, D] and part_ml [rows_total, Hq, n_chunks, 2] (m, l), f32. S is
-// the cache's storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
+// Partials of one (sequence, KV head, chunk) for the rows [r0, r0 + rpb)
+// of the sequence's group that block x = group * slices + slice folds
+// (flash_rows_per_block). part_acc [rows_total, Hq, n_chunks, D] and
+// part_ml [rows_total, Hq, n_chunks, 2] (m, l), f32. S is the cache's
+// storage type: T, or int8_t / __nv_fp8_e4m3 with `scales`.
 template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
 paged_partial_kernel(const T* __restrict__ q, const S* __restrict__ cache,
                      const __nv_bfloat16* __restrict__ scales,
                      const int* __restrict__ bt, const int* __restrict__ ctx,
-                     float* __restrict__ part_acc, float* __restrict__ part_ml, int rows, int m,
-                     int hq, int hkv, int d, int bs, long long k_off, long long v_off,
+                     float* __restrict__ part_acc, float* __restrict__ part_ml, int rows, int rpb,
+                     int m, int hq, int hkv, int d, int bs, long long k_off, long long v_off,
                      float scale) {
-  const int grp = blockIdx.x, kh = blockIdx.y, ch = blockIdx.z, n_chunks = gridDim.z;
-  const int tid = threadIdx.x, g = hq / hkv, nq = rows * g, hd = hkv * d;
+  const int slices = (rows + rpb - 1) / rpb;
+  const int grp = blockIdx.x / slices, r0 = (blockIdx.x - grp * slices) * rpb;
+  const int kh = blockIdx.y, ch = blockIdx.z, n_chunks = gridDim.z;
+  const int nr = min(rpb, rows - r0), tid = threadIdx.x, g = hq / hkv, nq = nr * g, hd = hkv * d;
+  const long long row0 = (long long)grp * rows + r0;
   Flash<T> f;
   int* ctx_s = reinterpret_cast<int*>(flash_carve(f, nq, d));
   const int* bt_row = bt + (long long)grp * m;
 
-  for (int r = tid; r < rows; r += blockDim.x) ctx_s[r] = ctx[grp * rows + r];
+  for (int r = tid; r < nr; r += blockDim.x) ctx_s[r] = ctx[row0 + r];
   __syncthreads();
   int ctx_max = 1;
-  for (int r = 0; r < rows; ++r) ctx_max = max(ctx_max, ctx_s[r]);
+  for (int r = 0; r < nr; ++r) ctx_max = max(ctx_max, ctx_s[r]);
   const int c_begin = ch * kChunk;
   if (c_begin >= ctx_max) return;  // uniform over the block
   const int c_end = min(ctx_max, c_begin + kChunk);
 
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d;
-    const long long row = (long long)grp * rows + qi / g;
+    const long long row = row0 + qi / g;
     f.qs[idx] = to_f32(q[(row * hq + kh * g + qi % g) * d + c]);
   }
   flash_init_stats(f);
@@ -111,7 +120,7 @@ paged_partial_kernel(const T* __restrict__ q, const S* __restrict__ cache,
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d, r = qi / g;
     if (c_begin >= ctx_s[r]) continue;  // the combine never reads this chunk
-    const long long slot = ((long long)grp * rows + r) * hq + kh * g + qi % g;
+    const long long slot = (row0 + r) * hq + kh * g + qi % g;
     part_acc[(slot * n_chunks + ch) * d + c] = f.acc[idx];
     if (c == 0) {
       part_ml[(slot * n_chunks + ch) * 2] = f.m[qi];
@@ -142,14 +151,15 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
                    const int* ctx, void* out, float* part_acc, float* part_ml, int m, int hq,
                    int hkv, int d, int bs, long long k_off, long long v_off, float scale,
                    cudaStream_t stream, const void* scales = nullptr) {
-  const size_t smem = flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * rows);
+  const int g = hq / hkv, rpb = flash_rows_per_block<T>(rows, g, d);
+  const size_t smem = flash_smem_bytes<T>(rpb * g, d, sizeof(int) * rpb);
   cudaError_t err = flash_set_smem(paged_partial_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
-  const int n_chunks = (m * bs + kChunk - 1) / kChunk;
-  paged_partial_kernel<T, S><<<dim3(groups, hkv, n_chunks), kThreads, smem, stream>>>(
+  const int n_chunks = (m * bs + kChunk - 1) / kChunk, slices = (rows + rpb - 1) / rpb;
+  paged_partial_kernel<T, S><<<dim3(groups * slices, hkv, n_chunks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const S*>(cache),
-      static_cast<const __nv_bfloat16*>(scales), bt, ctx, part_acc, part_ml, rows, m, hq, hkv, d,
-      bs, k_off, v_off, scale);
+      static_cast<const __nv_bfloat16*>(scales), bt, ctx, part_acc, part_ml, rows, rpb, m, hq, hkv,
+      d, bs, k_off, v_off, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T><<<groups * rows, kThreads, 0, stream>>>(
@@ -238,17 +248,20 @@ __global__ void __launch_bounds__(kThreads)
 cell_partial_kernel(const T* __restrict__ q, const T* __restrict__ cache, const T* __restrict__ fk,
                     const T* __restrict__ fv, const int* __restrict__ bt,
                     const int* __restrict__ ctx, const int* __restrict__ bnd,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml, int rows, int m,
-                    int hq, int hkv, int d, int bs, long long k_off, long long v_off, float scale,
-                    int split) {
-  const int grp = blockIdx.x, kh = blockIdx.y, i = blockIdx.z, n_cells = gridDim.z;
-  const int tid = threadIdx.x, g = hq / hkv, nq = rows * g, hd = hkv * d;
+                    float* __restrict__ part_acc, float* __restrict__ part_ml, int rows, int rpb,
+                    int m, int hq, int hkv, int d, int bs, long long k_off, long long v_off,
+                    float scale, int split) {
+  const int slices = (rows + rpb - 1) / rpb;
+  const int grp = blockIdx.x / slices, r0 = (blockIdx.x - grp * slices) * rpb;
+  const int kh = blockIdx.y, i = blockIdx.z, n_cells = gridDim.z;
+  const int nr = min(rpb, rows - r0), tid = threadIdx.x, g = hq / hkv, nq = nr * g, hd = hkv * d;
+  const long long row0 = (long long)grp * rows + r0;
   Flash<T> f;
   int* ctx_s = reinterpret_cast<int*>(flash_carve(f, nq, d));
-  for (int r = tid; r < rows; r += blockDim.x) ctx_s[r] = ctx[grp * rows + r];
+  for (int r = tid; r < nr; r += blockDim.x) ctx_s[r] = ctx[row0 + r];
   __syncthreads();
   int ctx_max = 0;
-  for (int r = 0; r < rows; ++r) ctx_max = max(ctx_max, ctx_s[r]);
+  for (int r = 0; r < nr; ++r) ctx_max = max(ctx_max, ctx_s[r]);
   const Cells<kFresh> cells(n_cells - (kFresh ? 2 : 1), ctx_s[0], bnd[grp], rows, split);
   int lo, hi;
   cells.bounds(i, lo, hi);
@@ -257,7 +270,7 @@ cell_partial_kernel(const T* __restrict__ q, const T* __restrict__ cache, const 
 
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d;
-    const long long row = (long long)grp * rows + qi / g;
+    const long long row = row0 + qi / g;
     f.qs[idx] = to_f32(q[(row * hq + kh * g + qi % g) * d + c]);
   }
   flash_init_stats(f);
@@ -276,7 +289,7 @@ cell_partial_kernel(const T* __restrict__ q, const T* __restrict__ cache, const 
   for (int idx = tid; idx < nq * d; idx += blockDim.x) {
     const int qi = idx / d, c = idx - qi * d, r = qi / g;
     if (lo >= min(hi, ctx_s[r])) continue;  // empty for this row: never read
-    const long long slot = ((long long)grp * rows + r) * hq + kh * g + qi % g;
+    const long long slot = (row0 + r) * hq + kh * g + qi % g;
     part_acc[(slot * n_cells + i) * d + c] = f.acc[idx];
     if (c == 0) {
       part_ml[(slot * n_cells + i) * 2] = f.m[qi];
@@ -312,14 +325,16 @@ cudaError_t launch_cells(int groups, int rows, const void* q, const void* cache,
                          float* part_acc, float* part_ml, int m, int hq, int hkv, int d, int bs,
                          long long k_off, long long v_off, float scale, int split,
                          cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<T>(rows * (hq / hkv), d, sizeof(int) * rows);
+  const int g = hq / hkv, rpb = flash_rows_per_block<T>(rows, g, d);
+  const size_t smem = flash_smem_bytes<T>(rpb * g, d, sizeof(int) * rpb);
   cudaError_t err = flash_set_smem(cell_partial_kernel<T, kFresh>, smem);
   if (err != cudaSuccess) return err;
   const int n_cells = (m * bs + kChunk - 1) / kChunk + (kFresh ? 2 : 1);
-  cell_partial_kernel<T, kFresh><<<dim3(groups, hkv, n_cells), kThreads, smem, stream>>>(
+  const int slices = (rows + rpb - 1) / rpb;
+  cell_partial_kernel<T, kFresh><<<dim3(groups * slices, hkv, n_cells), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cache), static_cast<const T*>(fk),
-      static_cast<const T*>(fv), bt, ctx, bnd, part_acc, part_ml, rows, m, hq, hkv, d, bs, k_off,
-      v_off, scale, split);
+      static_cast<const T*>(fv), bt, ctx, bnd, part_acc, part_ml, rows, rpb, m, hq, hkv, d, bs,
+      k_off, v_off, scale, split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cell_combine_kernel<T, kFresh><<<groups * rows, kThreads, 0, stream>>>(
@@ -388,6 +403,15 @@ extern "C" {
 
 // Key positions per partial: the wrapper sizes the scratch with it.
 int npt_chunk_tokens() { return npt::kChunk; }
+
+// Rows of a group one block folds (flash_rows_per_block) for query
+// vectors of type bf16 (is_bf16) or f32, `fixed` more bytes of shared
+// memory and tiles of `tile` keys: what every attention launcher of the
+// port picks, exported to hold the Python mirror against it.
+int npt_rows_per_block(int rows, int g, int d, int is_bf16, long long fixed, int tile) {
+  return is_bf16 ? npt::flash_rows_per_block<__nv_bfloat16>(rows, g, d, (size_t)fixed, tile)
+                 : npt::flash_rows_per_block<float>(rows, g, d, (size_t)fixed, tile);
+}
 
 // q, out [n, hq, d]; bt [n, m]; ctx [n]; part_acc [n, hq, n_chunks, d] and
 // part_ml [n, hq, n_chunks, 2] f32 scratch, n_chunks = ceil(m * bs /

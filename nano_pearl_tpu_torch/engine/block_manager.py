@@ -11,6 +11,17 @@ single-token growth: ``ensure_capacity`` grows a view's table by any
 number of future tokens in one call, which the PEARL loop uses to
 reserve the whole gamma-token draft window before dispatching the
 compiled gamma-step scan (no host round-trip per drafted token).
+
+Under sequence parallelism (``shards`` > 1: the device cache's block axis
+split into ``shards`` contiguous ranges, ``parallel/sp.py``) a view's
+page i is taken from shard ``i % shards`` while that shard has a free
+block (any shard's otherwise). The JAX package's manager is shard-blind:
+its FIFO free list puts a page in whichever range comes next, so two
+pools with different histories (the AR baseline takes target blocks
+only) split a sequence's keys between the shards differently, and the
+merge of the shards' partials then rounds the draft's decode and the
+target's verify apart. Striping keeps the split a function of the page
+index alone, and spreads every sequence's keys over the shards.
 """
 
 from __future__ import annotations
@@ -46,10 +57,12 @@ class _Block:
 
 
 class BlockManager:
-    def __init__(self, num_blocks: int, block_size: int):
-        assert num_blocks > 0
+    def __init__(self, num_blocks: int, block_size: int, shards: int = 1):
+        assert num_blocks > 0 and (num_blocks + 1) % shards == 0
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.shards = shards
+        self.blocks_per_shard = (num_blocks + 1) // shards  # the garbage block is the last shard's
         self.blocks = [_Block(i) for i in range(num_blocks)]
         self.hash_to_block: dict[int, int] = {}
         self.free_ids: deque[int] = deque(range(num_blocks))
@@ -58,6 +71,16 @@ class BlockManager:
     @property
     def num_free_blocks(self) -> int:
         return len(self.free_ids)
+
+    def _next_free(self, page: int) -> int:
+        """The block for a view's page ``page``: the first free one, from
+        shard ``page % shards`` where it has one (module doc)."""
+        if self.shards > 1:
+            want = page % self.shards
+            for block_id in self.free_ids:
+                if block_id // self.blocks_per_shard == want:
+                    return block_id
+        return self.free_ids[0]
 
     def _take(self, block_id: int) -> _Block:
         blk = self.blocks[block_id]
@@ -93,7 +116,7 @@ class BlockManager:
             if cached == -1 or self.blocks[cached].token_ids != toks:
                 miss = True
             if miss:
-                blk = self._take(self.free_ids[0])
+                blk = self._take(self._next_free(i))
             else:
                 view.num_cached_tokens += self.block_size
                 blk = self.blocks[cached]
@@ -144,7 +167,7 @@ class BlockManager:
         target_blocks = -(-(len(view) + extra_tokens) // self.block_size)
         self._hash_full_blocks(view)
         while len(view.block_table) < target_blocks:
-            blk = self._take(self.free_ids[0])
+            blk = self._take(self._next_free(len(view.block_table)))
             view.block_table.append(blk.block_id)
 
     def _hash_full_blocks(self, view: SeqView):

@@ -37,6 +37,13 @@ and with ``num_kvcache_blocks=-1`` their KV pools are sized together
 from one budget. Its entry points run on CUDA unless the caller asks
 for the CPU; with no CUDA device and no explicit ``device="cpu"`` the
 engine raises.
+
+``draft_sp`` / ``target_sp`` > 1 shard a group's KV cache over the
+blocks (sequence parallelism, ``parallel/sp.py``): decode and verify run
+the per-shard partials kernels K11a/K11c (K11b/K11d over a quantized
+cache) and merge them. The shards of both groups share the engine's one
+device (``parallel/mesh.build_group_placements``), so the KV budget is
+taken once per distinct device and shared by every shard on it.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from nano_pearl_tpu_torch.engine.pearl import PearlOrchestrator
 from nano_pearl_tpu_torch.engine.runner import GroupRunner
 from nano_pearl_tpu_torch.engine.scheduler import Scheduler
 from nano_pearl_tpu_torch.engine.sequence import Sequence
+from nano_pearl_tpu_torch.parallel.mesh import build_group_placements
 from nano_pearl_tpu_torch.utils.logging import logger
 
 
@@ -71,10 +79,10 @@ def resolve_device(device=None) -> torch.device:
 def _check_config(config: PearlConfig) -> None:
     """Raise on engine features the port does not run yet."""
     unsupported = {
-        "tensor/sequence/pipeline/expert parallel groups": any(
+        "tensor/pipeline/expert parallel groups": any(
             x != 1 for x in (
-                config.draft_tp, config.target_tp, config.draft_sp, config.target_sp,
-                config.draft_pp, config.target_pp, config.draft_ep, config.target_ep,
+                config.draft_tp, config.target_tp, config.draft_pp, config.target_pp,
+                config.draft_ep, config.target_ep,
             )
         ),
         "execution_mode='overlap'": config.execution_mode == "overlap",
@@ -101,23 +109,17 @@ class PearlEngine:
         _check_config(config)
         self.config = config
         self.device = resolve_device(device)
+        draft_at, target_at = build_group_placements([self.device], config.draft_sp, config.target_sp)
         self.draft = GroupRunner(
             config, config.draft_config, self.device, name="draft",
-            params=draft_params, seed=config.seed,
+            params=draft_params, seed=config.seed, placement=draft_at,
         )
         self.target = GroupRunner(
             config, config.target_config, self.device, name="target",
-            params=target_params, seed=config.seed + 1,
+            params=target_params, seed=config.seed + 1, placement=target_at,
         )
         if self.draft.kv is None:
-            # both caches from one budget, measured with both models' weights
-            # on the device: the pools share the card
-            budget = runner_mod.device_kv_budget(self.device, config.hbm_utilization)
-            num = runner_mod.kv_num_blocks(
-                config, [self.draft.block_bytes, self.target.block_bytes], budget
-            )
-            self.draft.allocate_kv(num)
-            self.target.allocate_kv(num)
+            self._allocate_kv()
         self.scheduler = Scheduler(config, self.draft.num_blocks, self.target.num_blocks)
         self.generator = torch.Generator(self.device).manual_seed(config.seed)
         self.orchestrator = PearlOrchestrator(
@@ -130,6 +132,27 @@ class PearlEngine:
         if config.warmup:
             self.warmup(batches=config.warmup if isinstance(config.warmup, tuple) else (1,))
         logger.info(f"PearlEngine ready on {self.device}.", color="green")
+
+    def _allocate_kv(self) -> None:
+        """Both caches from one budget per distinct device, measured with
+        both models' weights on the devices: every pool and every sp shard
+        on a device shares its budget (the JAX package multiplies by sp
+        because its shards sit on distinct chips). A device takes, per
+        global block of a pool, that pool's block bytes times its share of
+        the pool's shards; the count is the least any device affords."""
+        share: dict[torch.device, list[int]] = {}
+        for r in (self.draft, self.target):
+            for dev in r.placement.distinct_devices:
+                on_dev = r.placement.devices.count(dev)
+                share.setdefault(dev, []).append(-(-r.block_bytes * on_dev // r.sp_size))
+        num = min(
+            runner_mod.kv_num_blocks(
+                self.config, block_bytes, runner_mod.device_kv_budget(dev, self.config.hbm_utilization)
+            )
+            for dev, block_bytes in share.items()
+        )
+        self.draft.allocate_kv(num)
+        self.target.allocate_kv(num)
 
     def add_request(self, prompt, sampling_params: SamplingParams | None = None) -> int:
         """Queue a request given as token ids (the port has no tokenizer)."""

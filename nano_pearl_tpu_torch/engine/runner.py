@@ -76,6 +76,21 @@ also at blocks that are not a multiple of 32) every schedule takes the
 fallbacks K10a (decode) and K10b (verify), K10c / K10d over a quantized
 cache, in place of K1/K2, K5 or K9a-c.
 
+Sequence parallelism (``PearlConfig.draft_sp`` / ``target_sp`` > 1, the
+JAX package's sp group; ``parallel/mesh.GroupPlacement``): the runner's
+cache is a ``ShardedKVCache`` of ``sp`` shards, its block count rounded
+so that the blocks plus the garbage block divide over sp (the JAX
+package's rounding). Every layer writes through ``parallel/sp.sp_write_kv``;
+decode reads through ``sp_paged_attention`` (K11a per shard, K11b over a
+quantized cache), the packed verify through ``sp_paged_attention_grouped``
+(K11c / K11d), both merging the shards' partials; a fresh prefill runs K3
+(it reads no cache) and a prefill with cached prefixes
+``sp_prefill_attention`` (torch ops, as the JAX package's jnp path: K4
+reads an unsharded cache). As in the JAX package, sp turns the split
+schedule, the deferred verify (so the throughput profile verifies with the
+classic write-then-read verify) and the mono schedule (attention under sp
+takes the partials kernels only) off, each logged where it was asked for.
+
 The KV cache is allocated after both models' weights are on the device
 (``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
 shared card from one budget.
@@ -109,9 +124,23 @@ from nano_pearl_tpu_torch.ops.attention import (
     prefill_prefix_attention,
     prefill_self_attention,
 )
-from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes, make_kv_cache, write_fresh
+from nano_pearl_tpu_torch.ops.kv_cache import (
+    cache_nbytes,
+    make_kv_cache,
+    make_sharded_kv_cache,
+    write_fresh,
+    write_kv,
+)
 from nano_pearl_tpu_torch.ops.quant import is_quantized
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
+from nano_pearl_tpu_torch.parallel.mesh import GroupPlacement
+from nano_pearl_tpu_torch.parallel.sp import (
+    shard_tables,
+    sp_paged_attention,
+    sp_paged_attention_grouped,
+    sp_prefill_attention,
+    sp_write_kv,
+)
 from nano_pearl_tpu_torch.utils.loader import load_params
 from nano_pearl_tpu_torch.utils.logging import logger
 
@@ -155,6 +184,15 @@ def kv_num_blocks(pcfg: PearlConfig, block_bytes: list[int], budget: int | None)
     return num
 
 
+def sp_num_blocks(num_blocks: int, sp: int) -> int:
+    """Blocks of a pool sharded over ``sp``: rounded down so that the
+    blocks plus the garbage block divide over sp (the JAX package's
+    runner), at least sp - 1."""
+    if sp == 1:
+        return num_blocks
+    return max(sp - 1, (num_blocks + 1) // sp * sp - 1)
+
+
 class GroupRunner:
     def __init__(
         self,
@@ -165,12 +203,16 @@ class GroupRunner:
         name: str,
         params: dict | None = None,
         seed: int = 0,
+        placement: GroupPlacement | None = None,
     ):
         check_supported(mcfg, device)
         self.pcfg = pcfg
         self.cfg = mcfg
         self.device = device
         self.name = name
+        self.placement = placement or GroupPlacement((device,))
+        self.sp_size = self.placement.sp_size
+        self._kv_write = sp_write_kv if self.sp_size > 1 else write_kv
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
         self._resolve_schedule(pcfg, mcfg)
@@ -220,6 +262,18 @@ class GroupRunner:
                 "(not mono), both an unquantized cache and Hkv*D % 128 == 0, and the deferred "
                 "verify no NANO_PEARL_VERIFY_ROWWISE"
             )
+        if self.sp_size > 1:
+            sp_dropped = [name for name, on in (
+                ("the split schedule", self.split), ("the deferred verify", self.deferred_verify),
+                ("the mono schedule", self.use_mono),
+            ) if on]
+            self.split = self.deferred_verify = self.use_mono = False
+            if sp_dropped:
+                logger.info(
+                    f"[{self.name}] {', '.join(sp_dropped)} off under sequence parallelism "
+                    f"(sp {self.sp_size}): its attention runs the per-shard partials kernels "
+                    "and the classic verify, as in the JAX package"
+                )
 
     @property
     def block_bytes(self) -> int:
@@ -232,18 +286,26 @@ class GroupRunner:
         return mcfg.num_hidden_layers * 2 * self.block_size * per_slot
 
     def allocate_kv(self, num_blocks: int) -> None:
-        """The paged cache of ``num_blocks`` blocks plus the garbage block."""
+        """The paged cache of ``num_blocks`` blocks plus the garbage block;
+        under sp sharded over the placement's devices, the count rounded
+        first (``sp_num_blocks``)."""
         mcfg = self.cfg
+        num_blocks = sp_num_blocks(num_blocks, self.sp_size)
         self.num_blocks = num_blocks
-        self.kv = make_kv_cache(
-            mcfg.num_hidden_layers, num_blocks, self.block_size,
-            mcfg.num_key_value_heads, mcfg.head_dim, dtype=torch_dtype(mcfg),
-            device=self.device, quant=mcfg.kv_quant,
-        )
+        dims = (mcfg.num_hidden_layers, num_blocks, self.block_size, mcfg.num_key_value_heads, mcfg.head_dim)
+        if self.sp_size > 1:
+            self.kv = make_sharded_kv_cache(
+                *dims, self.sp_size, dtype=torch_dtype(mcfg), device=list(self.placement.devices),
+                quant=mcfg.kv_quant,
+            )
+        else:
+            self.kv = make_kv_cache(*dims, dtype=torch_dtype(mcfg), device=self.device, quant=mcfg.kv_quant)
         self.garbage_block = num_blocks  # the extra block of make_kv_cache
+        shards = f", {self.sp_size} shards" if self.sp_size > 1 else ""
         logger.info(
             f"[{self.name}] kv cache: {num_blocks} blocks x {self.block_size} tokens "
-            f"({cache_nbytes(self.kv) / 2**30:.2f} GiB{', ' + mcfg.kv_quant if mcfg.kv_quant else ''})",
+            f"({cache_nbytes(self.kv) / 2**30:.2f} GiB{', ' + mcfg.kv_quant if mcfg.kv_quant else ''}"
+            f"{shards})",
             color="green",
         )
 
@@ -291,6 +353,15 @@ class GroupRunner:
             sel_rows[i] = i * lq_pad + n - 1
         if not num_cached.any():
             attn_fn, attn_args = _fresh_prefill, (self._tensor(q_positions), self.scale)
+        elif self.sp_size > 1:
+            # every view's whole table: the keys come out of the sharded cache
+            m = max(len(v.block_table) for v in views)
+            tables = np.full((b_pad, m), self.garbage_block, np.int32)
+            for i, v in enumerate(views):
+                tables[i, : len(v.block_table)] = v.block_table
+            tables = self._tensor(tables)
+            attn_fn = sp_prefill_attention
+            attn_args = (tables, self._tensor(q_positions), self.scale, shard_tables(tables, self.kv))
         else:
             attn_fn = _prefix_prefill
             attn_args = (
@@ -300,7 +371,7 @@ class GroupRunner:
         hidden = forward(
             self.cfg, self.params, self.kv, self._tensor(tokens.reshape(-1)),
             self._tensor(positions.reshape(-1)), self._tensor(slots.reshape(-1)),
-            self.rope_table, attn_fn, attn_args,
+            self.rope_table, attn_fn, attn_args, kv_write_fn=self._kv_write,
         )
         return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
 
@@ -310,13 +381,17 @@ class GroupRunner:
         over a quantized cache); with ``b1`` (the gamma-scan under the split
         schedule, engine/fused.py) through K8a, each row's key stream cut
         at its b1."""
-        if b1 is not None:
+        if self.sp_size > 1:
+            attn = sp_paged_attention
+            args = (block_tables, context_lens, self.scale, shard_tables(block_tables, self.kv))
+        elif b1 is not None:
             attn, args = _split_decode, (block_tables, context_lens, b1, self.scale)
         else:
             attn = paged_attention_mono if self.use_mono else paged_attention
             args = (block_tables, context_lens, self.scale)
         hidden = forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
+            kv_write_fn=self._kv_write,
         )
         return compute_logits(self.cfg, self.params, hidden)
 
@@ -397,8 +472,16 @@ class GroupRunner:
         cache; on the mono schedule, which takes this verify only over a
         quantized cache or under an override, K5 / K9c). Under
         ``NANO_PEARL_VERIFY_ROWWISE`` the decode kernel reads it instead,
-        each row through its group's table repeated."""
-        if self.verify_rowwise:
+        each row through its group's table repeated. Under sp the per-shard
+        partials kernels read it (K11c, or K11a with the table repeated)
+        and the shards merge."""
+        if self.sp_size > 1 and self.verify_rowwise:
+            rows = block_tables.repeat_interleave(gamma, 0)
+            attn, args = sp_paged_attention, (rows, context_lens, self.scale, shard_tables(rows, self.kv))
+        elif self.sp_size > 1:
+            attn = sp_paged_attention_grouped
+            args = (block_tables, context_lens, self.scale, gamma, shard_tables(block_tables, self.kv))
+        elif self.verify_rowwise:
             attn = paged_attention_mono if self.use_mono else paged_attention
             rows = block_tables.repeat_interleave(gamma, 0)
             args = (rows, context_lens, self.scale)
@@ -407,6 +490,7 @@ class GroupRunner:
             args = (block_tables, context_lens, self.scale, gamma)
         return forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
+            kv_write_fn=self._kv_write,
         )
 
     def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):

@@ -33,8 +33,8 @@ class Scheduler:
             raise NotImplementedError(
                 "the port has only the Python block manager so far"
             )
-        self.draft_bm = BlockManager(draft_blocks, self.block_size)
-        self.target_bm = BlockManager(target_blocks, self.block_size)
+        self.draft_bm = BlockManager(draft_blocks, self.block_size, config.draft_sp)
+        self.target_bm = BlockManager(target_blocks, self.block_size, config.target_sp)
         self.waiting: deque[Sequence] = deque()
         self.running: deque[Sequence] = deque()
         self.finished: list[Sequence] = []

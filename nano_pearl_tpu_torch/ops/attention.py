@@ -32,6 +32,12 @@ against, and what the kernels' wrappers run for tensors on the CPU:
 - Kernel K8a (the split-boundary decode) computes what K1 computes, with
   another rounding: its plain version is ``paged_attention_ref``, which
   ignores the boundary, as the JAX package's jnp path does.
+- ``paged_attention_partials_ref`` and
+  ``paged_attention_grouped_partials_ref``: flash partials (o, m, l) of
+  decode and packed-verify attention over ONE shard of a block-sharded
+  cache (sequence parallelism, ``parallel/sp.py``), its slots marked by
+  ``is_local``; kernels K11a and K11c (K11b and K11d over a quantized
+  shard).
 - Kernels K10a/K10b (the fallbacks of decode and packed verify, at the
   shapes the JAX package's fast kernels do not take: ``Hkv * D % 128``,
   and ``BS % 32`` over a 1-byte cache, see ``attention_kernel``) compute
@@ -196,6 +202,46 @@ def paged_attention_grouped_cache_partials_ref(
     ctx = context_lens.reshape(b, r)
     vis = torch.arange(s, device=q.device)[None, None, :] < ctx[:, :, None]
     return _flash_partials(scores, vis, v.float(), q.dtype)
+
+
+def paged_attention_grouped_partials_ref(
+    q: torch.Tensor,  # [B*R, Hq, D]
+    cache,  # ONE shard [L, 2, NB1_loc, BS, Hkv*D] (tensor or QuantKVCache), read only
+    layer_idx: int,
+    group_tables: torch.Tensor,  # [B, M] LOCAL block ids, clamped into the shard
+    context_lens: torch.Tensor,  # [B*R] global per-row context
+    is_local: torch.Tensor,  # [B, M] int32, 1 where the slot is this shard's
+    scale: float,
+    rows_per_group: int,
+):
+    """Flash partials of packed-verify attention over one shard's blocks
+    (``paged_attention_pallas_grouped_partials`` of the JAX package): (o
+    normalised by its own sum, in q's dtype; m, the row max floored at
+    ``M_FLOOR``; l, the sum of exp(s - m)), m and l f32 [B*R, Hq]. Key p of
+    a row is visible iff p < its context and its table slot is local; a row
+    with no visible key gives o = 0, m = M_FLOOR and l = 0. A quantized
+    shard is dequantized and rounded to q's dtype, as the K9 plain versions
+    read it."""
+    n, hq, d = q.shape
+    b, r = group_tables.shape[0], rows_per_group
+    k, v = _gather_kv(cache, layer_idx, group_tables, d, q.dtype)  # [B, S, Hkv, D]
+    s, hkv = k.shape[1], k.shape[2]
+    bs = s // group_tables.shape[1]
+    qg = q.reshape(b, r, hkv, hq // hkv, d).float()
+    scores = torch.einsum("brkgd,bskd->brkgs", qg, k.float()) * scale
+    ctx = context_lens.reshape(b, r)
+    local = is_local.bool().repeat_interleave(bs, dim=1)  # [B, S]
+    vis = (torch.arange(s, device=q.device)[None, None, :] < ctx[:, :, None]) & local[:, None, :]
+    return _flash_partials(scores, vis, v.float(), q.dtype)
+
+
+def paged_attention_partials_ref(q, cache, layer_idx, block_tables, context_lens, is_local, scale):
+    """Decode flash partials over one shard (``paged_attention_pallas_partials``
+    of the JAX package): ``paged_attention_grouped_partials_ref`` with one
+    row per block-table row."""
+    return paged_attention_grouped_partials_ref(
+        q, cache, layer_idx, block_tables, context_lens, is_local, scale, 1
+    )
 
 
 def fresh_window_partials(

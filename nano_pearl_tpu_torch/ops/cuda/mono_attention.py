@@ -97,9 +97,12 @@ def _scratch(lib, groups, rows, hq, hkv, d, m, bs, device, extra: int = 0):
     items = groups * (max_chunks + extra)
     acc = torch.empty((items, hkv, nq, d), dtype=torch.float32, device=device)
     ml = torch.empty((items, hkv, nq, 2), dtype=torch.float32, device=device)
+    # one counter per (group, KV head, slice of the group's rows): at most
+    # ``rows`` slices, where the rows do not fit one block (rows_per_block)
     cnt = _counters.get(device)
-    if cnt is None or cnt.numel() < groups * hkv:
-        cnt = _counters[device] = torch.zeros(max(1024, groups * hkv), dtype=torch.int32, device=device)
+    if cnt is None or cnt.numel() < groups * hkv * rows:
+        cnt = _counters[device] = torch.zeros(max(1024, groups * hkv * rows), dtype=torch.int32,
+                                              device=device)
     return max_chunks, acc, ml, cnt
 
 

@@ -93,8 +93,33 @@ def _lib() -> ctypes.CDLL:
                    "npt_paged_decode_split", "npt_paged_verify_fresh"):
             getattr(lib, fn).restype = _I
         lib.npt_chunk_tokens.restype = _I
+        lib.npt_rows_per_block.argtypes = [_I, _I, _I, _I, _LL, _I]
+        lib.npt_rows_per_block.restype = _I
         lib._npt_typed = True
     return lib
+
+
+MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90 (kMaxSmem)
+
+
+def rows_per_block(rows: int, g: int, d: int, itemsize: int, fixed: int = 0, tile: int = 64) -> int:
+    """Rows of a packed-verify group that one CUDA block folds, as every
+    attention launcher of the port picks them (``flash_rows_per_block`` in
+    ``csrc/flash_tile.cuh``, exported as ``npt_rows_per_block``): all
+    ``rows``, halved (rounding up) while their ``rows * g`` query vectors
+    of ``d`` f32 values, their scores over a ``tile``-key tile, their
+    statistics, one int per row, ``fixed`` bytes more and the staged K/V
+    tile of ``itemsize``-byte elements exceed the block's shared memory.
+    Rows are independent, so the split changes no bit of any row."""
+
+    def smem(r: int) -> int:
+        nq = r * g
+        return 2 * itemsize * tile * (d + 8) + 4 * (2 * nq * d + nq * tile + 3 * nq) + 4 * r + fixed
+
+    rpb = rows
+    while rpb > 1 and smem(rpb) > MAX_SMEM:
+        rpb = (rpb + 1) // 2
+    return rpb
 
 
 def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device, extra: int = 0):

@@ -19,6 +19,16 @@ Unlike the JAX package, ``write_kv`` updates the cache in place (one
 ``index_copy_`` per layer, no copy of the cache) and returns it, and so
 does the deferred verify's whole-round writeback ``write_fresh`` (kernel
 K12 on the card, ``write_fresh_ref`` on the CPU).
+
+Under sequence parallelism a model's cache is a ``ShardedKVCache``
+(``make_sharded_kv_cache``, the block-axis sharding of the JAX package's
+``parallel/sp.py`` ``_cache_spec``): ``sp`` shards, each a cache of
+either kind of ``(NB + 1) / sp`` blocks, shard ``s`` owning the global
+block ids ``[s * nb1_local, (s + 1) * nb1_local)`` (the garbage block NB
+lands in the last shard). Each shard's rows sit in a flat buffer with one
+more row, a sink that ``parallel/sp.sp_write_kv`` sends the rows of the
+other shards to (the JAX package's always-out-of-bounds ``mode="drop"``
+index); no kernel reads it.
 """
 
 from __future__ import annotations
@@ -74,11 +84,82 @@ def make_kv_cache(
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+class ShardedKVCache(NamedTuple):
+    """A paged cache whose block axis is sharded over ``sp`` shards:
+    ``shards[s]`` is shard s's cache ``[L, 2, nb1_local, BS, Hkv*D]`` (a
+    tensor or a ``QuantKVCache``), a view of the first rows of
+    ``flats[s]`` (``[L * 2 * nb1_local * BS + 1, Hkv*D]``, or a
+    ``QuantKVCache`` of such values and ``[..., Hkv]`` scales) whose last
+    row is the sink of writes that belong to other shards."""
+
+    shards: tuple
+    flats: tuple
+
+    @property
+    def sp_size(self) -> int:
+        return len(self.shards)
+
+    @property
+    def nb1_local(self) -> int:
+        return self.shards[0].shape[2]
+
+    @property
+    def shape(self) -> torch.Size:
+        """The global cache's shape, [L, 2, NB+1, BS, Hkv*D]."""
+        l, two, nb1, bs, hd = self.shards[0].shape
+        return torch.Size((l, two, nb1 * self.sp_size, bs, hd))
+
+
+def make_sharded_kv_cache(
+    num_layers: int,
+    num_blocks: int,
+    block_size: int,
+    n_kv_heads: int,
+    head_dim: int,
+    sp: int,
+    dtype=torch.bfloat16,
+    device=None,
+    quant: str | None = None,
+) -> ShardedKVCache:
+    """``make_kv_cache``'s ``num_blocks + 1`` blocks split over ``sp``
+    shards on ``device`` (one device, or a list with one per shard); the
+    block count plus the garbage block must divide by ``sp``."""
+    if (num_blocks + 1) % sp:
+        raise ValueError(f"num_blocks + 1 = {num_blocks + 1} does not divide over sp = {sp}")
+    devices = device if isinstance(device, (list, tuple)) else [device] * sp
+    nb1 = (num_blocks + 1) // sp
+    hd = n_kv_heads * head_dim
+    rows = num_layers * 2 * nb1 * block_size
+    shape = (num_layers, 2, nb1, block_size, hd)
+    if isinstance(dtype, str):
+        dtype = _CACHE_DTYPES.get(dtype, dtype)
+    shards, flats = [], []
+    for dev in devices:
+        if quant is not None:
+            q = torch.zeros((rows + 1, hd), dtype=quant_storage_dtype(quant), device=dev)
+            sc = torch.zeros((rows + 1, n_kv_heads), dtype=torch.bfloat16, device=dev)
+            flats.append(QuantKVCache(q, sc))
+            shards.append(QuantKVCache(q[:rows].view(shape), sc[:rows].view(shape[:-1] + (n_kv_heads,))))
+        else:
+            if dtype not in (torch.bfloat16, torch.float32):
+                raise NotImplementedError(f"KV cache dtype {dtype} is not supported by the port")
+            flat = torch.zeros((rows + 1, hd), dtype=dtype, device=dev)
+            flats.append(flat)
+            shards.append(flat[:rows].view(shape))
+    return ShardedKVCache(tuple(shards), tuple(flats))
+
+
 def cache_is_quantized(cache) -> bool:
+    if isinstance(cache, ShardedKVCache):
+        return cache_is_quantized(cache.shards[0])
     return isinstance(cache, QuantKVCache)
 
 
 def cache_nbytes(cache) -> int:
+    """Bytes the cache's tensors take (a sharded cache's flat buffers, sink
+    rows included)."""
+    if isinstance(cache, ShardedKVCache):
+        return sum(cache_nbytes(f) for f in cache.flats)
     parts = (cache.q, cache.s) if cache_is_quantized(cache) else (cache,)
     return sum(t.numel() * t.element_size() for t in parts)
 
@@ -128,21 +209,41 @@ def write_kv(
     stores them quantized per (row, head). Padded rows carry slots inside
     the garbage block; several may share one garbage slot, whose content
     is never read unmasked."""
-    n = k.shape[0]
-    hd = cache.shape[-1]
     bs = cache.shape[3]
     k_off, v_off = global_block_offsets(cache, layer_idx)
     slots = slots.long()
     idx = torch.cat([k_off * bs + slots, v_off * bs + slots])
     if cache_is_quantized(cache):
-        vals, scales = _quantize_rows(torch.cat([k, v]), cache.q.dtype)
-        # a byte copy through uint8 views: index_copy_ of every 1-byte type
-        cache.q.view(torch.uint8).view(-1, hd).index_copy_(0, idx, vals.view(torch.uint8))
-        cache.s.view(-1, cache.s.shape[-1]).index_copy_(0, idx, scales)
-        return cache
-    vals = torch.cat([k.reshape(n, hd), v.reshape(n, hd)]).to(cache.dtype)
-    cache.view(-1, hd).index_copy_(0, idx, vals)
+        hd = cache.shape[-1]
+        flat = QuantKVCache(cache.q.view(-1, hd), cache.s.view(-1, cache.s.shape[-1]))
+    else:
+        flat = cache.view(-1, cache.shape[-1])
+    store_rows(flat, kv_rows(flat, k, v), idx)
     return cache
+
+
+def kv_rows(flat, k: torch.Tensor, v: torch.Tensor):
+    """The stored form of K/V rows [N, Hkv, D] for a cache of ``flat``'s
+    kind: [2N, Hkv*D] in its dtype (the N K rows, then the N V rows), or
+    for a quantized cache the pair (1-byte values [2N, Hkv*D], bf16 scales
+    [2N, Hkv])."""
+    if cache_is_quantized(flat):
+        return _quantize_rows(torch.cat([k, v]), flat.q.dtype)
+    n, hd = k.shape[0], flat.shape[-1]
+    return torch.cat([k.reshape(n, hd), v.reshape(n, hd)]).to(flat.dtype)
+
+
+def store_rows(flat, rows, idx: torch.Tensor) -> None:
+    """Copy ``kv_rows``' output to the rows ``idx`` [2N] of a cache viewed
+    flat (``[R, Hkv*D]``, or a ``QuantKVCache`` of ``[R, Hkv*D]`` values and
+    ``[R, Hkv]`` scales), in place."""
+    if cache_is_quantized(flat):
+        vals, scales = rows
+        # a byte copy through uint8 views: index_copy_ of every 1-byte type
+        flat.q.view(torch.uint8).index_copy_(0, idx, vals.view(torch.uint8))
+        flat.s.index_copy_(0, idx, scales)
+    else:
+        flat.index_copy_(0, idx, rows)
 
 
 def write_fresh_ref(

@@ -40,6 +40,8 @@ def test_import_loads_no_jax_in_fresh_process():
         "from nano_pearl_tpu_torch.engine import engine, fused, pearl, runner\n"
         "from nano_pearl_tpu_torch.ops.cuda import build, paged_attention, prefill_attention\n"
         "from nano_pearl_tpu_torch.ops.cuda import kv_writeback, mono_attention, paged_attention_fallback\n"
+        "from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials\n"
+        "from nano_pearl_tpu_torch.parallel import mesh, sp\n"
         "from nano_pearl_tpu_torch.ops import kv_cache, quant\n"
         "from nano_pearl_tpu_torch.utils import layer_share"
     ) == []

@@ -7,9 +7,13 @@ the schedule overrides, K6a/K6b (the deferred verify on the db and mono
 schedules, the fresh window in the kernel), K8a (split-boundary decode)
 and K8b (split-boundary deferred verify), and the fallbacks K10a-d (decode
 and packed verify at the shapes the fast kernels are not routed to, over a
-bf16/f32 or a 1-byte cache), against their plain PyTorch versions; K8b's
-rows against K8a's, K10b's against K10a's and K10d's against K10c's bit
-for bit; every kernel at head dims 16 to 256.
+bf16/f32 or a 1-byte cache) and K11a-d (the per-shard flash partials of
+sequence parallelism, over two shards of one cache), against their plain
+PyTorch versions; K8b's rows against K8a's, K10b's against K10a's, K10d's
+against K10c's, K11c's against K11a's and K11d's against K11b's bit for
+bit; every kernel at head dims 16 to 256, and the fast kernels at D 256
+with a packed-verify group spread over blocks (the launchers'
+rows-per-block choice, checked on the CPU too).
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -33,6 +37,7 @@ from nano_pearl_tpu_torch.ops.cuda import kv_writeback as kkw
 from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
 from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
 from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache
 
@@ -636,3 +641,148 @@ def test_prefill_kernels_take_head_dims_16_and_256(cuda, dtype, heads):
     args = prefix_case(66, dtype, cuda, hq=hq, hkv=hkv, d=d)
     torch.testing.assert_close(kpf.prefill_prefix(*args).float(), kpf.plain_prefix(*args).float(),
                                **TOL[dtype])
+
+
+def test_rows_per_block_choice():
+    """The attention launchers' rows-per-block choice (``rows_per_block``,
+    the mirror of ``flash_rows_per_block``): a group's rows stay in one
+    block where its query vectors fit in shared memory, and are halved
+    until they do: at D 256 and G 8, 14 rows go to blocks of 7 in bf16 and
+    of 4 in f32, where the fast kernels refused the launch before."""
+    rpb = kpa.rows_per_block
+    assert rpb(14, 4, 128, 2) == 14  # the main path's verify chunk: one block per group
+    assert rpb(14, 4, 128, 4) == 14
+    assert rpb(14, 8, 256, 2) == 7
+    assert rpb(14, 8, 256, 4) == 4
+    assert rpb(1, 8, 256, 4) == 1
+    assert rpb(14, 8, 256, 2, fixed=4 * 17) == 7  # K5's work list: (groups + 1) ints more
+    for rows, g, d, size in ((14, 8, 256, 2), (14, 8, 256, 4), (64, 4, 128, 2), (14, 16, 64, 4)):
+        r = rpb(rows, g, d, size)
+        assert r == rows or rpb(2 * r, g, d, size) < 2 * r  # halved only while it did not fit
+        assert rpb(r, g, d, size) == r  # the choice fits
+
+
+def test_rows_per_block_mirror_matches_the_launchers(cuda):
+    """The exported choice of the CUDA launchers equals the mirror."""
+    lib = kpa._lib()
+    for rows in (1, 7, 14, 64):
+        for g, d in ((4, 128), (8, 256), (16, 64), (1, 16)):
+            for bf16, size in ((1, 2), (0, 4)):
+                for fixed, tile in ((0, 64), (4 * 33, 64), (0, 16)):
+                    assert lib.npt_rows_per_block(rows, g, d, bf16, fixed, tile) == kpa.rows_per_block(
+                        rows, g, d, size, fixed, tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fast_kernels_split_rows_that_do_not_fit(cuda, dtype):
+    """At D 256 a packed verify of 14 rows over 8 query heads per KV head
+    does not fit one block: K2, K9b, K5, K7, K6a, K8b and K6b spread each
+    group's rows over blocks and match their plain versions; K2 rows equal
+    K1's and K9b rows K9a's bit for bit."""
+    rows, hq, hkv, d = 14, 16, 2, 256
+    q, cache, layer, bt, ctx, scale = paged_case(67, 3, rows, dtype, cuda, hq=hq, hkv=hkv, d=d, m=4)
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    want = kpa.plain_verify(q, cache, layer, bt, ctx, scale, rows)
+    grouped = kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(grouped.float(), want.float(), **TOL[dtype])
+    assert torch.equal(grouped, kpa.paged_decode(q, cache, layer, bt_rows, ctx, scale))
+    mono = kmo.mono_attention(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(mono.float(), want.float(), **TOL[dtype])
+    o, m, l = kmo.cache_partials(q, cache, layer, bt, ctx, scale, rows)  # noqa: E741
+    wo, wm, wl = kmo.plain_partials(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(o.float(), wo.float(), **TOL[dtype])
+    torch.testing.assert_close(m, wm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+    q, qc, layer, bt, ctx, scale = q8_case(68, 3, rows, dtype, "int8", cuda, hq=hq, hkv=hkv, d=d, m=4)
+    grouped = kpa.paged_verify_q8(q, qc, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(grouped.float(), kpa.plain_verify(q, qc, layer, bt, ctx, scale, rows).float(),
+                               **TOL[dtype])
+    assert torch.equal(grouped, kpa.paged_decode_q8(q, qc, layer, bt.repeat_interleave(rows, 0).contiguous(),
+                                                    ctx, scale))
+    args, _, scale = fresh_case(69, dtype, cuda, rows=rows, hq=hq, hkv=hkv, d=d)
+    want = kpa.plain_fresh(*args, scale)
+    for fn in FRESH_KERNELS.values():
+        torch.testing.assert_close(fn(*args, scale, rows).float(), want.float(), **TOL[dtype])
+
+
+PARTIALS = {None: (kpp.paged_decode_partials, kpp.paged_verify_partials),
+            "int8": (kpp.paged_decode_partials_q8, kpp.paged_verify_partials_q8)}
+
+
+def partials_case(seed, rows, dtype, kind, device, nb=30, **kw):
+    """``paged_case`` (or ``q8_case``) whose tables draw from the cache's
+    first nb = 30 blocks, split into two shards of 15 (the garbage block
+    left out): (q, the two shards, layer, each shard's (local tables,
+    is_local), contexts, scale, the whole cache, the global tables)."""
+    from nano_pearl_tpu_torch.ops.kv_cache import ShardedKVCache
+    from nano_pearl_tpu_torch.parallel.sp import shard_tables
+
+    case = q8_case(seed, 4, rows, dtype, kind, device, nb=nb, **kw) if kind else \
+        paged_case(seed, 4, rows, dtype, device, nb=nb, **kw)
+    q, cache, layer, bt, ctx, scale = case
+    half = (nb + 1) // 2
+    if kind:
+        shards = tuple(QuantKVCache(cache.q[:, :, i * half : (i + 1) * half].contiguous(),
+                                    cache.s[:, :, i * half : (i + 1) * half].contiguous()) for i in range(2))
+    else:
+        shards = tuple(cache[:, :, i * half : (i + 1) * half].contiguous() for i in range(2))
+    sharded = ShardedKVCache(shards, ())
+    return q, sharded, layer, shard_tables(bt, sharded), ctx, scale, cache, bt
+
+
+def test_partials_wrappers_take_the_plain_version_on_cpu(monkeypatch):
+    """K11a-d's wrappers: CPU tensors go to the plain versions and launch
+    nothing."""
+    returned = []
+    for name in ("plain_decode", "plain_verify"):
+        fn = getattr(kpp, name)
+        monkeypatch.setattr(kpp, name, lambda *a, fn=fn: returned.append(fn(*a)) or returned[-1])
+    counters = [fn for pair in PARTIALS.values() for fn in pair]
+    before = [fn.launches for fn in counters]
+    for kind, (dec, ver) in PARTIALS.items():
+        q, sharded, layer, tables, ctx, scale, _, bt = partials_case(70, 2, torch.float32, kind, "cpu", hq=4, d=16)
+        shard, (local, is_local) = sharded.shards[1], tables[1]
+        assert ver(q, shard, layer, local, ctx, is_local, scale, 2) is returned[-1]
+        rows_local, rows_is_local = local.repeat_interleave(2, 0), is_local.repeat_interleave(2, 0)
+        assert dec(q, shard, layer, rows_local, ctx, rows_is_local, scale) is returned[-1]
+    assert len(returned) == 4
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("kind", [None, "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partials_match_plain_and_verify_rows_equal_decode_bitwise(cuda, dtype, kind):
+    """K11c (K11d) per shard against its plain version (o at TOL, m and l
+    at 1e-4), its (o, m, l) rows against K11a's (K11b's) bit for bit, and
+    the shards' merge against K2 (K9b) over the whole cache."""
+    from nano_pearl_tpu_torch.parallel.sp import merge_partials
+
+    rows = 5
+    q, sharded, layer, tables, ctx, scale, cache, bt = partials_case(71, rows, dtype, kind, cuda)
+    dec, ver = PARTIALS[kind]
+    parts = []
+    for shard, (local, is_local) in zip(sharded.shards, tables):
+        grouped = ver(q, shard, layer, local, ctx, is_local, scale, rows)
+        want = kpp.plain_verify(q, shard, layer, local, ctx, is_local, scale, rows)
+        torch.testing.assert_close(grouped[0].float(), want[0].float(), **TOL[dtype])
+        for a, b in zip(grouped[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        single = dec(q, shard, layer, local.repeat_interleave(rows, 0).contiguous(), ctx,
+                     is_local.repeat_interleave(rows, 0).contiguous(), scale)
+        assert all(torch.equal(a, b) for a, b in zip(grouped, single))
+        parts.append(grouped)
+    whole = (kpa.paged_verify_q8 if kind else kpa.paged_verify)(q, cache, layer, bt, ctx, scale, rows)
+    merged = merge_partials(parts, q.dtype).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(merged, whole.float(), **TOL[dtype])
+        return
+    # Each shard's o is rounded to bf16 before the merge (the Pallas entries
+    # return it so), so the merge may differ from one pass over the whole
+    # context by half a bf16 step of the shards' outputs, weighted as the
+    # merge weighs them, besides the two outputs' own roundings: at most
+    # 3 * 2^-8 of that weighted magnitude, which exceeds TOL where the
+    # shards' outputs cancel.
+    m_glob = torch.maximum(parts[0][1], parts[1][1])
+    w = [l_s * torch.exp(m_s - m_glob) for _, m_s, l_s in parts]
+    mag = sum(w_s[..., None] * o_s.float().abs() for w_s, (o_s, _, _) in zip(w, parts)) / sum(w)[..., None]
+    assert ((merged - whole.float()).abs() <= 3 * 2**-8 * mag + TOL[dtype]["atol"]).all()

@@ -2,7 +2,7 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
@@ -12,8 +12,10 @@ throughput profile with draft_noise 0.005 (chip_smoke.py's
 throughput_path); "split" and "fresh_kernel" chip_smoke.py's split_path
 (main under NANO_PEARL_SPLIT=1) and fresh_kernel_path (throughput under
 NANO_PEARL_FRESH_MODE=kernel), the variable set around the engine's
-construction only. An override path runs its PEARL rounds only: its AR
-is the base path's program. Each loop runs twice:
+construction only; "sp" chip_smoke.py's sp_path (main with draft_sp =
+target_sp = 2, both shards on the one card: K11a/K11c and the merge). An
+override path runs its PEARL rounds only: its AR is the base path's
+program. Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -110,12 +112,13 @@ class Windows:
         self.n += 1
 
 
-# path -> (profile, draft noise, schedule overrides or None)
+# path -> (profile, draft noise, schedule overrides or None, draft_sp = target_sp)
 PATHS = {
-    "main": ("ceiling", 0.0, None),
-    "throughput": ("throughput", 0.005, None),
-    "split": OVERRIDE_PATHS["split_path"][:3],
-    "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3],
+    "main": ("ceiling", 0.0, None, 1),
+    "throughput": ("throughput", 0.005, None, 1),
+    "split": OVERRIDE_PATHS["split_path"][:3] + (1,),
+    "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3] + (1,),
+    "sp": ("ceiling", 0.0, None, 2),
 }
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
@@ -131,6 +134,10 @@ HOST_STAGES = {
     "fresh_window_partials": ("nano_pearl_tpu_torch.ops.attention", "fresh_window_partials"),
     "merge_attn_partials": ("nano_pearl_tpu_torch.ops.attention", "merge_attn_partials"),
     "k12_writeback": ("nano_pearl_tpu_torch.engine.runner", "write_fresh"),
+    "sp_decode_attention": ("nano_pearl_tpu_torch.engine.runner", "sp_paged_attention"),
+    "sp_verify_attention": ("nano_pearl_tpu_torch.engine.runner", "sp_paged_attention_grouped"),
+    "sp_merge": ("nano_pearl_tpu_torch.parallel.sp", "merge_partials"),
+    "sp_write_rows": ("nano_pearl_tpu_torch.parallel.sp", "store_rows"),
     "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
     "verdict": ("nano_pearl_tpu_torch.engine.fused", "verify_verdict"),
 }
@@ -213,8 +220,8 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive)
 
 
 def profile_path(dev, path: str) -> None:
-    profile, noise, env = PATHS[path]
-    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env)
+    profile, noise, env, sp = PATHS[path]
+    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env, sp=sp)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -223,7 +230,8 @@ def profile_path(dev, path: str) -> None:
         add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
         engine.AR_bench_generate(num_steps=4, reserve_steps=AR_STEPS)
 
-    head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {})}
+    head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
+            **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {})}
     out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
                   lambda: engine.bench_generate(num_pearl_steps=ROUNDS))
     print(json.dumps({**head, **out}), flush=True)
