@@ -45,7 +45,11 @@ script exits non-zero without its last line):
    each launch; split_bitwise: K8b's rows against K8a's bit for bit
    (windows inside a 256-key chunk and across one, num_input 1, ctx0 0);
    sp_bitwise: K11c's rows against K11a's, K11d's against K11b's, bit for
-   bit per shard and after the merge;
+   bit per shard and after the merge; prefill_bitwise: K3's rows of the
+   main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
+   one serve-shape sequence alone and in its batch of 8, bit for bit (the
+   K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
+   against the launchers' exported choice);
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
@@ -148,14 +152,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def time_ms(fn, iters: int, flush: torch.Tensor, spin: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after writing ``flush`` (larger than the 50 MB L2)."""
+    CUDA events after writing ``flush`` (larger than the 50 MB L2). With
+    ``spin``, ~0.1 ms of spinning on the card between the flush and the
+    start event lets the host enqueue ``fn`` first: without it, where a
+    wrapper's host work outlasts the flush, the card's wait for it lands
+    inside the timing (the K3/K4 rows read both)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(200_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -163,6 +173,23 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers and spill bytes of each kernel in nvcc's ``-Xptxas -v``
+    report (mangled names, as ptxas prints them)."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -294,18 +321,25 @@ def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1, dtype=t
     )
 
 
+def prefill_inputs(gen, dev, b, lq, n, hq, d, hkv=2) -> tuple:
+    """K3's arguments: ``b`` prompts of ``n`` tokens in an ``lq``-row
+    bucket, bf16 q/k/v [b * lq, heads, d], pos (-1 on padded rows), scale."""
+    q = torch.randn((b * lq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.full((b, lq), -1, dtype=torch.int32, device=dev)
+    pos[:, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+    return q, k, v, pos, d**-0.5
+
+
 def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
     """K3 on ``b`` prompts of ``n`` tokens in an ``lq``-row bucket."""
     import torch.nn.functional as F
 
     from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
-    q = torch.randn((b * lq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b * lq, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
-    pos = torch.full((b, lq), -1, dtype=torch.int32, device=dev)
-    pos[:, :n] = torch.arange(n, dtype=torch.int32, device=dev)
-    args = (q, k, v, pos, d**-0.5)
+    args = prefill_inputs(gen, dev, b, lq, n, hq, d, hkv)
+    q, k, v, pos, _ = args
     got, want = kpf.prefill_self(*args), kpf.plain_prefill(*args)
     torch.cuda.synchronize()
     real = (pos >= 0).reshape(-1)
@@ -320,16 +354,49 @@ def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
         lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=d**-0.5),
         lambda o: o.transpose(1, 2).reshape(b * lq, hq, d), want, real,
     )
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + pos.numel() * 4
+    # q, k and v of the real rows (the padded ones are never read), the
+    # whole output, pos
+    nbytes = (float(real.sum()) * (hq + 2 * hkv) * d + b * lq * hq * d) * 2 + pos.numel() * 4
     b_ms, b_by = bound(nbytes, 4.0 * hq * d * b * n * (n + 1) / 2)
+    design, _ = prefill_design(name, hq // hkv, d, prefix=False)
+    run = lambda: kpf.prefill_self(*args)  # noqa: E731
     return dict(
         name=name, kernel="prefill_self", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
         replaces="nano_pearl_tpu/ops/pallas/prefill_attention.py:43",
-        max_abs_err=err, ms=time_ms(lambda: kpf.prefill_self(*args), 50, flush),
+        max_abs_err=err, ms=time_ms(run, 50, flush),
         plain_ms=time_ms(lambda: kpf.plain_prefill(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush), design=design, split=None,
         shape=dict(batch=b, rows=lq, real_rows=n, hq=hq, hkv=hkv, d=d),
     )
+
+
+def no_spin_ms(run, lib, iters, flush) -> dict:
+    """A K3/K4 row's kernel and SDPA timed without ``time_ms``'s spin, as
+    rows were timed before the prefill kernels' redesign: the wrapper's
+    host work then counts wherever it outlasts the L2 flush."""
+    return dict(ms=time_ms(run, iters, flush, spin=False), library_ms=time_ms(lib, iters, flush, spin=False))
+
+
+def prefill_design(name, g, d, prefix, n_keys=0) -> tuple[str, dict | None]:
+    """K3's or K4's (``prefix``) bf16 tiles at ``g`` query heads per KV
+    head and head dim ``d`` (``prefill_plan``, checked against the
+    launchers' exported ``npt_prefill_plan``) as the row's ``design`` line,
+    and K4's split of a launch whose longest key stream has ``n_keys``
+    keys."""
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
+    plan = kpf.prefill_plan(g, d, 2, prefix)
+    exported = [kpf._lib().npt_prefill_plan(g, d, 1, int(prefix), w) for w in range(5)]
+    if exported != [plan.qt, plan.threads, plan.smem, plan.cell, plan.stages]:
+        raise AssertionError(f"{name}: the launchers' tiles {exported} differ from prefill_plan's {plan}")
+    design = (f"mma.sync m16n8k16 bf16 (P as hi + lo bf16), K/V via cp.async in {plan.stages} stages of "
+              f"{kpf.KEYS} keys; {plan.qt} query rows x {g} heads = {plan.rows} rows a block, "
+              f"{plan.threads // 32} warps, {plan.smem} B shared")
+    if not prefix:
+        return design, None
+    cells = len(kpf.key_cells(n_keys, plan.cell))
+    return design, dict(cell_keys=plan.cell, cells=cells, combine=cells > 1)
 
 
 def mono_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
@@ -963,25 +1030,68 @@ def prefix_inputs(gen, dev, b, n_cached, lq, n_new, hq, hkv, d, nl=3, nb=64, bs=
     return q, k, v, cache, nl - 1, bt, nc, nn, d**-0.5
 
 
+def prefill_bitwise_phase(dev) -> dict:
+    """Row independence of the bf16 prefill kernels on the card, bit for
+    bit: K3's rows of the main path's prompts (32 x 64 tokens, 8x128 heads
+    over 2) in a 128-row and in a 256-row bucket; K4's rows of one sequence
+    of the serve shape (512 cached + 64 new rows in the 128-row bucket,
+    16x64 heads over 2) run alone and inside the batch of 8."""
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
+    gen = torch.Generator(dev).manual_seed(8)
+    b, n, hq, hkv, d = 32, 64, 8, 2, 128
+    fresh = [torch.randn((b, n, h, d), generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hkv, hkv)]
+    outs = {}
+    for lq in (128, 256):
+        pos = torch.full((b, lq), -1, dtype=torch.int32, device=dev)
+        pos[:, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+        padded = [torch.cat([x, torch.zeros((b, lq - n) + x.shape[2:], dtype=x.dtype, device=dev)], 1)
+                  .reshape(b * lq, -1, d) for x in fresh]
+        outs[lq] = kpf.prefill_self(*padded, pos, d**-0.5).reshape(b, lq, hq, d)[:, :n]
+    k3_equal = bool(torch.equal(outs[128], outs[256]))
+    args = prefix_inputs(gen, dev, b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=2, d=64)
+    q, k, v, cache, layer, bt, nc, nn, scale = args
+    batch = kpf.prefill_prefix(*args)
+    k4_equal = {}
+    for i in (0, 5):
+        rows = slice(i * 128, (i + 1) * 128)
+        alone = kpf.prefill_prefix(q[rows], k[rows], v[rows], cache, layer, bt[i : i + 1].contiguous(),
+                                   nc[i : i + 1], nn[i : i + 1], scale)
+        k4_equal[f"sequence_{i}"] = bool(torch.equal(alone, batch[rows]))
+    torch.cuda.synchronize()
+    out = {"phase": "prefill_bitwise", "k3_rows_equal_across_buckets_128_256": k3_equal,
+           "k4_rows_alone_equal_in_batch": k4_equal,
+           "shape": {"k3": "32 prompts x 64 tokens, 8x128 q heads over 2, bf16",
+                     "k4": "8 x (512 cached + 64 new) in a 128-row bucket, 16x64 q heads over 2, bf16"}}
+    emit(out)
+    if not (k3_equal and all(k4_equal.values())):
+        raise AssertionError(f"prefill rows depend on the bucket or the batch: {out}")
+    return out
+
+
+# K4's rows (prefix_inputs' arguments): the serve pair's prefix hit (8 x
+# 512 cached + 64 new rows in the 128-row bucket, 16x64 heads), a
+# chunked-prefill pass (1 x 2048 cached + 1024 new), the bench pair's 8x128
+# heads, and head dims 16, 32 and 256
+PREFIX_ROWS = {
+    "prefill_prefix": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=2, d=64),
+    "prefill_prefix_chunked_pass": dict(b=1, n_cached=2048, lq=1024, n_new=1024, hq=16, hkv=2, d=64),
+    "prefill_prefix_d128": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=128),
+    "prefill_prefix_d16": dict(b=8, n_cached=512, lq=128, n_new=64, hq=4, hkv=2, d=16),
+    "prefill_prefix_d32": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=4, d=32),
+    "prefill_prefix_d256": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=256),
+}
+
+
 def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
-    """K4 at the serve pair's prefix hit (8 x 512 cached + 64 new rows in
-    the 128-row bucket, 16x64 heads), at a chunked-prefill pass (1 x 2048
-    cached + 1024 new) and at the bench pair's 8x128 heads."""
+    """K4 at each of PREFIX_ROWS."""
     import torch.nn.functional as F
 
     from nano_pearl_tpu_torch.ops.attention import _gather_kv
     from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 
-    cases = {
-        "prefill_prefix": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=2, d=64),
-        "prefill_prefix_chunked_pass": dict(b=1, n_cached=2048, lq=1024, n_new=1024, hq=16, hkv=2, d=64),
-        "prefill_prefix_d128": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=128),
-        "prefill_prefix_d16": dict(b=8, n_cached=512, lq=128, n_new=64, hq=4, hkv=2, d=16),
-        "prefill_prefix_d32": dict(b=8, n_cached=512, lq=128, n_new=64, hq=16, hkv=4, d=32),
-        "prefill_prefix_d256": dict(b=8, n_cached=512, lq=128, n_new=64, hq=8, hkv=2, d=256),
-    }
     rows = []
-    for name, c in cases.items():
+    for name, c in PREFIX_ROWS.items():
         args = prefix_inputs(gen, dev, **c)
         q, k, v, cache, layer, bt, nc, nn, scale = args
         got, want = kpf.prefill_prefix(*args), kpf.plain_prefix(*args)
@@ -1011,13 +1121,15 @@ def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
             + bt.numel() * 4 + 2 * b * 4
         flops = 4.0 * hq * d * float((nn * nc + nn * (nn + 1) // 2).sum())
         b_ms, b_by = bound(nbytes, flops)
+        design, split = prefill_design(name, hq // hkv, d, True, bt.shape[1] * cache.shape[3] + lq)
+        run = lambda: kpf.prefill_prefix(*args)  # noqa: B023, E731
         rows.append(dict(
             name=name, kernel="prefill_prefix", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
             replaces="nano_pearl_tpu/ops/pallas/prefill_attention.py:259",
-            max_abs_err=err, ms=time_ms(lambda: kpf.prefill_prefix(*args), 20, flush),  # noqa: B023
+            max_abs_err=err, ms=time_ms(run, 20, flush),
             plain_ms=time_ms(lambda: kpf.plain_prefix(*args), 5, flush),  # noqa: B023
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20, flush),
-            shape=c,
+            no_spin=no_spin_ms(run, lib, 20, flush), design=design, split=split, shape=c,
         ))
     return rows
 
@@ -2124,12 +2236,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines() if "registers" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {src: ptxas_by_kernel(log) for src, log in logs.items()}})
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     kernels = kernel_phase(dev, flush)
     del flush
+    prefill_bitwise_phase(dev)
     split_bitwise_phase(dev)
     decode_verify_bitwise_phase(dev)
     decode_verify_overrides_phase(dev)
@@ -2168,14 +2281,15 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "no_spin")
     line = []
     for name in kernel_counters():  # one row per kernel; its other shapes beside it
         first, *others = [r for r in kernels if r["kernel"] == name]
         first["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         first["launches"] = sum(first["launches_by_path"].values())
         line.append({**{k: first[k] for k in keys},
-                     "other_shapes": [{k: r[k] for k in shape_keys} for r in others]})
+                     **{k: first[k] for k in ("no_spin", "design", "split") if k in first},
+                     "other_shapes": [{k: r[k] for k in shape_keys if k in r} for r in others]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

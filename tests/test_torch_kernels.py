@@ -90,15 +90,16 @@ def prefill_case(seed, dtype, device, b=3, lq=70, hq=8, hkv=2, d=128):
     return [x.to(device) for x in (q, k, v, pos)] + [d**-0.5]
 
 
-def prefix_case(seed, dtype, device, hq=16, hkv=2, d=64, lq=40, nb=40, bs=16, nl=2):
+def prefix_case(seed, dtype, device, hq=16, hkv=2, d=64, lq=40, nb=40, bs=16, nl=2,
+                nc=(37, 64, 0, 20), nn=(40, 17, 25, 0), mpre=8):
     """K4's arguments: a random cache, per-sequence prefix pages, fresh
-    q/k/v; sequences with a multi-page prefix and a ragged tail, a
-    block-aligned prefix, no prefix at all, and a fully padded one."""
+    q/k/v; by default sequences with a multi-page prefix and a ragged tail,
+    a block-aligned prefix, no prefix at all, and a fully padded one."""
     g = torch.Generator().manual_seed(seed)
     cache = torch.randn((nl, 2, nb + 1, bs, hkv * d), generator=g).to(dtype)
-    nc = torch.tensor([37, 64, 0, 20], dtype=torch.int32)
-    nn = torch.tensor([40, 17, 25, 0], dtype=torch.int32)
-    b, mpre = len(nc), 8
+    nc = torch.tensor(nc, dtype=torch.int32)
+    nn = torch.tensor(nn, dtype=torch.int32)
+    b = len(nc)
     bt = torch.full((b, mpre), nb, dtype=torch.int32)  # garbage-block padding
     perm = torch.randperm(nb, generator=g).to(torch.int32)
     used = 0
@@ -641,6 +642,117 @@ def test_prefill_kernels_take_head_dims_16_and_256(cuda, dtype, heads):
     args = prefix_case(66, dtype, cuda, hq=hq, hkv=hkv, d=d)
     torch.testing.assert_close(kpf.prefill_prefix(*args).float(), kpf.plain_prefix(*args).float(),
                                **TOL[dtype])
+
+
+def test_prefill_plan_mirror_matches_the_launchers(cuda):
+    """The exported tile choice of K3/K4's launchers (``npt_prefill_plan``)
+    equals the mirror ``prefill_plan`` for every head dim and GQA ratio."""
+    lib = kpf._lib()
+    for d in range(16, 257, 16):
+        for g in (1, 2, 3, 4, 5, 8, 16):
+            for bf16, size in ((1, 2), (0, 4)):
+                for prefix in (False, True):
+                    p = kpf.prefill_plan(g, d, size, prefix)
+                    got = [lib.npt_prefill_plan(g, d, bf16, int(prefix), w) for w in range(5)]
+                    assert got == [p.qt, p.threads, p.smem, p.cell, p.stages], (g, d, size, prefix)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_prefill_kernels_match_plain_at_g1_and_g8(cuda, dtype, g, d):
+    """K3 and K4 with one query head per KV head (a block's 16 rows are 16
+    query positions; on the tensor-core route 64) and with eight (16 rows
+    = 2 positions x 8 heads), at head dims 16 to 256, against their plain
+    versions; padded rows and the sequence with n_new = 0 give 0."""
+    hq, hkv = 2 * g, 2
+    q, k, v, pos, scale = prefill_case(70 + d + g, dtype, cuda, hq=hq, hkv=hkv, d=d)
+    got, want = kpf.prefill_self(q, k, v, pos, scale), kpf.plain_prefill(q, k, v, pos, scale)
+    real = (pos >= 0).reshape(-1)
+    torch.testing.assert_close(got[real].float(), want[real].float(), **TOL[dtype])
+    assert bool((got[~real] == 0).all())
+    args = prefix_case(71 + d + g, dtype, cuda, hq=hq, hkv=hkv, d=d)
+    got = kpf.prefill_prefix(*args)
+    torch.testing.assert_close(got.float(), kpf.plain_prefix(*args).float(), **TOL[dtype])
+    lq = args[0].shape[0] // 4
+    padded = (torch.arange(lq, device=cuda)[None, :] >= args[7][:, None]).reshape(-1)
+    assert bool((got[padded] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_prefix_split_matches_plain(cuda, dtype):
+    """K4 where the bf16 launcher splits the key stream into cells of
+    ``plan.cell`` keys (streams of 1,396 and 1,033 keys: two cells, the
+    second one ending inside the fresh rows; 670 and 33: one cell; a fully
+    padded sequence over a 1,100-key prefix: two cells, no real row)
+    against its plain version; padded rows and n_new = 0 give 0."""
+    hq, hkv, d, bs = 16, 2, 64, 16
+    assert kpf.prefill_plan(hq // hkv, d, 2, prefix=True).cell == 512
+    args = prefix_case(72, dtype, cuda, hq=hq, hkv=hkv, d=d, lq=96, nb=300, bs=bs,
+                       nc=(1300, 600, 0, 1024, 1100), nn=(96, 70, 33, 9, 0), mpre=128)
+    got = kpf.prefill_prefix(*args)
+    torch.testing.assert_close(got.float(), kpf.plain_prefix(*args).float(), **TOL[dtype])
+    padded = (torch.arange(96, device=cuda)[None, :] >= args[7][:, None]).reshape(-1)
+    assert bool((got[padded] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_prefix_full_table_matches_plain(cuda, dtype):
+    """K4 with nc at the table's end (Mpre * BS = 1,024 cached keys, so the
+    bf16 launch has two cells and these sequences fill them) and with an nc
+    past it (1,500), which the plain version's gather of Mpre pages takes
+    as 1,024: against the plain version; padded rows give 0."""
+    hq, hkv, d, bs, lq, mpre = 16, 2, 64, 16, 64, 64
+    args = prefix_case(75, dtype, cuda, hq=hq, hkv=hkv, d=d, lq=lq, nb=240, bs=bs,
+                       nc=(1024, 1024, 1024, 300), nn=(64, 40, 0, 64), mpre=mpre)
+    assert len(kpf.key_cells(mpre * bs + lq, kpf.CELL)) == 2
+    args[6][1] = 1500
+    got = kpf.prefill_prefix(*args)
+    torch.testing.assert_close(got.float(), kpf.plain_prefix(*args).float(), **TOL[dtype])
+    padded = (torch.arange(lq, device=cuda)[None, :] >= args[7][:, None]).reshape(-1)
+    assert bool((got[padded] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_self_rows_do_not_depend_on_the_bucket_bitwise(cuda, dtype):
+    """K3's real rows give the same bits in a 128-row and in a 256-row
+    bucket: tile and key boundaries are fixed by position, and the rows of
+    a block's products are independent."""
+    b, hq, hkv, d = 4, 8, 2, 128
+    lens = (64, 37, 128, 1)
+    g = torch.Generator().manual_seed(73)
+    q = torch.randn((b, 128, hq, d), generator=g).to(dtype)
+    k = torch.randn((b, 128, hkv, d), generator=g).to(dtype)
+    v = torch.randn((b, 128, hkv, d), generator=g).to(dtype)
+    outs = []
+    for lq in (128, 256):
+        pos = torch.full((b, lq), -1, dtype=torch.int32)
+        for i, n in enumerate(lens):
+            pos[i, :n] = torch.arange(n, dtype=torch.int32)
+        pad = lambda x: torch.cat([x, torch.zeros((b, lq - 128) + x.shape[2:], dtype=dtype)], 1)  # noqa: E731
+        args = [pad(x).reshape(b * lq, *x.shape[2:]).to(cuda) for x in (q, k, v)]
+        out = kpf.prefill_self(*args, pos.to(cuda), d**-0.5).reshape(b, lq, hq, d)
+        outs.append(out[:, :128])
+    for i, n in enumerate(lens):
+        assert torch.equal(outs[0][i, :n], outs[1][i, :n])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_prefix_rows_do_not_depend_on_the_batch_bitwise(cuda, dtype):
+    """K4's rows of one sequence give the same bits run alone (its own
+    block table, so fewer cells in the launch) and inside a batch of
+    sequences with other prefixes."""
+    hq, hkv, d, bs, lq = 16, 2, 64, 16, 64
+    args = prefix_case(74, dtype, cuda, hq=hq, hkv=hkv, d=d, lq=lq, nb=200, bs=bs,
+                       nc=(900, 40, 1500, 512), nn=(50, 64, 20, 7), mpre=128)
+    q, k, v, cache, layer, bt, nc, nn, scale = args
+    batch = kpf.prefill_prefix(*args)
+    for i in range(4):
+        rows = slice(i * lq, (i + 1) * lq)
+        pages = -(-int(nc[i]) // bs)
+        alone = kpf.prefill_prefix(q[rows], k[rows], v[rows], cache, layer, bt[i : i + 1, :pages].contiguous(),
+                                   nc[i : i + 1], nn[i : i + 1], scale)
+        assert torch.equal(alone, batch[rows])
 
 
 def test_rows_per_block_choice():

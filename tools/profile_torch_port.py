@@ -2,7 +2,7 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp,prefill]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
@@ -32,6 +32,13 @@ and its attention, writeback and LM head, verdict), taken with
 perf_counter around those calls in the unprofiled run: the host only
 enqueues there, so this is dispatch time. It prints the card's name and
 power limit first. Needs one CUDA card.
+
+"prefill" is no bench path: it runs the prefill kernels K3 and K4 alone
+at chip_smoke.py's main K3/K4 rows (L2 warm, PREFILL_CALLS calls after
+three warm-ups) and prints, for each row, the mean device microseconds
+per call of each CUDA kernel a call launches (how a K4 call divides
+between its tile kernel and its combine) and the host microseconds the
+wrapper takes to enqueue a call.
 """
 
 from __future__ import annotations
@@ -51,11 +58,27 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import OVERRIDE_PATHS, add_requests, nvidia_smi, pair_engine  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    OVERRIDE_PATHS,
+    PREFIX_ROWS,
+    add_requests,
+    nvidia_smi,
+    pair_engine,
+    prefill_inputs,
+    prefix_inputs,
+)
 
 BATCH, GAMMA, ROUNDS, PROMPT = 32, 14, 145, 64
 AR_STEPS = ROUNDS * (GAMMA + 1) - 1  # chip_smoke.py's AR window
 PEARL_SAMPLE, AR_SAMPLE = 5, 50
+# chip_smoke.py's main K3 rows (prefill_inputs' arguments) and K4 rows
+PREFILL_ROWS = {
+    "prefill_self": ("self", dict(b=32, lq=128, n=64, hq=8, d=128)),
+    "prefill_self_serve": ("self", dict(b=8, lq=128, n=64, hq=16, d=64)),
+    **{name: ("prefix", PREFIX_ROWS[name])
+       for name in ("prefill_prefix", "prefill_prefix_chunked_pass", "prefill_prefix_d128")},
+}
+PREFILL_CALLS = 20
 
 
 class PerRound:
@@ -243,11 +266,44 @@ def profile_path(dev, path: str) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_prefill(dev) -> None:
+    """Device us per call by CUDA kernel, and the wrapper's host us per
+    call, of K3/K4 at each of PREFILL_ROWS."""
+    from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
+
+    gen = torch.Generator(dev).manual_seed(0)
+    for row, (kind, shape) in PREFILL_ROWS.items():
+        if kind == "self":
+            args, fn = prefill_inputs(gen, dev, **shape), kpf.prefill_self
+        else:
+            args, fn = prefix_inputs(gen, dev, **shape), kpf.prefill_prefix
+        for _ in range(3):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # unprofiled: the host's enqueue time alone
+        for _ in range(PREFILL_CALLS):
+            fn(*args)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PREFILL_CALLS):
+                fn(*args)
+            torch.cuda.synchronize()
+        device_us = {e.key: e.self_device_time_total / PREFILL_CALLS for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+        if not device_us:
+            raise RuntimeError(f"{row}: the profiler saw no device time")
+        print(json.dumps({"path": "prefill", "row": row, "shape": shape, "calls": PREFILL_CALLS,
+                          "host_us_per_call": host_s * 1e6 / PREFILL_CALLS,
+                          "device_us_per_call_by_kernel": device_us}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", default="main,throughput", help="comma-separated: " + ", ".join(PATHS))
+    ap.add_argument("--paths", default="main,throughput",
+                    help="comma-separated: " + ", ".join([*PATHS, "prefill"]))
     paths = ap.parse_args().paths.split(",")
-    if not set(paths) <= set(PATHS):
+    if not set(paths) <= set(PATHS) | {"prefill"}:
         ap.error(f"unknown path in {paths}")
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -255,7 +311,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(nvidia_smi(), flush=True)
     for path in paths:
-        profile_path(dev, path)
+        if path == "prefill":
+            profile_prefill(dev)
+        else:
+            profile_path(dev, path)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
