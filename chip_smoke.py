@@ -49,7 +49,10 @@ script exits non-zero without its last line):
    main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
-   against the launchers' exported choice);
+   against the launchers' exported choice; the K10/K11 rows their page
+   walk's plan, ``design``, held against the exported ``npt_walk_plan``,
+   the ``blocks`` they launch, their ``share`` of the bound, and, as the
+   K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
@@ -360,7 +363,7 @@ def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
     b_ms, b_by = bound(nbytes, 4.0 * hq * d * b * n * (n + 1) / 2)
     design, _ = prefill_design(name, hq // hkv, d, prefix=False)
     run = lambda: kpf.prefill_self(*args)  # noqa: E731
-    return dict(
+    row = dict(
         name=name, kernel="prefill_self", route="cuda", source="nano_pearl_tpu_torch/csrc/prefill_attention.cu",
         replaces="nano_pearl_tpu/ops/pallas/prefill_attention.py:43",
         max_abs_err=err, ms=time_ms(run, 50, flush),
@@ -369,13 +372,42 @@ def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
         no_spin=no_spin_ms(run, lib, 50, flush), design=design, split=None,
         shape=dict(batch=b, rows=lq, real_rows=n, hq=hq, hkv=hkv, d=d),
     )
+    row["blocks"] = launched_blocks(run)  # profiled last, after the row's timings
+    return row
 
 
 def no_spin_ms(run, lib, iters, flush) -> dict:
-    """A K3/K4 row's kernel and SDPA timed without ``time_ms``'s spin, as
-    rows were timed before the prefill kernels' redesign: the wrapper's
+    """A K3/K4 or K10/K11 row's kernel and SDPA timed without ``time_ms``'s
+    spin, as rows were timed before those kernels' redesigns: the wrapper's
     host work then counts wherever it outlasts the L2 flush."""
     return dict(ms=time_ms(run, iters, flush, spin=False), library_ms=time_ms(lib, iters, flush, spin=False))
+
+
+def launched_blocks(run) -> dict:
+    """The blocks that one call of ``run`` launched, by CUDA kernel (its
+    name without namespace and arguments): each kernel event's grid in a
+    torch.profiler trace of that call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    if not events:
+        raise AssertionError("the profiler recorded no kernel")
+    blocks = {}
+    for e in events:
+        grid = e.get("args", {}).get("grid")
+        if grid is None:
+            raise AssertionError(f"the profiler's event of {e['name']} has no grid")
+        name = e["name"].split("(")[0].split("::")[-1]
+        blocks[name] = blocks.get(name, 0) + int(np.prod(grid))
+    return blocks
 
 
 def prefill_design(name, g, d, prefix, n_keys=0) -> tuple[str, dict | None]:
@@ -839,6 +871,46 @@ FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
 }
 
 
+def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None) -> tuple[str, dict, dict]:
+    """The bf16 page walk's plan for a K10/K11 row (``paged_walk.walk_plan``,
+    checked against the launchers' exported ``npt_walk_plan``) as the row's
+    ``design`` line; the blocks one call of ``run`` launched, by kernel
+    (``launched_blocks``), checked against the plan's grid (and its
+    combine's, none where the table is one cell); and what the plan says of
+    them, computed here on the host from the row's tables and contexts, not
+    measured: keys a cell, cells a table, and the blocks that do work (a
+    cell below its row slice's longest context that holds a local page)."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
+
+    plan = kpw.walk_plan(rows, hq // hkv, hkv, d, bs, 2, quant)
+    exported = [lib.npt_walk_plan(rows, hq // hkv, hkv, d, bs, 1, int(quant), w) for w in range(6)]
+    want = [plan.cell, plan.warp_rows, plan.rpb, plan.threads, plan.stages, plan.smem]
+    if exported != want:
+        raise AssertionError(f"{name}: the launchers' plan {exported} differs from walk_plan's {plan}")
+    groups, m = bt.shape
+    cells = len(kpw.key_cells(m * bs, plan.cell))
+    slices = -(-rows // plan.rpb)
+    ctx_g = ctx.reshape(groups, rows).clamp(max=m * bs).cpu()
+    local = (is_local if is_local is not None else torch.ones_like(bt)).bool().cpu()
+    working = 0
+    for grp in range(groups):
+        for sl in range(slices):
+            top = int(ctx_g[grp, sl * plan.rpb : (sl + 1) * plan.rpb].max())
+            for lo in range(0, top, plan.cell):
+                hi = min(lo + plan.cell, top)
+                working += bool(local[grp, lo // bs : (hi - 1) // bs + 1].any())
+    design = (f"mma.sync m16n8k16 bf16 (P as hi + lo bf16), K/V via cp.async in {plan.stages} stages of "
+              f"{kpw.KEYS} keys; {plan.cell}-key cells; {plan.rpb} rows x {hq // hkv} heads a block, "
+              f"{plan.threads // 32} warps, {plan.smem} B shared")
+    blocks = launched_blocks(run)
+    walk = sum(n for k, n in blocks.items() if k.startswith("walk_mma_kernel"))
+    combine = blocks.get("walk_combine_kernel", 0)
+    want = (cells * slices * hkv * groups, groups * rows * -(-hq * d // kpw.THREADS) if cells > 1 else 0)
+    if (walk, combine) != want or walk + combine != sum(blocks.values()):
+        raise AssertionError(f"{name}: one call launched {blocks}, the plan's grids are (walk, combine) {want}")
+    return design, blocks, dict(cell_keys=plan.cell, cells=cells, working_blocks=working * hkv)
+
+
 def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, layer=1) -> dict:
     """K10a (``rows`` 1, one row per context) or K10b, or over a ``kind``
     ("int8") cache K10c / K10d, on a cache of ``bs``-key pages, held against
@@ -876,17 +948,23 @@ def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, l
     per_token = 2 * hkv * (d + 2) if kind else 2 * hkv * d * 2
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * per_token
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    return dict(
+    run = lambda: fn(*args)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
         name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention_fallback.cu",
         replaces=FALLBACK_KERNELS[kernel], cache=kind or "bf16",
-        max_abs_err=err, ms=time_ms(lambda: fn(*args), 50, flush),
-        plain_ms=time_ms(lambda: plain(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: plain(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush),
         library="SDPA over the cache gathered (and dequantized) to bf16, the SDPA call alone",
         **({"verify_rows_equal_decode": True} if rows > 1 else {}),
         shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, block=bs, ctx_min=int(ctx.min()),
                    ctx_max=int(ctx.max())),
     )
+    # profiled last, after the row's timings
+    row.update(zip(("design", "blocks", "plan_blocks"),
+                   walk_design(name, kfb._lib(), run, ctx, bt, rows, hq, hkv, d, bs, bool(kind))))
+    return row
 
 
 PARTIALS_KERNELS = {  # K11a-d's wrappers -> the TPU kernel body each replaces
@@ -970,18 +1048,24 @@ def partials_row(gen, dev, flush, name, ctx0, rows, kind=None, layer=1, hq=8, hk
     nbytes = 2 * q.numel() * 2 + 2 * q.shape[0] * hq * 4 + 2 * bt.numel() * 4 + ctx.numel() * 4 \
         + kv_tokens * per_token
     b_ms, b_by = bound(nbytes, 4 * seen * hq * d)
-    return dict(
+    run = lambda: fn(*args0)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
         name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention_partials.cu",
         replaces=PARTIALS_KERNELS[kernel], cache=kind or "bf16",
         max_abs_err=max(errs), merged_max_abs_err=(merged.float() - ref.float()).abs().max().item(),
         merged_against=whole.__name__,
-        ms=time_ms(lambda: fn(*args0), 50, flush), plain_ms=time_ms(lambda: plain(*args0), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        ms=ms, plain_ms=time_ms(lambda: plain(*args0), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush),
         library="SDPA over shard 0's gathered (dequantized) rows, masked to its local visible keys, o only",
         timed="shard 0 of 2 (260 of 520 blocks)", shard0_local_kv_tokens=kv_tokens,
         shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, block=bs, ctx_min=int(ctx.min()),
                    ctx_max=int(ctx.max())),
     )
+    row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
+                   walk_design(name, kpp._lib(), run, ctx, local0, rows, hq, hkv, d, bs, bool(kind), is_local0)))
+    return row
 
 
 def sp_bitwise_phase(dev, rows=14, layer=1) -> None:
@@ -1131,6 +1215,9 @@ def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20, flush),
             no_spin=no_spin_ms(run, lib, 20, flush), design=design, split=split, shape=c,
         ))
+        rows[-1]["blocks"] = blocks = launched_blocks(run)  # profiled last, after the row's timings
+        if ("prefill_combine_kernel" in blocks) != split["combine"]:
+            raise AssertionError(f"{name}: one call launched {blocks}, the plan's split is {split}")
     return rows
 
 
@@ -1165,21 +1252,24 @@ def overrides(env: dict | None):
 
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
-                kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None):
+                kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None, widths=None):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
     models); ``env``: schedule overrides set around the construction;
     ``dirs``: (draft, target) HF checkpoint directories the engine loads,
     in place of the bench's layer-share pair; ``sp``: draft_sp = target_sp
     (sequence parallelism, the shards sharing the one card); ``num_blocks``:
-    the pools' blocks, in place of the bench's count."""
-    from nano_pearl_tpu_torch import PearlConfig, PearlEngine
+    the pools' blocks, in place of the bench's count; ``widths``: the
+    layer-share pair's ModelConfig fields (as SMOLLM2_360M), in place of
+    the bench's widths."""
+    from nano_pearl_tpu_torch import ModelConfig, PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
     if dirs:
         (md, mt), dp, tp = dirs, None, None
     else:
-        md, mt = model_config(ld, dtype), model_config(lt, dtype)
+        md, mt = ((model_config(ld, dtype), model_config(lt, dtype)) if widths is None else
+                  (ModelConfig(num_hidden_layers=ld, **widths), ModelConfig(num_hidden_layers=lt, **widths)))
         dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
     max_len = max(256, 1 << (prompt_len + steps * (gamma + 1) + 64).bit_length())
     cfg = PearlConfig(
@@ -2281,14 +2371,15 @@ def main() -> int:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "no_spin")
+    shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "no_spin",
+                  "share", "blocks")
     line = []
     for name in kernel_counters():  # one row per kernel; its other shapes beside it
         first, *others = [r for r in kernels if r["kernel"] == name]
         first["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         first["launches"] = sum(first["launches_by_path"].values())
         line.append({**{k: first[k] for k in keys},
-                     **{k: first[k] for k in ("no_spin", "design", "split") if k in first},
+                     **{k: first[k] for k in ("no_spin", "share", "design", "blocks") if k in first},
                      "other_shapes": [{k: r[k] for k in shape_keys if k in r} for r in others]})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -20,9 +20,9 @@
 //
 // The head dim d is a run-time value read in 8-element vectors (16 for a
 // 1-byte cache): every multiple of 16 from 16 to 256 runs. A tile holds kT
-// keys, a template parameter: kTile (64) everywhere but in the paged
-// fallback kernels K10a-d, which stage one cache page at a time and take
-// kT 16 or 32 for pages of that size.
+// keys, a template parameter: kTile (64) everywhere but in the f32 page
+// walk of K10a-d / K11a-d (paged_walk.cuh), which stages one cache page at
+// a time and takes kT 16 or 32 for pages of that size.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -294,10 +294,13 @@ struct CellMask {
 // cells i = 0, 1, ... (in that order) with use(i) true, each partial at
 // acc[at(i) * d] and ml[at(i) * 2]; rounded once to T. Every kernel that
 // folds partials in a combine pass does it here, so two kernels that give
-// a row the same partials in the same order give it the same bits.
+// a row the same partials in the same order give it the same bits. Where
+// m_out / l_out are given, the folded max (kMFloor where no cell is used)
+// and sum go there.
 template <typename T, typename Use, typename At>
 __device__ __forceinline__ T fold_partials(const float* acc, const float* ml, int d, int c,
-                                           int cells, const Use& use, const At& at) {
+                                           int cells, const Use& use, const At& at,
+                                           float* m_out = nullptr, float* l_out = nullptr) {
   float mg = kMFloor;
   for (int i = 0; i < cells; ++i)
     if (use(i)) mg = fmaxf(mg, ml[at(i) * 2]);
@@ -309,6 +312,8 @@ __device__ __forceinline__ T fold_partials(const float* acc, const float* ml, in
     l = fmaf(ml[p * 2 + 1], w, l);
     a = fmaf(acc[p * d + c], w, a);
   }
+  if (m_out) *m_out = mg;
+  if (l_out) *l_out = l;
   return from_f32<T>(a / fmaxf(l, 1e-30f));
 }
 

@@ -22,55 +22,50 @@
 // max(l, 1e-30) in the query's type (the Pallas entries return q.dtype),
 // m and l in f32.
 //
-// Layout: the page walk of the fallbacks K10a-d (paged_walk.cuh): one block
-// per (row group, KV head, slice of the group's rows) walks the table one
-// page at a time with no split-K, so it takes every head dim 16..256 and
-// every Hkv * D, and a K11c row equals the K11a row of the same query,
-// context and table bit for bit (K11d's K11b's): the layer-share pair's
-// draft decodes through K11a and its target verifies through K11c, and the
-// merge is one elementwise function of (o, m, l), so the ceiling holds
-// under sp as without.
+// Layout: the page walk of the fallbacks K10a-d (paged_walk.cuh), which
+// takes every head dim 16..256 and every Hkv * D and carries the argument
+// that a K11c row equals the K11a row of the same query, context and table
+// bit for bit (K11d's K11b's): the layer-share pair's draft decodes through
+// K11a and its target verifies through K11c, and the merge is one
+// elementwise function of (o, m, l), so the ceiling holds under sp as
+// without. A cell that holds no local page does no work: its block writes
+// the floor partials (m = -1e29, l = 0) and the combine skips them.
 //
 // Bound on the H100: bytes (a group reads its shard's share of its
-// context's K/V once per KV head, ~4 flops per byte at decode). No
-// tensor cores, no TMA, no split-K yet.
+// context's K/V once per KV head, ~4 flops per byte at decode).
 #include "paged_walk.cuh"
 
 extern "C" {
 
+// walk_plan's field `what`, as npt_walk_plan in paged_attention_fallback.cu.
+long long npt_walk_plan(int rows, int g, int hkv, int d, int bs, int is_bf16, int q8, int what) {
+  return npt::walk_plan_field(rows, g, hkv, d, bs, is_bf16 != 0, q8 != 0, what);
+}
+
 // K11a (rows 1) / K11c: q, o [b * rows, hq, d] bf16 or f32 (is_bf16), the
 // shard's cache of the same type [L, 2, NB1_loc, bs, hkv * d]; bt [b, m]
 // local block ids; ctx [b * rows] global contexts; is_local [b, m] int32;
-// m_out, l_out [b * rows, hq] f32. Returns cudaGetLastError().
+// m_out, l_out [b * rows, hq] f32; part_acc / part_ml as npt_fallback's.
+// Returns cudaGetLastError() after the launches.
 int npt_partials(const void* q, const void* cache, const int* bt, const int* ctx,
-                 const int* is_local, void* out, float* m_out, float* l_out, int b, int rows, int m,
-                 int hq, int hkv, int d, int bs, long long k_off, long long v_off, float scale,
-                 int is_bf16, void* stream) {
-  if (rows < 1 || d % 8) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return (int)npt::launch_walk<__nv_bfloat16, __nv_bfloat16, true>(
-        b, rows, q, cache, nullptr, bt, ctx, is_local, out, m_out, l_out, m, hq, hkv, d, bs, k_off,
-        v_off, scale, stream);
-  return (int)npt::launch_walk<float, float, true>(b, rows, q, cache, nullptr, bt, ctx, is_local,
-                                                   out, m_out, l_out, m, hq, hkv, d, bs, k_off,
-                                                   v_off, scale, stream);
+                 const int* is_local, void* out, float* m_out, float* l_out, float* part_acc,
+                 float* part_ml, int b, int rows, int m, int hq, int hkv, int d, int bs,
+                 long long k_off, long long v_off, float scale, int is_bf16, void* stream) {
+  return (int)npt::launch_walk<true>(is_bf16 != 0, 0, b, rows, q, cache, nullptr, bt, ctx,
+                                     is_local, out, m_out, l_out, part_acc, part_ml, m, hq, hkv, d,
+                                     bs, k_off, v_off, scale, stream);
 }
 
 // K11b (rows 1) / K11d: npt_partials over a 1-byte shard (int8, or e4m3
 // with is_fp8) and its bf16 scales [rows, hkv].
 int npt_partials_q8(const void* q, const void* cache, const void* scales, const int* bt,
                     const int* ctx, const int* is_local, void* out, float* m_out, float* l_out,
-                    int b, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
-                    long long v_off, float scale, int is_bf16, int is_fp8, void* stream) {
-  if (rows < 1 || d % 16) return (int)cudaErrorInvalidValue;  // 16 one-byte values per load
-  if (is_bf16)
-    return (int)npt::launch_walk_q8<__nv_bfloat16, true>(b, rows, q, cache, scales, bt, ctx,
-                                                         is_local, out, m_out, l_out, m, hq, hkv,
-                                                         d, bs, k_off, v_off, scale, is_fp8,
-                                                         stream);
-  return (int)npt::launch_walk_q8<float, true>(b, rows, q, cache, scales, bt, ctx, is_local, out,
-                                               m_out, l_out, m, hq, hkv, d, bs, k_off, v_off,
-                                               scale, is_fp8, stream);
+                    float* part_acc, float* part_ml, int b, int rows, int m, int hq, int hkv,
+                    int d, int bs, long long k_off, long long v_off, float scale, int is_bf16,
+                    int is_fp8, void* stream) {
+  return (int)npt::launch_walk<true>(is_bf16 != 0, is_fp8 ? 2 : 1, b, rows, q, cache, scales, bt,
+                                     ctx, is_local, out, m_out, l_out, part_acc, part_ml, m, hq,
+                                     hkv, d, bs, k_off, v_off, scale, stream);
 }
 
 const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

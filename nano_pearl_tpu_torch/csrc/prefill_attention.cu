@@ -28,7 +28,8 @@
 // is exported as npt_prefill_plan, mirrored by ops/cuda/prefill_attention
 // prefill_plan):
 //
-// bf16, tensor cores (prefill_mma_kernel<D, K4?>). A block takes one
+// bf16, tensor cores (prefill_mma_kernel<D, K4?>, on mma_tile.cuh's tile
+//   step, which the page walk K10/K11 shares). A block takes one
 //   (query tile of qt rows, KV head, sequence) and packs the qt * G query
 //   vectors of the KV head (GQA) as the rows of its products, 16 to a warp
 //   (about 64; a multiple of 16 where lcm(G, 16) rows fit eight warps).
@@ -94,9 +95,8 @@
 // rate and the softmax's per-score scalar work hold the kernel back (hi +
 // lo P doubles P V's products); warpgroup MMA (wgmma) with TMA copies is
 // the next step for it.
-#include <climits>
-
 #include "flash_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace npt {
 
@@ -104,15 +104,12 @@ constexpr int kQTile = 16;    // f32 route: query rows per block, at most
 constexpr int kMmaRows = 64;  // bf16 route: query vectors per block, about
 constexpr int kKeys = 64;     // bf16 route: keys per staged tile
 constexpr int kCell = 512;    // bf16 K4: keys per partial (a multiple of kKeys)
-// Key tags and row positions of the bf16 route: key t is visible to a row
-// iff tag[t] <= pos(row). A cached key is visible to every real row, a
-// fresh one to the rows at or past its position, an absent one (past the
-// stream, or padded) to none; a padded row sees nothing.
+// Key tags and row positions of the bf16 route (mma_tile.cuh): key t is
+// visible to a row iff tag[t] <= pos(row). A cached key is visible to every
+// real row, a fresh one to the rows at or past its position, an absent one
+// (kNone: past the stream, or padded) to none; a padded row (kNoRow) sees
+// nothing.
 constexpr int kPre = INT_MIN + 1;  // tag of a cached key
-constexpr int kNone = INT_MAX;     // tag of an absent key
-constexpr int kNoRow = INT_MIN;    // position of a padded row
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles of one launch: qt query rows per block, threads per block, dynamic
 // shared memory, K4's keys per cell (0: no split) and the bf16 route's K/V
@@ -183,67 +180,6 @@ inline Plan prefill_plan(int g, int d, bool bf16, bool prefix) {
 
 // ------------------------------------------------------- bf16: tensor cores
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most n of this thread's newest copy groups are in flight.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A masked score: -inf, so that s * sl2 - m stays -inf at any scale (p
-// exactly 0); the running max starts at kMFloor and stays finite.
-__device__ __forceinline__ float masked() { return __int_as_float(0xff800000); }
-
-// 2^x (ex2.approx: relative error < 2^-22; exactly 1 at 0, 0 at -inf).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as bf16 pairs hi = bf16(.) and lo = bf16(. - hi): hi + lo holds
-// 16 bits of each value.
-__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
 struct PrefillArgs {
   const __nv_bfloat16 *q, *k, *v, *cache;
   const int *pos, *bt, *ncs, *nns;  // K3: pos; K4: bt, ncs, nns
@@ -262,7 +198,6 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(const PrefillArgs
   constexpr int kS = mma_stages(kD, kPrefix);  // K/V stages of the ring
   constexpr int kP = kD + 8;          // shared-memory pitch (elements)
   constexpr int kVecs = kD / 8;       // 16-byte pieces of a row
-  constexpr int kNT = kKeys / 8;      // n8 tiles of S
   constexpr bool kQRegs = kD <= 128;  // Q's A-fragments in registers
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nthr = blockDim.x;
   const int cell = blockIdx.x % a.n_cells, q0 = blockIdx.x / a.n_cells * a.qt;
@@ -384,101 +319,8 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(const PrefillArgs
       }
     }
 
-    // S = Q K^T over the tile's 64 keys.
-    const __nv_bfloat16* kt = ks + st * kKeys * kP;
-    float s[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks16 = 0; ks16 < kD / 16; ++ks16) {
-      unsigned af[4];
-      if constexpr (kQRegs) {
-        af[0] = qf[ks16][0];
-        af[1] = qf[ks16][1];
-        af[2] = qf[ks16][2];
-        af[3] = qf[ks16][3];
-      } else {
-        ldsm_x4(af, qw + ks16 * 16);
-      }
-#pragma unroll
-      for (int nb = 0; nb < kKeys / 16; ++nb) {
-        unsigned b[4];
-        ldsm_x4(b, kt + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * kP + ks16 * 16 +
-                       ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nb], af, b[0], b[1]);
-        mma_bf16(s[2 * nb + 1], af, b[2], b[3]);
-      }
-    }
-
-    // Mask, then the online softmax of rows ra and rb (quad-wide).
-    const int* tag = ktag + st * kKeys;
-    float mx_a = masked(), mx_b = masked();
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = tag[j * 8 + (lane & 3) * 2 + e];
-        s[j][e] = key <= qpa ? s[j][e] : masked();
-        s[j][2 + e] = key <= qpb ? s[j][2 + e] : masked();
-        mx_a = fmaxf(mx_a, s[j][e]);
-        mx_b = fmaxf(mx_b, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(~0u, mx_a, x));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(~0u, mx_b, x));
-    }
-    const float mn_a = fmaxf(m_a, mx_a * sl2), mn_b = fmaxf(m_b, mx_b * sl2);
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = ex2(fmaf(s[j][e], sl2, -mn_a));
-        s[j][2 + e] = ex2(fmaf(s[j][2 + e], sl2, -mn_b));
-        sum_a += s[j][e];
-        sum_b += s[j][2 + e];
-      }
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      sum_a += __shfl_xor_sync(~0u, sum_a, x);
-      sum_b += __shfl_xor_sync(~0u, sum_b, x);
-    }
-    const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
-    l_a = fmaf(l_a, al_a, sum_a);
-    l_b = fmaf(l_b, al_b, sum_b);
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      o[dt][0] *= al_a;
-      o[dt][1] *= al_a;
-      o[dt][2] *= al_b;
-      o[dt][3] *= al_b;
-    }
-
-    // O += P V, P from the S accumulators as hi + lo bf16 A-fragments.
-    const __nv_bfloat16* vt = vs + st * kKeys * kP;
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      unsigned ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dn = 0; dn < kD / 16; ++dn) {
-        unsigned b[4];
-        ldsm_x4_trans(b, vt + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * kP + dn * 16 +
-                             ((lane >> 4) << 3));
-        mma_bf16(o[2 * dn], ph, b[0], b[1]);
-        mma_bf16(o[2 * dn + 1], ph, b[2], b[3]);
-        mma_bf16(o[2 * dn], pl, b[0], b[1]);
-        mma_bf16(o[2 * dn + 1], pl, b[2], b[3]);
-      }
-    }
+    mma_tile_step<kD, kKeys, kQRegs>(qf, qw, ks + st * kKeys * kP, vs + st * kKeys * kP,
+                                     ktag + st * kKeys, qpa, qpb, sl2, m_a, m_b, l_a, l_b, o);
   }
 
   // Rows ra (o[.][0..1]) and rb (o[.][2..3]): the output, or K4's partial.

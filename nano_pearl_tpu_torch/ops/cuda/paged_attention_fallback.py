@@ -14,12 +14,15 @@ routes the port's calls the same way. Their plain versions are
 (K10b, K10d), which read either cache kind (ops/attention.py).
 
 What bounds them on the H100: bytes, as K1/K2 (a group reads its
-context's K/V once per KV head). The design answer is simplicity, not
-speed: one block per (row group, KV head) walks the table one page at a
-time with no split-K and no combine pass, folding tiles of at most 64 keys
-of each page into every row of the group, so a K10b row equals the K10a
-row of the same query and context bit for bit (and K10d's K10c's): the
-decode <-> verify agreement of the layer-share ceiling at these shapes.
+context's K/V once per KV head). The design (``csrc/paged_walk.cuh``):
+bf16 queries run on the tensor cores (``mma.sync``), each table's key
+stream cut into cells at fixed positions (``paged_walk.walk_plan``), one
+block per (group, KV head, row slice, cell), K/V pages copied with
+``cp.async`` in a ring, and the cells folded in order by a second kernel
+where the table holds several; f32 queries walk a page at a time on CUDA
+cores. Either way a K10b row equals the K10a row of the same query,
+context and table bit for bit (and K10d's K10c's): the decode <-> verify
+agreement of the layer-share ceiling at these shapes.
 
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
@@ -30,12 +33,8 @@ from __future__ import annotations
 
 import ctypes
 
-import torch
-
 from nano_pearl_tpu_torch.ops.attention import paged_attention_grouped_ref, paged_attention_ref
-from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_inputs
-from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+from nano_pearl_tpu_torch.ops.cuda import build, paged_walk
 
 plain_decode = paged_attention_ref
 plain_verify = paged_attention_grouped_ref
@@ -47,10 +46,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention_fallback")
     if not getattr(lib, "_npt_typed", False):
         tail = [_I] * 7 + [_LL, _LL, _F, _I]
-        lib.npt_fallback.argtypes = [_P] * 5 + tail + [_P]
-        lib.npt_fallback_q8.argtypes = [_P] * 6 + tail + [_I, _P]
+        lib.npt_fallback.argtypes = [_P] * 7 + tail + [_P]
+        lib.npt_fallback_q8.argtypes = [_P] * 8 + tail + [_I, _P]
         lib.npt_fallback.restype = _I
         lib.npt_fallback_q8.restype = _I
+        lib.npt_walk_plan.argtypes = [_I] * 8
+        lib.npt_walk_plan.restype = _LL
         lib._npt_typed = True
     return lib
 
@@ -58,28 +59,9 @@ def _lib() -> ctypes.CDLL:
 def _launch(quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int):
     """K10a/K10b (K10c/K10d with ``quant``) on ``tables.shape[0]`` groups of
     ``rows`` rows; returns the output."""
-    if rows < 1:
-        raise ValueError(f"rows_per_group must be >= 1, got {rows}")
-    groups = tables.shape[0]
-    hq, hkv, d, bs, m = _check_inputs(q, cache, tables, context_lens, groups, groups * rows, quant=quant)
-    k_off, v_off = global_block_offsets(cache, layer_idx)
-    out = torch.empty_like(q)
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (groups, rows, m, hq, hkv, d, bs, k_off, v_off, float(scale), int(q.dtype == torch.bfloat16))
-    if quant:
-        err = lib.npt_fallback_q8(
-            q.data_ptr(), cache.q.data_ptr(), cache.s.data_ptr(), tables.data_ptr(),
-            context_lens.data_ptr(), out.data_ptr(), *common,
-            int(cache.q.dtype == torch.float8_e4m3fn), stream,
-        )
-    else:
-        err = lib.npt_fallback(
-            q.data_ptr(), cache.data_ptr(), tables.data_ptr(), context_lens.data_ptr(),
-            out.data_ptr(), *common, stream,
-        )
-    build.check(lib, err, "paged_attention_fallback" + ("_q8" if quant else ""))
-    return out
+    fn = lib.npt_fallback_q8 if quant else lib.npt_fallback
+    return paged_walk.launch(lib, fn, quant, q, cache, layer_idx, tables, context_lens, scale, rows)
 
 
 def paged_decode_fallback(q, cache, layer_idx, block_tables, context_lens, scale):

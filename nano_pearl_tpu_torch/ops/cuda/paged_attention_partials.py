@@ -24,11 +24,13 @@ row with no local visible key gives (0, -1e29, 0).
 
 What bounds them on the H100: bytes, as K1/K2 (a group reads its shard's
 share of its context once per KV head). The design answer is K10's page
-walk (``csrc/paged_walk.cuh``): one block per (row group, KV head) walks
-the table a page at a time, skipping the other shards' slots, with no
-split-K; so a K11c row equals the K11a row of the same query, context and
-table bit for bit (K11d's K11b's), which keeps the layer-share pair's
-draft decode and target verify equal after the merge.
+walk (``csrc/paged_walk.cuh``): bf16 queries on the tensor cores in cells
+of keys at fixed positions, a cell with no local page doing no work, the
+cells folded in order; f32 queries a page at a time on CUDA cores,
+skipping the other shards' slots. Either way a K11c row equals the K11a
+row of the same query, context and table bit for bit (K11d's K11b's),
+which keeps the layer-share pair's draft decode and target verify equal
+after the merge.
 
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
@@ -45,9 +47,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped_partials_ref,
     paged_attention_partials_ref,
 )
-from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_inputs
-from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+from nano_pearl_tpu_torch.ops.cuda import build, paged_walk
 
 plain_decode = paged_attention_partials_ref
 plain_verify = paged_attention_grouped_partials_ref
@@ -59,10 +59,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention_partials")
     if not getattr(lib, "_npt_typed", False):
         tail = [_I] * 7 + [_LL, _LL, _F, _I]
-        lib.npt_partials.argtypes = [_P] * 8 + tail + [_P]
-        lib.npt_partials_q8.argtypes = [_P] * 9 + tail + [_I, _P]
+        lib.npt_partials.argtypes = [_P] * 10 + tail + [_P]
+        lib.npt_partials_q8.argtypes = [_P] * 11 + tail + [_I, _P]
         lib.npt_partials.restype = _I
         lib.npt_partials_q8.restype = _I
+        lib.npt_walk_plan.argtypes = [_I] * 8
+        lib.npt_walk_plan.restype = _LL
         lib._npt_typed = True
     return lib
 
@@ -70,29 +72,16 @@ def _lib() -> ctypes.CDLL:
 def _launch(quant: bool, q, cache, layer_idx, tables, context_lens, is_local, scale, rows: int):
     """K11a/K11c (K11b/K11d with ``quant``) on ``tables.shape[0]`` groups of
     ``rows`` rows; returns (o, m, l)."""
-    if rows < 1:
-        raise ValueError(f"rows_per_group must be >= 1, got {rows}")
-    groups = tables.shape[0]
-    hq, hkv, d, bs, m = _check_inputs(q, cache, tables, context_lens, groups, groups * rows, quant=quant)
     if (is_local.device != q.device or is_local.dtype != torch.int32 or is_local.shape != tables.shape
             or not is_local.is_contiguous()):
         raise ValueError(f"is_local must be contiguous int32 {tuple(tables.shape)} on q's device")
-    k_off, v_off = global_block_offsets(cache, layer_idx)
-    n = q.shape[0]
-    out = torch.empty_like(q)
+    n, hq = q.shape[:2]
     m_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
     l_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (tables.data_ptr(), context_lens.data_ptr(), is_local.data_ptr(), out.data_ptr(),
-            m_out.data_ptr(), l_out.data_ptr())
-    common = (groups, rows, m, hq, hkv, d, bs, k_off, v_off, float(scale), int(q.dtype == torch.bfloat16))
-    if quant:
-        err = lib.npt_partials_q8(q.data_ptr(), cache.q.data_ptr(), cache.s.data_ptr(), *ptrs, *common,
-                                  int(cache.q.dtype == torch.float8_e4m3fn), stream)
-    else:
-        err = lib.npt_partials(q.data_ptr(), cache.data_ptr(), *ptrs, *common, stream)
-    build.check(lib, err, "paged_attention_partials" + ("_q8" if quant else ""))
+    fn = lib.npt_partials_q8 if quant else lib.npt_partials
+    out = paged_walk.launch(lib, fn, quant, q, cache, layer_idx, tables, context_lens, scale, rows,
+                            before=(is_local,), after=(m_out, l_out))
     return out, m_out, l_out
 
 

@@ -898,3 +898,155 @@ def test_partials_match_plain_and_verify_rows_equal_decode_bitwise(cuda, dtype, 
     w = [l_s * torch.exp(m_s - m_glob) for _, m_s, l_s in parts]
     mag = sum(w_s[..., None] * o_s.float().abs() for w_s, (o_s, _, _) in zip(w, parts)) / sum(w)[..., None]
     assert ((merged - whole.float()).abs() <= 3 * 2**-8 * mag + TOL[dtype]["atol"]).all()
+
+
+# ---- the bf16 page walk of K10a-d and K11a-d (csrc/paged_walk.cuh) ----
+
+WALK_ROWS = 6
+
+
+def walk_case(seed, g, d, bs, kind, device):
+    """bf16 queries over a bf16 (``kind`` None), int8 or e4m3 cache of
+    ``bs``-key pages, 2 KV heads (5 at g 3, SmolLM2-360M's: the other cell
+    size), and six groups of six staircase rows whose contexts cross the
+    walk's cells: 1..6, cell - 4 .. cell + 1, 2 cell - 3 .. 2 cell + 2, the
+    table's end (T = M * BS) - 2 .. T + 3, T + 3 .. T + 8 (past it), 37..42.
+    Group 0's first page sits in the second half of the blocks and group
+    2's pages all in the first half. Returns (q, cache, layer, bt, ctx,
+    scale, nb)."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_walk import cell_keys
+
+    hkv = 5 if g == 3 else 2
+    cell = cell_keys(hkv)
+    m = -(-(2 * cell + 40) // bs)
+    nb = 2 * (6 * m + 4) - 1  # nb + 1 blocks in two halves, each with room for every table
+    half = (nb + 1) // 2
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((6 * WALK_ROWS, g * hkv, d), generator=gen).bfloat16()
+    if kind is None:
+        cache = torch.randn((2, 2, nb + 1, bs, hkv * d), generator=gen).bfloat16().to(device)
+    else:
+        shape = (2, 2, nb + 1, bs, hkv * d)
+        values = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8) if kind == "int8" else \
+            (4 * torch.randn(shape, generator=gen)).to(torch.float8_e4m3fn)
+        scales = (0.01 + 0.05 * torch.rand(shape[:-1] + (hkv,), generator=gen)).to(torch.bfloat16)
+        cache = QuantKVCache(values.to(device), scales.to(device))
+    bt = torch.randperm(nb, generator=gen)[: 6 * m].reshape(6, m).to(torch.int32)
+    bt[0, 0] = half + int(torch.randint(0, half - 1, (1,), generator=gen))  # not the garbage block nb
+    bt[2] = torch.randperm(half, generator=gen)[:m].to(torch.int32)
+    t = m * bs
+    starts = (1, cell - 4, 2 * cell - 3, t - 2, t + 3, 37)
+    ctx = torch.tensor([s + i for s in starts for i in range(WALK_ROWS)], dtype=torch.int32)
+    return q.to(device), cache, 1, bt.to(device), ctx.to(device), d**-0.5, nb
+
+
+def _halves(cache, nb):
+    """The cache's first 2 * ((nb + 1) // 2) blocks split into two shards."""
+    from nano_pearl_tpu_torch.ops.kv_cache import ShardedKVCache
+
+    half = (nb + 1) // 2
+    if isinstance(cache, QuantKVCache):
+        shards = tuple(QuantKVCache(cache.q[:, :, i * half : (i + 1) * half].contiguous(),
+                                    cache.s[:, :, i * half : (i + 1) * half].contiguous()) for i in range(2))
+    else:
+        shards = tuple(cache[:, :, i * half : (i + 1) * half].contiguous() for i in range(2))
+    return ShardedKVCache(shards, ())
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("bs", [16, 32, 256])
+def test_walk_bf16_matches_plain_and_verify_rows_equal_decode_bitwise(cuda, bs, d, g):
+    """K10b and K10d (int8 and e4m3) on the tensor-core walk against their
+    plain versions at TOL, their rows against K10a / K10c on the same
+    query, table and context bit for bit, and a second launch bit for bit;
+    contexts of 1, at each side of the cell boundaries and past the table."""
+    for kind in (None, "int8", "fp8"):
+        q, cache, layer, bt, ctx, scale, _ = walk_case(80 + bs + d + g, g, d, bs, kind, cuda)
+        dec, ver = FALLBACKS[None if kind is None else "int8"]
+        grouped = ver(q, cache, layer, bt, ctx, scale, WALK_ROWS)
+        want = kfb.plain_verify(q, cache, layer, bt, ctx, scale, WALK_ROWS)
+        torch.testing.assert_close(grouped.float(), want.float(), **TOL[torch.bfloat16])
+        single = dec(q, cache, layer, bt.repeat_interleave(WALK_ROWS, 0).contiguous(), ctx, scale)
+        assert torch.equal(grouped, single), kind
+        assert torch.equal(ver(q, cache, layer, bt, ctx, scale, WALK_ROWS), grouped), kind
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("bs", [16, 32, 256])
+def test_walk_bf16_partials_match_plain_and_verify_rows_equal_decode_bitwise(cuda, bs, d, g):
+    """K11c and K11d (int8 and e4m3) per shard of a cache split in two,
+    against their plain versions (o at TOL, m and l at 1e-4), their (o, m,
+    l) rows against K11a / K11b bit for bit and a second launch bit for
+    bit. Group 0's first page is the second shard's, so on the first shard
+    its rows of context <= BS see no local key, and the second shard holds
+    none of group 2's pages: those rows give (0, -1e29, 0) exactly."""
+    from nano_pearl_tpu_torch.parallel.sp import shard_tables
+
+    for kind in (None, "int8", "fp8"):
+        q, cache, layer, bt, ctx, scale, nb = walk_case(90 + bs + d + g, g, d, bs, kind, cuda)
+        sharded = _halves(cache, nb)
+        dec, ver = PARTIALS[None if kind is None else "int8"]
+        bt_rows = bt.repeat_interleave(WALK_ROWS, 0).contiguous()
+        for s, (shard, (lg, ig), (lr, ir)) in enumerate(zip(sharded.shards, shard_tables(bt, sharded),
+                                                            shard_tables(bt_rows, sharded))):
+            grouped = ver(q, shard, layer, lg, ctx, ig, scale, WALK_ROWS)
+            want = kpp.plain_verify(q, shard, layer, lg, ctx, ig, scale, WALK_ROWS)
+            torch.testing.assert_close(grouped[0].float(), want[0].float(), **TOL[torch.bfloat16])
+            for a, b in zip(grouped[1:], want[1:]):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            single = dec(q, shard, layer, lr, ctx, ir, scale)
+            assert all(torch.equal(a, b) for a, b in zip(grouped, single)), (kind, s)
+            again = ver(q, shard, layer, lg, ctx, ig, scale, WALK_ROWS)
+            assert all(torch.equal(a, b) for a, b in zip(grouped, again)), (kind, s)
+            empty = want[2] == 0  # (row, head) pairs that see no local key
+            assert empty[2 * WALK_ROWS : 3 * WALK_ROWS].all() == (s == 1)
+            assert bool(empty[0].all()) == (s == 0)
+            o, m, l = grouped  # noqa: E741
+            assert not o[empty].any() and (m[empty] == -1e29).all() and not l[empty].any()
+
+
+def test_walk_bf16_rows_spread_over_blocks(cuda):
+    """At 16 query heads per KV head a group of 14 rows is 224 query vectors,
+    more than a block's 8 warps: the walk folds it in blocks of 8 and 6
+    rows, each row with the bits of its decode (K10b == K10a, K11c == K11a),
+    and matches the plain versions."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_walk import walk_plan
+    from nano_pearl_tpu_torch.parallel.sp import shard_tables
+
+    assert walk_plan(14, 16, 2, 64, 32, 2).rpb == 8
+    q, cache, layer, bt, ctx, scale = paged_case(95, 3, 14, torch.bfloat16, cuda, hq=32, hkv=2, d=64, m=16)
+    grouped = kfb.paged_verify_fallback(q, cache, layer, bt, ctx, scale, 14)
+    torch.testing.assert_close(grouped.float(), kfb.plain_verify(q, cache, layer, bt, ctx, scale, 14).float(),
+                               **TOL[torch.bfloat16])
+    bt_rows = bt.repeat_interleave(14, 0).contiguous()
+    assert torch.equal(grouped, kfb.paged_decode_fallback(q, cache, layer, bt_rows, ctx, scale))
+    sharded = _halves(cache, cache.shape[2] - 1)
+    for shard, (lg, ig), (lr, ir) in zip(sharded.shards, shard_tables(bt, sharded), shard_tables(bt_rows, sharded)):
+        got = kpp.paged_verify_partials(q, shard, layer, lg, ctx, ig, scale, 14)
+        want = kpp.plain_verify(q, shard, layer, lg, ctx, ig, scale, 14)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[torch.bfloat16])
+        single = kpp.paged_decode_partials(q, shard, layer, lr, ctx, ir, scale)
+        assert all(torch.equal(a, b) for a, b in zip(got, single))
+
+
+def test_walk_plan_mirror_matches_the_launchers(cuda):
+    """The exported plan of the walk's launchers (``npt_walk_plan``, in both
+    libraries) equals the mirror ``walk_plan`` for every head dim, G, page
+    size, cache kind and route."""
+    from nano_pearl_tpu_torch.ops.cuda.paged_walk import walk_plan
+
+    libs = (kfb._lib(), kpp._lib())
+    for d in range(16, 257, 16):
+        for g in (1, 2, 3, 4, 5, 8, 16):
+            for hkv in (1, 2, 5):
+                for bs in (16, 32, 256):
+                    for rows in (1, 14):
+                        for bf16, size in ((1, 2), (0, 4)):
+                            for q8 in (0, 1):
+                                p = walk_plan(rows, g, hkv, d, bs, size, bool(q8))
+                                want = [p.cell, p.warp_rows, p.rpb, p.threads, p.stages, p.smem]
+                                for lib in libs:
+                                    got = [lib.npt_walk_plan(rows, g, hkv, d, bs, bf16, q8, w) for w in range(6)]
+                                    assert got == want, (rows, g, hkv, d, bs, size, q8)

@@ -2,7 +2,8 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp,prefill]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp,fallback,prefill]
+                                        [--unprofiled]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
@@ -13,9 +14,13 @@ throughput_path); "split" and "fresh_kernel" chip_smoke.py's split_path
 (main under NANO_PEARL_SPLIT=1) and fresh_kernel_path (throughput under
 NANO_PEARL_FRESH_MODE=kernel), the variable set around the engine's
 construction only; "sp" chip_smoke.py's sp_path (main with draft_sp =
-target_sp = 2, both shards on the one card: K11a/K11c and the merge). An
-override path runs its PEARL rounds only: its AR is the base path's
-program. Each loop runs twice:
+target_sp = 2, both shards on the one card: K11a/K11c and the merge);
+"fallback" the main path's run on the layer-share pair at SmolLM2-360M's
+published widths (3L/32L, 15x64 query heads over 5: chip_smoke.py's
+checkpoint_path shapes, built in memory, no checkpoint written), whose
+Hkv * D = 320 sends decode to K10a and the verify to K10b. An override
+path runs its PEARL rounds only: its AR is the base path's program. Each
+loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -31,7 +36,9 @@ round inside each stage of the round (draft gamma-scan, target verify
 and its attention, writeback and LM head, verdict), taken with
 perf_counter around those calls in the unprofiled run: the host only
 enqueues there, so this is dispatch time. It prints the card's name and
-power limit first. Needs one CUDA card.
+power limit first. Needs one CUDA card. ``--unprofiled`` runs the PEARL
+loop's unprofiled pass alone (loop ms and host stages; no profiler pass,
+no AR loop), under a minute a path, for turns of two trees in one call.
 
 "prefill" is no bench path: it runs the prefill kernels K3 and K4 alone
 at chip_smoke.py's main K3/K4 rows (L2 warm, PREFILL_CALLS calls after
@@ -61,6 +68,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     OVERRIDE_PATHS,
     PREFIX_ROWS,
+    SMOLLM2_360M,
     add_requests,
     nvidia_smi,
     pair_engine,
@@ -142,7 +150,10 @@ PATHS = {
     "split": OVERRIDE_PATHS["split_path"][:3] + (1,),
     "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3] + (1,),
     "sp": ("ceiling", 0.0, None, 2),
+    "fallback": ("ceiling", 0.0, None, 1),
 }
+# path -> (target layers, the pair's widths) where not the bench's 36 layers
+PAIRS = {"fallback": (32, SMOLLM2_360M)}
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
 HOST_STAGES = {
@@ -160,6 +171,10 @@ HOST_STAGES = {
     "sp_decode_attention": ("nano_pearl_tpu_torch.engine.runner", "sp_paged_attention"),
     "sp_verify_attention": ("nano_pearl_tpu_torch.engine.runner", "sp_paged_attention_grouped"),
     "sp_merge": ("nano_pearl_tpu_torch.parallel.sp", "merge_partials"),
+    "k10a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_fallback", "paged_decode_fallback"),
+    "k10b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_fallback", "paged_verify_fallback"),
+    "k11a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_partials", "paged_decode_partials"),
+    "k11c_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_partials", "paged_verify_partials"),
     "sp_write_rows": ("nano_pearl_tpu_torch.parallel.sp", "store_rows"),
     "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
     "verdict": ("nano_pearl_tpu_torch.engine.fused", "verify_verdict"),
@@ -199,14 +214,17 @@ class HostStages:
             setattr(owner, name, orig)
 
 
-def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive) -> dict:
+def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive, profiled: bool = True) -> dict:
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     with PerRound(owner, name) as timed, HostStages() as host:
         drive()
     loop_ms = timed.start.elapsed_time(timed.end)
     n = timed.calls
-    host_stages = {k: {"host_ms_per_" + unit: host.s[k] * 1e3 / n, "calls_per_" + unit: host.calls[k] / n}
+    host_stages = {k: {"host_ms_per_" + unit: host.s[k] * 1e3 / n, "calls_per_" + unit: host.calls[k] / n,
+                       "host_us_per_call": host.s[k] * 1e6 / host.calls[k]}
                    for k in HOST_STAGES if host.calls[k]}
+    if not profiled:
+        return {"phase": label, unit + "s": n, "loop_ms_per_" + unit: loop_ms / n, "host_stages": host_stages}
 
     windows = Windows()
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -242,9 +260,11 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive)
     }
 
 
-def profile_path(dev, path: str) -> None:
+def profile_path(dev, path: str, profiled: bool = True) -> None:
     profile, noise, env, sp = PATHS[path]
-    engine = pair_engine(3, 36, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env, sp=sp)
+    layers, widths = PAIRS.get(path, (36, None))
+    engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env, sp=sp,
+                         widths=widths)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -254,11 +274,12 @@ def profile_path(dev, path: str) -> None:
         engine.AR_bench_generate(num_steps=4, reserve_steps=AR_STEPS)
 
     head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
-            **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {})}
+            **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {}),
+            **({"target_layers": layers, "widths": "SmolLM2-360M"} if widths else {})}
     out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
-                  lambda: engine.bench_generate(num_pearl_steps=ROUNDS))
+                  lambda: engine.bench_generate(num_pearl_steps=ROUNDS), profiled)
     print(json.dumps({**head, **out}), flush=True)
-    if env is None:
+    if env is None and profiled:
         out = measure(engine, "ar", "step", fused.target, "decode_step", AR_SAMPLE,
                       lambda: engine.AR_bench_generate(num_steps=AR_STEPS))
         print(json.dumps({**head, **out}), flush=True)
@@ -302,7 +323,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default="main,throughput",
                     help="comma-separated: " + ", ".join([*PATHS, "prefill"]))
-    paths = ap.parse_args().paths.split(",")
+    ap.add_argument("--unprofiled", action="store_true",
+                    help="the PEARL loop's unprofiled pass alone: loop ms and host stages")
+    args = ap.parse_args()
+    paths = args.paths.split(",")
     if not set(paths) <= set(PATHS) | {"prefill"}:
         ap.error(f"unknown path in {paths}")
     if not torch.cuda.is_available():
@@ -314,7 +338,7 @@ def main() -> int:
         if path == "prefill":
             profile_prefill(dev)
         else:
-            profile_path(dev, path)
+            profile_path(dev, path, not args.unprofiled)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
