@@ -17,7 +17,9 @@ script exits non-zero without its last line):
    at the serve pair's prefix hit, a chunked-prefill pass and the bench
    pair's head width, and the throughput path's K5 (mono-schedule
    attention: the B=32 decode, and 14 rows per group), K7 (cache-side
-   partials of the deferred verify, 32 groups x 14 rows) and K12 (its
+   partials of the deferred verify, 32 groups x 14 rows, pre-round
+   contexts of 65-2300 and of 1-50, each against a second launch bit for
+   bit) and K12 (its
    writeback, bit for bit over the whole cache), K9a/K9b/K9c (K1, K2 and
    K5 over an int8 or e4m3 cache with bf16 scales: the quantized runs'
    decode, packed verify and mono schedule, each in both 1-byte types),
@@ -26,8 +28,9 @@ script exits non-zero without its last line):
    against K1 and K9b's against K9a bit for bit, each K9 row against a
    second launch bit for bit, the kernels of the schedule overrides
    (K8a split-boundary decode at 32 rows, K6a and K8b deferred verify at
-   16 groups x 14 rows, K6b at 32 groups x 14 rows, each against a second
-   launch bit for bit too), the fallbacks K10a-d (decode and packed
+   16 groups x 14 rows, K6b at 32 groups x 14 rows, pre-round contexts of
+   65-2300 and of 1-50, each against a second launch bit for bit too),
+   the fallbacks K10a-d (decode and packed
    verify where Hkv*D % 128 != 0, or over a 1-byte cache of blocks that
    are not a multiple of 32: SmolLM2-360M's 15x64 heads over 5 KV heads
    over bf16 and int8 caches, 4x16 heads, and the bench pair's heads over
@@ -49,8 +52,9 @@ script exits non-zero without its last line):
    main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
-   against the launchers' exported choice; the K10/K11 rows their page
-   walk's plan, ``design``, held against the exported ``npt_walk_plan``,
+   against the launchers' exported choice; the K10/K11, K7 and K6b rows
+   their page walk's plan, ``design``, held against the exported
+   ``npt_walk_plan``,
    the ``blocks`` they launch, their ``share`` of the bound, and, as the
    K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
 4. decode_verify_bitwise: the draft's decode and the target's verify
@@ -80,19 +84,19 @@ script exits non-zero without its last line):
    int8 cache);
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
-   prompt 64, greedy: 145 PEARL rounds, then AR over the first third of
+   prompt 64, greedy: 145 PEARL rounds, then AR over the first sixth of
    the same window;
    throughput_path: the same run with draft_noise 0.005 under the
    throughput profile (bench.py --draft-noise 0.005); quant_path: the
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
    decode through K9a, verify through K9b, the KV pools' bytes per block
    against the bf16 run's); quant_throughput_path: the throughput path
-   with --kv-quant fp8 --quant fp8 (K9c); both over 145 rounds too, their
-   AR over the first third of the window;
+   with --kv-quant fp8 --quant fp8 (K9c), 73 rounds; each with its AR
+   over the first sixth of its window;
    split_path, deferred_db_path (the main path's run under
    NANO_PEARL_SPLIT=1: K8a, K8b; and NANO_PEARL_DEFERRED_VERIFY=1: K1, K6a)
    and fresh_kernel_path (the throughput path's under
-   NANO_PEARL_FRESH_MODE=kernel: K5, K6b), 145 rounds each with the
+   NANO_PEARL_FRESH_MODE=kernel: K5, K6b), 73 rounds each with the
    variable set around the engine's construction only, their speedup
    against the AR of the main or throughput path in the same call;
    checkpoint_path and checkpoint_quant_path: a layer-share pair at
@@ -100,11 +104,13 @@ script exits non-zero without its last line):
    seeded random weights) written as bf16 HF checkpoint directories and
    loaded by the engine, the bench's run over a bf16 and an int8 cache
    (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 145
-   rounds, AR over the first third of the window;
+   rounds, AR over the first sixth of the window;
    sp_path: the main path with draft_sp = target_sp = 2 (the shards share
    the one card; K3, K11a, K11c, MAT 14 asserted), 145 rounds, AR over the
-   first third of the window; sp_quant_path: the same over an int8 cache
-   with int8 weights (K11b, K11d), 73 rounds, AR over a sixth;
+   first sixth of the window; sp_quant_path: the same over an int8 cache
+   with int8 weights (K11b, K11d), 73 rounds, AR over a sixth (the AR
+   windows and the 73-round paths keep the script inside its time limit
+   on a slow host);
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
@@ -138,6 +144,10 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # of the value (rtol 8e-3); atol 1e-3 covers values near 0. The measured
 # errors are one such step (PERF.md).
 TOL = dict(atol=1e-3, rtol=8e-3)
+# Every path's AR runs over the first 1 / AR_CUT of its window (bench_run's
+# ar_cut): its tok/s settles well before the window's end, and a whole
+# third cost minutes of the script's limit on a slow host.
+AR_CUT = 6
 # scaled_dot_product_attention rounds its probabilities to bf16 before the
 # product with V, so the yardstick is held only to 2e-2.
 LIB_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -383,23 +393,45 @@ def no_spin_ms(run, lib, iters, flush) -> dict:
     return dict(ms=time_ms(run, iters, flush, spin=False), library_ms=time_ms(lib, iters, flush, spin=False))
 
 
-def launched_blocks(run) -> dict:
-    """The blocks that one call of ``run`` launched, by CUDA kernel (its
-    name without namespace and arguments): each kernel event's grid in a
-    torch.profiler trace of that call."""
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def kernel_trace(run, pad_s: float = 0.005) -> tuple[list, int]:
+    """One torch.profiler session of one call of ``run``: its kernel events
+    and its launch calls' count. The session idles ``pad_s`` before the call
+    and after it, so that the call's kernels lie well inside its window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         run()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    if not events:
-        raise AssertionError("the profiler recorded no kernel")
+            trace = json.load(f)["traceEvents"]
+    events = [e for e in trace if e.get("cat") == "kernel"]
+    calls = sum(e.get("cat") == "cuda_runtime" and e.get("name") in LAUNCH_CALLS for e in trace)
+    return events, calls
+
+
+def launched_blocks(run, sessions: int = 8) -> dict:
+    """The blocks that one call of ``run`` launched, by CUDA kernel (its
+    name without namespace and arguments): each kernel event's grid in a
+    torch.profiler trace of that call. Now and then a session holds its
+    launch calls without their kernel records (tools/probe_profiler_loss.py
+    counts such sessions): a trace with fewer kernel events than launch
+    calls is taken again, up to ``sessions`` times."""
+    for _ in range(sessions):
+        events, calls = kernel_trace(run)
+        if events and len(events) >= calls:
+            break
+    else:
+        raise AssertionError(f"the profiler recorded {len(events)} kernels of {calls} launch calls "
+                             f"in each of {sessions} sessions")
     blocks = {}
     for e in events:
         grid = e.get("args", {}).get("grid")
@@ -458,15 +490,19 @@ def mono_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
     )
 
 
-def cache_partials_row(gen, dev, flush, hq=8, d=128, hkv=2, layer=1, groups=32, rows=14) -> dict:
+def cache_partials_row(gen, dev, flush, name="cache_partials", lo=65, hi=2300, hq=8, d=128, hkv=2, layer=1,
+                       groups=32, rows=14) -> dict:
     """K7 at the throughput path's verify: 32 groups x 14 rows whose cache
-    side is each group's pre-round context ctx0 (its rows see ctx0 + 1 ..
-    ctx0 + 14 with the fresh window), one group a padding row of the
-    batch bucket with cache context 0. The yardstick is SDPA over the
-    gathered cache, for o only."""
+    side is each group's pre-round context ctx0, spread over lo .. hi (its
+    rows see ctx0 + 1 .. ctx0 + 14 with the fresh window), one group a
+    padding row of the batch bucket with cache context 0. bf16 queries run
+    on the tensor-core walk (``design``, ``blocks``, ``plan_blocks`` as the
+    K10/K11 rows have them). The yardstick is SDPA over the gathered cache,
+    for o only."""
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
 
-    ctx0 = np.random.default_rng(4).permutation(np.linspace(65, 2300, groups).astype(int))
+    ctx0 = np.random.default_rng(4).permutation(np.linspace(lo, hi, groups).astype(int))
     q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0 + 1, hq=hq, hkv=hkv, d=d)
     c0 = torch.as_tensor(ctx0, dtype=torch.int32, device=dev)
     c0[0] = 0
@@ -487,17 +523,24 @@ def cache_partials_row(gen, dev, flush, hq=8, d=128, hkv=2, layer=1, groups=32, 
     nbytes = 2 * q.numel() * 2 + 2 * n * hq * 4 + bt.numel() * 4 + ctx.numel() * 4 \
         + float(c0.sum()) * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * float(ctx_cache.sum()) * hq * d)
-    return dict(
-        name="cache_partials", kernel="cache_partials", route="cuda",
-        source="nano_pearl_tpu_torch/csrc/mono_attention.cu",
+    run = lambda: kmo.cache_partials(*args)  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(run(), got)):
+        raise AssertionError(f"{name}: a second launch gives other bits")
+    ms = time_ms(run, 50, flush)
+    row = dict(
+        name=name, kernel="cache_partials", route="cuda",
+        source="nano_pearl_tpu_torch/csrc/paged_attention_partials.cu",
         replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:1799",
-        max_abs_err=err, ms=time_ms(lambda: kmo.cache_partials(*args), 50, flush),
-        plain_ms=time_ms(lambda: kmo.plain_partials(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
-        library="SDPA over the gathered cache, o only",
-        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, cache_ctx_max=int(ctx_cache.max()),
-                   zero_context_rows=int((ctx_cache == 0).sum())),
+        max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: kmo.plain_partials(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush),
+        library="SDPA over the gathered cache, o only", second_launch_bitwise=True,
+        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx0_min=int(c0[1:].min()),
+                   cache_ctx_max=int(ctx_cache.max()), zero_context_rows=int((ctx_cache == 0).sum())),
     )
+    row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
+                   walk_design(name, kpp._lib(), run, ctx_cache, bt, rows, hq, hkv, d, cache.shape[3], False)))
+    return row
 
 
 def write_fresh_row(gen, dev, flush, nl=36, nb=520, bs=256, hkv=2, d=128, groups=32, rows=14) -> dict:
@@ -581,7 +624,7 @@ OVERRIDE_KERNELS = {  # the schedule overrides' kernels -> (TPU kernel body repl
     "paged_decode_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:436", "paged_attention.cu"),
     "paged_verify_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1551", "paged_attention.cu"),
     "paged_verify_fresh_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1614", "paged_attention.cu"),
-    "mono_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1703", "mono_attention.cu"),
+    "mono_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1703", "paged_attention_partials.cu"),
 }
 
 
@@ -593,15 +636,18 @@ def override_kernel_fns() -> dict:
             "paged_verify_fresh_split": kpa.paged_verify_fresh_split, "mono_fresh": kmo.mono_fresh}
 
 
-def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1) -> dict:
+def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1, row_name=None) -> dict:
     """K6a or K8b (at a ceiling verify chunk: 16 groups x 14 rows) or K6b
     (at the throughput path's 32 groups x 14 rows): one group per pre-round
     context in ``ctx0``, held against the plain version at TOL and against
     a second launch bit for bit. The bound counts each group's cache
     context and fresh rows once, q and o; the yardstick is SDPA over the
     gathered cache with the fresh rows appended (o only, the SDPA call
-    alone timed)."""
+    alone timed). K6b's bf16 queries run on the tensor-core walk: its row
+    also carries ``no_spin``, ``share``, ``design``, ``blocks`` and
+    ``plan_blocks``, as the K10/K11 rows do."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
 
     fn = override_kernel_fns()[name]
     q, cache, bt, ctx, c0, fk, fv, scale = fresh_inputs(gen, dev, ctx0, rows, hq, hkv, d)
@@ -618,16 +664,23 @@ def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1)
         + float(c0.sum()) * 2 * hkv * d * 2 + 2 * n * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
     replaces, source = OVERRIDE_KERNELS[name]
-    return dict(
-        name=name, kernel=name, route="cuda", source=f"nano_pearl_tpu_torch/csrc/{source}", replaces=replaces,
-        max_abs_err=err, ms=time_ms(lambda: fn(*args, rows), 50, flush),
-        plain_ms=time_ms(lambda: kpa.plain_fresh(*args), 10, flush),
+    run = lambda: fn(*args, rows)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
+        name=row_name or name, kernel=name, route="cuda", source=f"nano_pearl_tpu_torch/csrc/{source}",
+        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: kpa.plain_fresh(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
         library="SDPA over the gathered cache with the fresh rows appended, o only",
         second_launch_bitwise=True,
         shape=dict(groups=len(ctx0), rows=rows, hq=hq, hkv=hkv, d=d, ctx0_min=int(c0.min()),
                    ctx0_max=int(c0.max())),
     )
+    if name == "mono_fresh":
+        row.update(share=b_ms / ms, no_spin=no_spin_ms(run, lib, 50, flush))
+        row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
+                       walk_design(row["name"], kpp._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False,
+                                   ctx0=c0)))
+    return row
 
 
 def decode_split_row(gen, dev, flush, ctx0, gamma=14, hq=8, d=128, hkv=2, layer=1) -> dict:
@@ -722,6 +775,8 @@ def kernel_phase(dev, flush) -> list[dict]:
     gen = torch.Generator(dev).manual_seed(0)
     spread = lambda n, hi, seed: np.random.default_rng(seed).permutation(  # noqa: E731
         np.linspace(65, hi, n).astype(int))
+    # pre-round contexts 1-50: a verify's rows right after a short prompt (contexts 2-64)
+    short = lambda n, seed: np.random.default_rng(seed).permutation(np.linspace(1, 50, n).astype(int))  # noqa: E731
     rows = [
         # main path: B=32 decode rows; one verify chunk of 16 groups x 14
         # rows; the prefill of 32 prompts of 64 tokens in the 128-row bucket
@@ -741,6 +796,8 @@ def kernel_phase(dev, flush) -> list[dict]:
         mono_row(gen, dev, flush, "mono_attention", spread(32, 2300, 0), 1, hq=8, d=128),
         mono_row(gen, dev, flush, "mono_attention_r14", spread(32, 2300, 1), 14, hq=8, d=128),
         cache_partials_row(gen, dev, flush),
+        # K7 right after short prompts: cache contexts of 1-50 (rows 1-64)
+        cache_partials_row(gen, dev, flush, "cache_partials_short", 1, 50),
         write_fresh_row(gen, dev, flush),
         # quant_path (int8): K9a at the B=32 decode, K9b at a verify chunk;
         # quant_throughput_path (fp8): K9c at the decode and at 14 rows;
@@ -760,6 +817,7 @@ def kernel_phase(dev, flush) -> list[dict]:
         fresh_row(gen, dev, flush, "paged_verify_fresh", spread(16, 2300, 1)),
         fresh_row(gen, dev, flush, "paged_verify_fresh_split", spread(16, 2300, 1)),
         fresh_row(gen, dev, flush, "mono_fresh", spread(32, 2300, 1)),
+        fresh_row(gen, dev, flush, "mono_fresh", short(32, 1), row_name="mono_fresh_short"),
         # the fallbacks K10a-d: (a) the checkpoint paths' shapes (SmolLM2-360M's
         # 15x64 q heads over 5 KV heads, Hkv*D 320): the 32-row decode and a
         # verify chunk of 16 groups x 14 rows over a bf16 and an int8 cache;
@@ -871,15 +929,19 @@ FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
 }
 
 
-def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None) -> tuple[str, dict, dict]:
-    """The bf16 page walk's plan for a K10/K11 row (``paged_walk.walk_plan``,
-    checked against the launchers' exported ``npt_walk_plan``) as the row's
-    ``design`` line; the blocks one call of ``run`` launched, by kernel
-    (``launched_blocks``), checked against the plan's grid (and its
-    combine's, none where the table is one cell); and what the plan says of
-    them, computed here on the host from the row's tables and contexts, not
-    measured: keys a cell, cells a table, and the blocks that do work (a
-    cell below its row slice's longest context that holds a local page)."""
+def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None, ctx0=None
+                ) -> tuple[str, dict, dict]:
+    """The bf16 page walk's plan for a K10/K11, K7 or K6b row
+    (``paged_walk.walk_plan``, checked against the launchers' exported
+    ``npt_walk_plan``) as the row's ``design`` line; the blocks one call of
+    ``run`` launched, by kernel (``launched_blocks``), checked against the
+    plan's grid (and its combine's, none where the table is one cell); and
+    what the plan says of them, computed here on the host from the row's
+    tables and contexts, not measured: keys a cell, cells a table, and the
+    blocks that do work (a cell below its row slice's longest context that
+    holds a local page). With ``ctx0`` (K6b) the cache cells end at each
+    group's pre-round context and one fresh cell follows, working where a
+    row of the slice sees a fresh key."""
     from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
 
     plan = kpw.walk_plan(rows, hq // hkv, hkv, d, bs, 2, quant)
@@ -888,20 +950,27 @@ def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=N
     if exported != want:
         raise AssertionError(f"{name}: the launchers' plan {exported} differs from walk_plan's {plan}")
     groups, m = bt.shape
-    cells = len(kpw.key_cells(m * bs, plan.cell))
+    cells = len(kpw.key_cells(m * bs, plan.cell)) + (ctx0 is not None)
     slices = -(-rows // plan.rpb)
-    ctx_g = ctx.reshape(groups, rows).clamp(max=m * bs).cpu()
+    ctx_all = ctx.reshape(groups, rows).cpu()
+    ctx_g = ctx_all.clamp(max=m * bs)
+    if ctx0 is not None:
+        c0 = ctx0.cpu()
+        ctx_g = torch.minimum(ctx_g, c0[:, None])
     local = (is_local if is_local is not None else torch.ones_like(bt)).bool().cpu()
     working = 0
     for grp in range(groups):
         for sl in range(slices):
-            top = int(ctx_g[grp, sl * plan.rpb : (sl + 1) * plan.rpb].max())
+            rs = slice(sl * plan.rpb, (sl + 1) * plan.rpb)
+            top = int(ctx_g[grp, rs].max())
             for lo in range(0, top, plan.cell):
                 hi = min(lo + plan.cell, top)
                 working += bool(local[grp, lo // bs : (hi - 1) // bs + 1].any())
+            if ctx0 is not None:
+                working += int(ctx_all[grp, rs].max()) > int(c0[grp])
     design = (f"mma.sync m16n8k16 bf16 (P as hi + lo bf16), K/V via cp.async in {plan.stages} stages of "
-              f"{kpw.KEYS} keys; {plan.cell}-key cells; {plan.rpb} rows x {hq // hkv} heads a block, "
-              f"{plan.threads // 32} warps, {plan.smem} B shared")
+              f"{kpw.KEYS} keys; {plan.cell}-key cells{'' if ctx0 is None else ', the fresh rows one more'}; "
+              f"{plan.rpb} rows x {hq // hkv} heads a block, {plan.threads // 32} warps, {plan.smem} B shared")
     blocks = launched_blocks(run)
     walk = sum(n for k, n in blocks.items() if k.startswith("walk_mma_kernel"))
     combine = blocks.get("walk_combine_kernel", 0)
@@ -1691,7 +1760,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     is left out and the speedup taken against that path's AR of this call:
     the overrides change no kernel of AR but the schedule of its decode, as
     in the JAX package. ``ar_cut`` > 1 runs the first 1 / ar_cut of the AR
-    window only (the quantized paths, to keep the script inside its time
+    window only (AR_CUT on every path, to keep the script inside its time
     limit). ``dirs``: the (draft, target) checkpoint directories to load in
     place of the layer-share pair (``label`` its description, ``vocab`` its
     vocabulary). ``sp``: draft_sp = target_sp. The launch counters are set
@@ -1780,10 +1849,10 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
 
 def main_path_phase(dev, steps: int = 145) -> tuple[dict, dict]:
     """The bench's default run (ceiling profile, noiseless pair) on the port,
-    AR over the first third of the window. Its aligned heads (Hkv*D 256)
+    AR over the first sixth of the window. Its aligned heads (Hkv*D 256)
     take K1/K2, never the fallbacks. Returns its launches and its line."""
     gamma = 14
-    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_cut=3)
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_cut=AR_CUT)
     emit({"phase": "main_path", **out})
     check_launches("main_path", launches, ("paged_decode", "paged_verify", "prefill_self"), tuple(FALLBACK_KERNELS))
     if out["mat"] != gamma:  # the layer-share ceiling: decode and verify round alike
@@ -1802,9 +1871,9 @@ def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
     packed verify through K9b; MAT must stay at the ceiling (the 1-byte
     rows are written and read alike by decode and verify). Prints the KV
     pools' bytes per block against the bf16 main path's. AR over the first
-    third of the window (bench_run's ``ar_cut``)."""
+    sixth of the window (bench_run's ``ar_cut``)."""
     gamma = 14
-    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant="int8", quant="int8", ar_cut=3)
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant="int8", quant="int8", ar_cut=AR_CUT)
     out["kv_pool_bytes_per_block_vs_bf16"] = out["kv_pool_bytes_per_block"] / bf16_block_bytes
     emit({"phase": "quant_path", **out})
     check_launches("quant_path", launches, ("prefill_self", "paged_decode_q8", "paged_verify_q8"),
@@ -1817,13 +1886,14 @@ def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
     return launches
 
 
-def quant_throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> dict:
+def quant_throughput_path_phase(dev, steps: int = 73, draft_noise: float = 0.005) -> dict:
     """``bench.py --draft-noise 0.005 --kv-quant fp8 --quant fp8`` on the
     port: the throughput profile over an fp8 cache with fp8 weights, decode
     and the classic write-then-read verify through K9c (the deferred verify
     is off over a quantized cache). MAT is printed, not asserted. AR over
-    the first third of the window."""
-    out, launches = bench_run(dev, steps, "throughput", draft_noise, kv_quant="fp8", quant="fp8", ar_cut=3)
+    the first sixth of the window."""
+    out, launches = bench_run(dev, steps, "throughput", draft_noise, kv_quant="fp8", quant="fp8",
+                              ar_cut=AR_CUT)
     emit({"phase": "quant_throughput_path", **out})
     check_launches("quant_throughput_path", launches, ("prefill_self", "mono_q8"),
                    ("paged_decode", "paged_verify", "mono_attention", "cache_partials", "write_fresh",
@@ -1836,9 +1906,9 @@ def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> 
     (bench.py picks it for noisy drafts), decode through K5, the deferred
     verify through K7 and one K12 writeback per round, prefill through
     K3. Streams are not compared in bf16 (near-tied random logits fork).
-    AR over the first third of the window. Returns its launches and its
+    AR over the first sixth of the window. Returns its launches and its
     line."""
-    out, launches = bench_run(dev, steps, "throughput", draft_noise, ar_cut=3)
+    out, launches = bench_run(dev, steps, "throughput", draft_noise, ar_cut=AR_CUT)
     emit({"phase": "throughput_path", **out})
     wanted = ("prefill_self", "mono_attention", "cache_partials", "write_fresh")
     if not all(launches[k] > 0 for k in wanted) or launches["paged_decode"] or launches["paged_verify"]:
@@ -1860,10 +1930,10 @@ OVERRIDE_PATHS = {
 }
 
 
-def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 145) -> dict:
+def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 73) -> dict:
     """The bench run of ``path`` (OVERRIDE_PATHS): the main path's pair and
     traffic with a schedule override set around the engine's construction
-    only, 145 PEARL rounds, speedup against the AR of ``ar_of`` measured in
+    only, 73 PEARL rounds, speedup against the AR of ``ar_of`` measured in
     this call (the split and deferred-db paths: the main path's, K1; the
     fresh-kernel path: the throughput path's, K5). Asserts which kernels ran
     and which did not, and on the split path MAT at the layer-share ceiling
@@ -1877,17 +1947,17 @@ def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 1
     return launches
 
 
-def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 145, ar_cut: int = 3) -> dict:
+def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 145) -> dict:
     """The main path's run with draft_sp = target_sp = 2 (PearlConfig; the
     two shards of each pool share the one card): decode through K11a, the
     classic packed verify through K11c, both merged over the shards,
     prefill K3 (K11b / K11d over ``kv_quant``, with ``quant`` weights:
     ``sp_quant_path``); MAT at the layer-share ceiling (K11c rows equal
-    K11a's after the merge); AR over the first 1 / ``ar_cut`` of the
-    window. Prints PEARL and AR tok/s, the pools' bytes per shard and the
+    K11a's after the merge); AR over the first sixth of the window.
+    Prints PEARL and AR tok/s, the pools' bytes per shard and the
     launches."""
     phase = "sp_quant_path" if kv_quant else "sp_path"
-    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, quant=quant, ar_cut=ar_cut, sp=2)
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, quant=quant, ar_cut=AR_CUT, sp=2)
     emit({"phase": phase, **out})
     check_launches(phase, launches, *sp_kernels(kv_quant))
     if out["mat"] != 14:
@@ -2056,11 +2126,11 @@ def checkpoint_path_phase(dev, dirs, write_s: float, kv_quant=None, steps: int =
     to K10b (over an int8 cache, ``checkpoint_quant_path``: K10c / K10d),
     prefill to K3; K1/K2 (K9a/K9b) must not run. MAT must stay at the
     layer-share ceiling (K10b rows == K10a's). 145 rounds, AR over the first
-    third of the window."""
+    sixth of the window."""
     phase = "checkpoint_quant_path" if kv_quant else "checkpoint_path"
     label = ("bf16 SmolLM2-360M-width layer-share pair from HF checkpoint directories (3L/32L, hidden 960, "
              "ffn 2560, 15x64 q heads, 5 kv heads, vocab 49152, tied, seeded random weights)")
-    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, ar_cut=3, dirs=dirs,
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, kv_quant=kv_quant, ar_cut=AR_CUT, dirs=dirs,
                               vocab=SMOLLM2_360M["vocab_size"],
                               label=label)
     emit({"phase": phase, "checkpoint_write_s": write_s, **out})
@@ -2365,7 +2435,7 @@ def main() -> int:
     by_path["checkpoint_quant_path"] = checkpoint_path_phase(dev, dirs, write_s, kv_quant="int8")
     checkpoints.cleanup()
     by_path["sp_path"] = sp_path_phase(dev)
-    by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8", steps=73, ar_cut=6)
+    by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8", steps=73)
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,5 +1,6 @@
 // Grouped paged attention on the mono schedule, for sm_90a: the
-// "throughput" profile's attention kernels.
+// "throughput" profile's attention kernels, on CUDA cores (the mono
+// template below).
 //
 // K5 npt_mono_attention: R query rows per group share one block table,
 //   each row with its own (staircase) context; decode is R = 1. Replaces
@@ -26,6 +27,20 @@
 //   _mono_call_fresh), and in the port K7 + fresh_window_partials +
 //   merge_attn_partials, three launches and a dozen torch ops per layer.
 //
+// Where each route runs:
+// - K5 and K9c, bf16 and f32 queries: here.
+// - K7 and K6b, f32 queries: here (the f32 exactness pairs hold them at
+//   1e-4; the tensor cores would take f32 as TF32).
+// - K7 and K6b, bf16 queries: not here; the entries below refuse them.
+//   They run on the tensor-core page walk of csrc/paged_walk.cuh, through
+//   csrc/paged_attention_partials.cu (npt_partials with every slot local;
+//   npt_fresh_walk, the fresh window as the walk's last cell). At a packed
+//   verify's 14 rows the template's serial dot products on CUDA cores are
+//   bound by shared-memory reads, and no copy is in flight while a tile is
+//   folded; the walk runs S = Q K^T and P V on mma.sync behind a cp.async
+//   ring. Nothing under the throughput profile relies on K7 or K6b giving
+//   K5's bits.
+//
 // The TPU kernels walk one flat stream of (group, 1024-key chunk) items
 // in one grid step, counted from each group's own context, so no step
 // goes to a group's empty chunks. Here: ONE launch per call. Every block
@@ -35,6 +50,9 @@
 // (group, key chunk, KV head) items, item = blockIdx.x, + gridDim.x, ...
 // The grid is as many blocks as the card holds at once (or fewer), so
 // every block stays resident and the list covers exactly the real chunks.
+// The launcher asks the driver for that number (and opts the kernel into
+// its shared memory) once per (instantiation, device, shared-memory size),
+// not on every launch.
 //
 // An item folds its chunk into the group's R * G query vectors (G = Hq /
 // Hkv) with flash_tile.cuh's tile update. A group with one chunk writes
@@ -52,7 +70,10 @@
 // head (ctx * 2 * Hkv * D elements) and does 4 * ctx * Hq * D flops per
 // row, 4 * R flops per byte at bf16 with G = 4: 4 at decode (R = 1), 56
 // at the packed verify (R = 14), both under the card's ~295 flops per
-// byte. The tile update runs on CUDA cores (no tensor cores yet).
+// byte. The tile update runs on CUDA cores.
+#include <mutex>
+#include <vector>
+
 #include "flash_tile.cuh"
 
 namespace npt {
@@ -231,6 +252,45 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
   }
 }
 
+// Blocks of `kernel` the device's SMs hold at once with `smem` bytes of
+// dynamic shared memory, after opting the kernel into them. The driver is
+// asked (cudaFuncSetAttribute, the SM count, the occupancy) once per
+// (kernel, device, shared-memory size); the opt-in only grows, so a
+// launch at a size asked for before still finds it in force.
+inline cudaError_t resident_blocks(const void* kernel, size_t smem, long long& blocks) {
+  struct Seen {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t opted = 0;  // the kernel's opt-in on this device so far
+  for (const Seen& e : seen) {
+    if (e.kernel != kernel || e.dev != dev) continue;
+    if (e.smem == smem) {
+      blocks = e.blocks;
+      return cudaSuccess;
+    }
+    opted = e.smem > opted ? e.smem : opted;
+  }
+  if (smem > opted && (err = flash_set_smem(kernel, smem)) != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = (long long)sms * per_sm;
+  seen.push_back({kernel, dev, smem, blocks});
+  return cudaSuccess;
+}
+
 template <typename T, bool kPartial, typename S = T, bool kFresh = false>
 cudaError_t launch(int groups, int rows, const void* q, const void* cache, const int* bt,
                    const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
@@ -243,18 +303,11 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   const int g = hq / hkv, fixed = sizeof(int) * (groups + 1);
   const int rpb = flash_rows_per_block<T>(rows, g, d, fixed);
   const size_t smem = flash_smem_bytes<T>(rpb * g, d, sizeof(int) * rpb + fixed);
-  cudaError_t err = flash_set_smem(kernel, smem);
+  long long resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), smem, resident);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slices = (rows + rpb - 1) / rpb;
   const long long most = (long long)groups * (max_chunks + kFresh) * hkv * slices;  // items, at most
-  const long long resident = (long long)sms * per_sm;
   const int grid = (int)(most < resident ? most : resident);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const S*>(cache),
@@ -262,22 +315,6 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
       m_out, l_out, part_acc, part_ml, counters, groups, rows, rpb, m, hq, hkv, d, bs, k_off,
       v_off, scale, max_chunks, ctx0, static_cast<const T*>(fk), static_cast<const T*>(fv));
   return cudaGetLastError();
-}
-
-template <bool kPartial>
-cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, const int* bt,
-                     const int* ctx, void* out, float* m_out, float* l_out, float* part_acc,
-                     float* part_ml, int* counters, int m, int hq, int hkv, int d, int bs,
-                     long long k_off, long long v_off, float scale, int max_chunks, int is_bf16,
-                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, kPartial>(groups, rows, q, cache, bt, ctx, out, m_out, l_out,
-                                           part_acc, part_ml, counters, m, hq, hkv, d, bs, k_off,
-                                           v_off, scale, max_chunks, s);
-  return launch<float, kPartial>(groups, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
-                                 part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                 max_chunks, s);
 }
 
 template <typename T>
@@ -310,22 +347,30 @@ int npt_mono_attention(const void* q, const void* cache, const int* bt, const in
                        float* part_acc, float* part_ml, int* counters, int b, int rows, int m,
                        int hq, int hkv, int d, int bs, long long k_off, long long v_off,
                        float scale, int max_chunks, int is_bf16, void* stream) {
-  return (int)npt::dispatch<false>(b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
-                                   part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                   max_chunks, is_bf16, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)npt::launch<__nv_bfloat16, false>(b, rows, q, cache, bt, ctx, out, nullptr,
+                                                  nullptr, part_acc, part_ml, counters, m, hq, hkv,
+                                                  d, bs, k_off, v_off, scale, max_chunks, s);
+  return (int)npt::launch<float, false>(b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
+                                        part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                        max_chunks, s);
 }
 
-// K7. As K5, ctx >= 0, plus m_out and l_out [b * rows, hq] f32.
+// K7, f32 queries (bf16 ones are refused: they take the walk). As K5, ctx
+// >= 0, plus m_out and l_out [b * rows, hq] f32.
 int npt_cache_partials(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
                        float* m_out, float* l_out, float* part_acc, float* part_ml, int* counters,
                        int b, int rows, int m, int hq, int hkv, int d, int bs, long long k_off,
                        long long v_off, float scale, int max_chunks, int is_bf16, void* stream) {
-  return (int)npt::dispatch<true>(b, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
-                                  part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                  max_chunks, is_bf16, stream);
+  if (is_bf16) return (int)cudaErrorInvalidValue;
+  return (int)npt::launch<float, true>(b, rows, q, cache, bt, ctx, out, m_out, l_out, part_acc,
+                                       part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
+                                       max_chunks, static_cast<cudaStream_t>(stream));
 }
 
-// K6b: the deferred-write packed verify on the mono schedule. As K5 with
+// K6b, f32 queries (bf16 ones are refused: they take the walk): the
+// deferred-write packed verify on the mono schedule. As K5 with
 // ctx [b * rows] each row's context with its visible fresh rows, ctx0 [b]
 // the pre-round context of each group (the cache is read below it only),
 // fk / fv [b * rows, hkv * d] the fresh rows (row t of group g at position
@@ -337,11 +382,7 @@ int npt_mono_fresh(const void* q, const void* cache, const void* fk, const void*
                    int bs, long long k_off, long long v_off, float scale, int max_chunks,
                    int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows < 1 || rows > npt::kMonoChunk) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return (int)npt::launch<__nv_bfloat16, false, __nv_bfloat16, true>(
-        b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc, part_ml, counters, m, hq, hkv,
-        d, bs, k_off, v_off, scale, max_chunks, s, nullptr, ctx0, fk, fv);
+  if (is_bf16 || rows < 1 || rows > npt::kMonoChunk) return (int)cudaErrorInvalidValue;
   return (int)npt::launch<float, false, float, true>(
       b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc, part_ml, counters, m, hq, hkv,
       d, bs, k_off, v_off, scale, max_chunks, s, nullptr, ctx0, fk, fv);

@@ -13,6 +13,19 @@
 //   load and rounded to the query type as K9a-c and K10c/K10d do. Replace
 //   _kernel_partial_q8 and _grouped_kernel_partial_q8 (same entries).
 //
+// The same walk also carries the bf16 route of the mono schedule's
+// deferred verify (wrappers in ops/cuda/mono_attention.py; their f32 route
+// stays on csrc/mono_attention.cu's mono template):
+// K7 npt_partials with is_local null: every slot local, so (o, m, l) over
+//   the pre-round cache, K11c's launch without the shard mask. Replaces
+//   _grouped_kernel_db_mono_partial (entry
+//   paged_attention_pallas_grouped_cache_partials).
+// K6b npt_fresh_walk: the deferred-write packed verify in one walk, the
+//   cache cells below each group's pre-round context ctx0, then one fresh
+//   cell of the round's K/V from the in-operand fresh rows (paged_walk.cuh
+//   has the details), returning o normalised. Replaces
+//   _grouped_kernel_db_mono_fresh (entry _mono_call_fresh).
+//
 // The caller hands each row (group) a table of LOCAL block ids, clamped
 // into the shard, and is_local [tables, m]: a slot that is not local is
 // another shard's and is skipped, like a slot at or past the context. The
@@ -32,7 +45,9 @@
 // the floor partials (m = -1e29, l = 0) and the combine skips them.
 //
 // Bound on the H100: bytes (a group reads its shard's share of its
-// context's K/V once per KV head, ~4 flops per byte at decode).
+// context's K/V once per KV head: G flops per byte at decode, R * G at a
+// packed verify of R rows, 56 at the bench's 14 x 4, far below the card's
+// ~295).
 #include "paged_walk.cuh"
 
 extern "C" {
@@ -44,13 +59,16 @@ long long npt_walk_plan(int rows, int g, int hkv, int d, int bs, int is_bf16, in
 
 // K11a (rows 1) / K11c: q, o [b * rows, hq, d] bf16 or f32 (is_bf16), the
 // shard's cache of the same type [L, 2, NB1_loc, bs, hkv * d]; bt [b, m]
-// local block ids; ctx [b * rows] global contexts; is_local [b, m] int32;
-// m_out, l_out [b * rows, hq] f32; part_acc / part_ml as npt_fallback's.
-// Returns cudaGetLastError() after the launches.
+// local block ids; ctx [b * rows] global contexts; is_local [b, m] int32,
+// or null with bf16 queries (every slot local: K7 over the whole cache,
+// ctx the cache-side contexts, >= 0); m_out, l_out [b * rows, hq] f32;
+// part_acc / part_ml as npt_fallback's. Returns cudaGetLastError() after
+// the launches.
 int npt_partials(const void* q, const void* cache, const int* bt, const int* ctx,
                  const int* is_local, void* out, float* m_out, float* l_out, float* part_acc,
                  float* part_ml, int b, int rows, int m, int hq, int hkv, int d, int bs,
                  long long k_off, long long v_off, float scale, int is_bf16, void* stream) {
+  if (!is_local && !is_bf16) return (int)cudaErrorInvalidValue;  // the f32 walk reads the mask
   return (int)npt::launch_walk<true>(is_bf16 != 0, 0, b, rows, q, cache, nullptr, bt, ctx,
                                      is_local, out, m_out, l_out, part_acc, part_ml, m, hq, hkv, d,
                                      bs, k_off, v_off, scale, stream);
@@ -66,6 +84,24 @@ int npt_partials_q8(const void* q, const void* cache, const void* scales, const 
   return (int)npt::launch_walk<true>(is_bf16 != 0, is_fp8 ? 2 : 1, b, rows, q, cache, scales, bt,
                                      ctx, is_local, out, m_out, l_out, part_acc, part_ml, m, hq,
                                      hkv, d, bs, k_off, v_off, scale, stream);
+}
+
+// K6b: q, o [b * rows, hq, d] bf16 (is_bf16 must be set), the cache bf16
+// [L, 2, NB+1, bs, hkv * d] holding each group's pre-round context ctx0
+// [b] alone; bt [b, m]; ctx [b * rows] each row's context with its visible
+// fresh rows; fk / fv [b * rows, hkv * d] bf16 the fresh rows (row t of
+// group g at position ctx0[g] + t), 16-byte aligned; part_acc / part_ml
+// [b * rows, hq, ceil(m * bs / cell) + 1, d | 2] f32 scratch (walk_plan's
+// cell). Returns cudaGetLastError() after the launches.
+int npt_fresh_walk(const void* q, const void* cache, const int* bt, const int* ctx,
+                   const int* ctx0, const void* fk, const void* fv, void* out, float* part_acc,
+                   float* part_ml, int b, int rows, int m, int hq, int hkv, int d, int bs,
+                   long long k_off, long long v_off, float scale, int is_bf16, void* stream) {
+  if (!is_bf16 || rows < 1 || d % 16 || d < 16 || d > 256 || hq % hkv)
+    return (int)cudaErrorInvalidValue;
+  return (int)npt::launch_walk_bf16(b, rows, q, cache, nullptr, bt, ctx, nullptr, out, nullptr,
+                                    nullptr, part_acc, part_ml, m, hq, hkv, d, bs, k_off, v_off,
+                                    scale, 0, stream, ctx0, fk, fv);
 }
 
 const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

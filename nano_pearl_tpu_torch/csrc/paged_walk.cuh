@@ -1,9 +1,11 @@
 // The page walk shared by the paged-attention fallbacks K10a-d
-// (csrc/paged_attention_fallback.cu) and the per-shard partials kernels
-// K11a-d of sequence parallelism (csrc/paged_attention_partials.cu): R rows
-// of a group share one block table (R = 1: decode), each row masked at its
-// own context; K11 also skips the slots `is_local` marks as another
-// shard's and exports (o, m, l). A context past the table (M * BS keys) is
+// (csrc/paged_attention_fallback.cu), the per-shard partials kernels
+// K11a-d of sequence parallelism and, with bf16 queries, the deferred
+// verify's kernels K7 and K6b of the mono schedule
+// (csrc/paged_attention_partials.cu): R rows of a group share one block
+// table (R = 1: decode), each row masked at its own context; K11 also skips
+// the slots `is_local` marks as another shard's and exports (o, m, l), as
+// K7 does with every slot local. A context past the table (M * BS keys) is
 // taken as M * BS, as the plain versions' gather of M pages takes it.
 //
 // Two routes, by the query type (walk_plan picks the tiles of each; it is
@@ -29,6 +31,21 @@
 //   directly; otherwise each cell writes f32 (acc, m, l) partials and a
 //   combine kernel folds each row's cells in cell order with
 //   fold_partials, as K1/K2's 256-key split does.
+// - The fresh cell (K6b, bf16 route only): the deferred verify reads the
+//   round's K/V from the fresh rows fk / fv [groups * R, Hkv * D] (row t of
+//   group g at position ctx0[g] + t), not from the cache, which holds the
+//   group's pre-round context ctx0[g] alone. The launch takes one more cell
+//   after the table's: the cache cells cover [0, ctx0[g]), a row of
+//   context ctx seeing min(ctx, ctx0[g]) of them; the last cell holds the R
+//   fresh keys, tagged with their positions, a row seeing those below its
+//   context (the tag <= position rule of mma_tile.cuh). Its keys come
+//   straight from their fresh rows (no table); every row writes its
+//   partial there, floors where it sees none (a padded row of a pre-verify
+//   group). The combine folds a row's cache cells with l > 0 in order, then
+//   the fresh cell: the order of the Pallas kernel (cache chunks, then the
+//   window). ctx0 = 0 leaves every cache cell empty. Nothing in the cell is
+//   K6b's own but its operands, so the classic schedule's fresh verify can
+//   take it as it is.
 // - Copies: a block first resolves its cell's table slots (and, over a
 //   1-byte cache, the K and V scales of each slot) into shared memory, so
 //   no copy waits on a table load. K/V tiles of 64 keys then come through
@@ -175,8 +192,10 @@ struct WalkArgs {
   const __nv_bfloat16* scales;  // 1-byte cache: [cache rows, hkv]
   const int *bt, *ctx;          // [groups, m], [groups * rows]
   const int* is_local;          // K11: [groups, m] (0: another shard's slot); else null
+  const int* ctx0;              // the fresh cell: [groups] pre-round contexts; else null
+  const __nv_bfloat16 *fk, *fv;  // the fresh cell: [groups * rows, hkv * d]; else null
   __nv_bfloat16* out;           // [groups * rows, hq, d]
-  float *m_out, *l_out;         // K11: [groups * rows, hq]; else null
+  float *m_out, *l_out;         // K11, K7: [groups * rows, hq]; else null
   float *part_acc, *part_ml;    // n_cells > 1: [groups * rows, hq, n_cells, d | 2]
   long long k_off, v_off;
   int rows, rpb, m, hq, hkv, bs, cell, n_cells, stages, kind;
@@ -184,7 +203,8 @@ struct WalkArgs {
 };
 
 // One block: cell blockIdx.x % n_cells of row slice blockIdx.x / n_cells,
-// KV head blockIdx.y, group blockIdx.z.
+// KV head blockIdx.y, group blockIdx.z; with fk, the last cell is the fresh
+// cell.
 template <int kD>
 __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   constexpr int kK = kWalkKeys;
@@ -201,12 +221,23 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   const long long row0 = (long long)grp * a.rows + r0;  // first row of the slice
   const int keys = a.m * a.bs;                           // keys the table holds
   const bool direct = a.n_cells == 1, q8 = a.kind != 0;
-  const auto ctx_of = [&](int r) { return min(a.ctx[row0 + r], keys); };  // row r of the slice
+  const bool fresh = a.fk && cell == a.n_cells - 1;  // the fresh cell
+  const int pos0 = a.ctx0 ? a.ctx0[grp] : 0;         // position of the first fresh key
+  const int cached = a.ctx0 ? min(keys, pos0) : keys;  // the cache keys the rows may see
+  // Row r of the slice: its context within the cell's key stream (its
+  // context in the fresh cell, whose keys are tagged with their positions).
+  const auto ctx_of = [&](int r) { return fresh ? a.ctx[row0 + r] : min(a.ctx[row0 + r], cached); };
+  // The combine reads row r's partial of this cell.
+  const auto owns = [&](int r) { return direct || fresh || ctx_of(r) > cell * a.cell; };
 
   int cm = 0;  // the slice's longest context, alike in every warp
   for (int r = lane; r < nr; r += 32) cm = max(cm, ctx_of(r));
   const int ctx_max = __reduce_max_sync(~0u, cm);
-  const int lo = cell * a.cell, hi = min(lo + a.cell, ctx_max);
+  // The cell's keys [lo, hi): of the table, or fresh rows 0 .. R - 1 at
+  // positions pos0 + t (tag0: the position of key 0).
+  const int lo = fresh ? 0 : cell * a.cell;
+  const int hi = fresh ? min(a.rows, ctx_max - pos0) : min(lo + a.cell, ctx_max);
+  const int tag0 = fresh ? pos0 : 0;
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [mrows, kP]
   const int stage_bytes = q8 ? kK * kRP : kK * kP * 2;
@@ -233,22 +264,23 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
           a.m_out[slot] = kMFloor;
           a.l_out[slot] = 0.f;
         }
-      } else if (ctx_of(r) > lo) {
+      } else if (owns(r)) {
         *reinterpret_cast<float2*>(a.part_ml + (slot * a.n_cells + cell) * 2) =
             make_float2(kMFloor, 0.f);
       }
     }
   };
   if (lo >= hi) {  // past every row's context (uniform over the block)
-    if (direct) write_empty();  // else the combine reads no such cell
+    if (direct || fresh) write_empty();  // else the combine reads no such cell
     return;
   }
 
-  // The cell's slots (and 1-byte scales), read out of the table once.
+  // The cell's slots (and 1-byte scales), read out of the table once; the
+  // fresh cell's keys are its group's fresh rows.
   const int* bt_row = a.bt + (long long)grp * a.m;
   const int* loc_row = a.is_local ? a.is_local + (long long)grp * a.m : nullptr;
-  int any = 0;
-  for (int kk = tid; kk < hi - lo; kk += nthr) {
+  int any = fresh;
+  for (int kk = tid; !fresh && kk < hi - lo; kk += nthr) {
     const int t = lo + kk, page = t / a.bs;
     const bool local = !loc_row || loc_row[page];
     const int slot = local ? bt_row[page] * a.bs + t % a.bs : -1;
@@ -270,16 +302,20 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
     cp_async16(qs + r * kP + c, ok ? a.q + ((row0 + r / g) * a.hq + kh * g + r % g) * kD + c : a.q,
                ok);
   }
-  // This KV head's K/V planes of the layer, indexed by slot (elements).
+  // This KV head's K/V planes of the layer, indexed by slot (elements); in
+  // the fresh cell its group's fresh rows, indexed by fresh row.
   const long long kbase = a.k_off * a.bs * hd + kh * kD, vbase = a.v_off * a.bs * hd + kh * kD;
+  const long long fbase = (long long)grp * a.rows * hd + kh * kD;
   const int n_tiles = (hi - lo + kK - 1) / kK;
   // Keys [lo + n * kK, + kK) into stage st (zeros where not read), and their
   // tags: the key's position, or kNone.
   const auto load_tile = [&](int n, int st) {
     const int t0 = n * kK;
-    const auto slot_of = [&](int kk) { return t0 + kk < hi - lo ? kslot[t0 + kk] : -1; };
+    const auto slot_of = [&](int kk) {
+      return t0 + kk < hi - lo ? (fresh ? t0 + kk : kslot[t0 + kk]) : -1;
+    };
     for (int kk = tid; kk < kK; kk += nthr)
-      tags[st * kK + kk] = slot_of(kk) >= 0 ? lo + t0 + kk : kNone;
+      tags[st * kK + kk] = slot_of(kk) >= 0 ? tag0 + lo + t0 + kk : kNone;
     unsigned char* kd = kring + st * stage_bytes;
     unsigned char* vd = vring + st * stage_bytes;
     if (q8) {
@@ -292,11 +328,14 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
       }
     } else {
       const __nv_bfloat16* cb = static_cast<const __nv_bfloat16*>(a.cache);
+      const __nv_bfloat16* ks = fresh ? a.fk + fbase : cb + kbase;
+      const __nv_bfloat16* vs = fresh ? a.fv + fbase : cb + vbase;
       for (int idx = tid; idx < kK * kVecs; idx += nthr) {
         const int kk = idx / kVecs, c = (idx - kk * kVecs) * 8, slot = slot_of(kk);
         const bool ok = slot >= 0;
-        cp_async16(kd + (kk * kP + c) * 2, cb + (ok ? kbase + (long long)slot * hd + c : 0), ok);
-        cp_async16(vd + (kk * kP + c) * 2, cb + (ok ? vbase + (long long)slot * hd + c : 0), ok);
+        const long long at = ok ? (long long)slot * hd + c : 0;
+        cp_async16(kd + (kk * kP + c) * 2, ok ? ks + at : cb, ok);
+        cp_async16(vd + (kk * kP + c) * 2, ok ? vs + at : cb, ok);
       }
     }
   };
@@ -378,7 +417,7 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? rb : ra;
-    if (r >= nq || (!direct && ctx_of(r / g) <= lo)) continue;
+    if (r >= nq || !owns(r / g)) continue;
     const float l = half ? l_b : l_a, m = l > 0.f ? (half ? m_b : m_a) * kLn2 : kMFloor;
     const long long slot = (row0 + r / g) * a.hq + kh * g + r % g;
     if (direct) {
@@ -404,23 +443,27 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
 
 // Output row blockIdx.x of a launch of several cells: the row's cells that
 // start below its context, those with l > 0, folded in order (none: o = 0,
-// m = -1e29, l = 0). Grid (rows, ceil(hq * d / kThreads)): one output
-// element a thread.
+// m = -1e29, l = 0); with ctx0 (the fresh cell, the launch's last), the
+// cache cells below min(context, ctx0[group]) and then the fresh cell.
+// Grid (rows, ceil(hq * d / kThreads)): one output element a thread.
 __global__ void __launch_bounds__(kThreads)
 walk_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                    const int* __restrict__ ctx, __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ m_out, float* __restrict__ l_out, int hq, int d,
-                    int n_cells, int cell, int keys) {
+                    const int* __restrict__ ctx, const int* __restrict__ ctx0,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int hq, int d, int n_cells, int cell, int keys,
+                    int rows) {
   const long long row = blockIdx.x;
   const int idx = blockIdx.y * blockDim.x + threadIdx.x;
   if (idx >= hq * d) return;
-  const int cells = (min(ctx[row], keys) + cell - 1) / cell;
+  const int seen = ctx0 ? min(min(ctx[row], keys), ctx0[row / rows]) : min(ctx[row], keys);
+  const int cached = (seen + cell - 1) / cell;  // the row's cache cells, then the fresh cell
   const int h = idx / d, c = idx - h * d;
   const long long slot = row * hq + h, first = slot * n_cells;
+  const auto at = [&](int i) { return first + (i < cached ? i : n_cells - 1); };
   float mg, l;
   out[slot * d + c] = fold_partials<__nv_bfloat16>(
-      part_acc, part_ml, d, c, cells, [&](int i) { return part_ml[(first + i) * 2 + 1] > 0.f; },
-      [&](int i) { return first + i; }, &mg, &l);
+      part_acc, part_ml, d, c, cached + (ctx0 != nullptr),
+      [&](int i) { return part_ml[at(i) * 2 + 1] > 0.f; }, at, &mg, &l);
   if (m_out && c == 0) {
     m_out[slot] = mg;
     l_out[slot] = l;
@@ -442,17 +485,20 @@ cudaError_t launch_walk_mma(int d, const WalkArgs& a, dim3 grid, const WalkPlan&
 }
 
 // The bf16 walk over `groups` groups of `rows` rows: kind 0 a bf16 cache, 1
-// int8, 2 e4m3 (with `scales`); is_local, m_out and l_out for K11 (else
-// null); part_acc / part_ml the partials of ceil(m * bs / cell) cells (null
-// where that is 1).
+// int8, 2 e4m3 (with `scales`); is_local for K11, m_out and l_out for K11
+// and K7 (else null); ctx0, fk and fv for the fresh cell (K6b: a bf16
+// cache; else null); part_acc / part_ml the partials of ceil(m * bs /
+// cell) cells, plus the fresh cell (null where that is 1).
 inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const void* cache,
                                     const void* scales, const int* bt, const int* ctx,
                                     const int* is_local, void* out, float* m_out, float* l_out,
                                     float* part_acc, float* part_ml, int m, int hq, int hkv, int d,
                                     int bs, long long k_off, long long v_off, float scale,
-                                    int kind, void* stream) {
+                                    int kind, void* stream, const int* ctx0 = nullptr,
+                                    const void* fk = nullptr, const void* fv = nullptr) {
   const WalkPlan p = walk_plan(rows, hq / hkv, hkv, d, bs, true, kind != 0);
   if (p.threads > kThreads) return cudaErrorInvalidConfiguration;
+  if (fk && (kind != 0 || !ctx0 || !fv)) return cudaErrorInvalidValue;
   WalkArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.cache = cache;
@@ -460,6 +506,9 @@ inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const v
   a.bt = bt;
   a.ctx = ctx;
   a.is_local = is_local;
+  a.ctx0 = ctx0;
+  a.fk = static_cast<const __nv_bfloat16*>(fk);
+  a.fv = static_cast<const __nv_bfloat16*>(fv);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.m_out = m_out;
   a.l_out = l_out;
@@ -474,7 +523,7 @@ inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const v
   a.hkv = hkv;
   a.bs = bs;
   a.cell = p.cell;
-  a.n_cells = (m * bs + p.cell - 1) / p.cell;
+  a.n_cells = (m * bs + p.cell - 1) / p.cell + (fk != nullptr);
   a.stages = p.stages;
   a.kind = kind;
   a.scale = scale;
@@ -484,7 +533,8 @@ inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const v
   cudaError_t err = launch_walk_mma(d, a, dim3(a.n_cells * slices, hkv, groups), p, s);
   if (err != cudaSuccess || a.n_cells == 1) return err;
   walk_combine_kernel<<<dim3(groups * rows, (hq * d + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      part_acc, part_ml, ctx, a.out, m_out, l_out, hq, d, a.n_cells, p.cell, m * bs);
+      part_acc, part_ml, ctx, fk ? ctx0 : nullptr, a.out, m_out, l_out, hq, d, a.n_cells, p.cell,
+      m * bs, rows);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,14 @@
-"""Kernels K5 (grouped attention, mono schedule) and K7 (cache-side flash
-partials of the deferred verify): wrappers of ``csrc/mono_attention.cu``.
+"""Kernels K5 (grouped attention, mono schedule), K7 (cache-side flash
+partials of the deferred verify), K9c and K6b: wrappers of
+``csrc/mono_attention.cu`` and, for K7's and K6b's bf16 queries, of the
+tensor-core page walk (``csrc/paged_walk.cuh`` through
+``csrc/paged_attention_partials.cu``).
+
+Where each route runs on the card: K5 and K9c, bf16 and f32, on the mono
+template below; K7 and K6b with f32 queries there too (the f32 exactness
+pairs), with bf16 queries on the walk. Neither bf16 route falls back to the
+template or to the plain version: a walk that fails to build or launch
+raises.
 
 K5 ``mono_attention`` replaces ``_grouped_kernel_db_mono`` (entry
 ``_mono_call``) and K7 ``cache_partials`` replaces
@@ -12,12 +21,18 @@ group) and ``paged_attention_grouped_ref``; K7's is
 
 What bounds them on the H100: bytes (a group's K/V is read once per KV
 head; 4 flops per byte at decode, 4 * R in a packed verify of R rows per
-group, far under the card's ~295). The design answer, after the TPU
-kernels' flat (group, chunk) stream: one launch per call, whose resident
-blocks walk a work list of (group, 256-key chunk, KV head) items counted
-on the device from each group's own context, and the block that finishes
-a (group, head) last folds its chunks' partials in chunk order in the same
-launch (the source's header has the details).
+group, far under the card's ~295). The mono template's answer, after the
+TPU kernels' flat (group, chunk) stream: one launch per call, whose
+resident blocks walk a work list of (group, 256-key chunk, KV head) items
+counted on the device from each group's own context, and the block that
+finishes a (group, head) last folds its chunks' partials in chunk order in
+the same launch (the source's header has the details). At a packed
+verify's 14 rows its CUDA-core dot products are bound by shared-memory
+reads; there the bf16 K7 and K6b run on the walk instead: ``mma.sync``,
+cells of keys at fixed positions over the card's SMs, a ``cp.async`` ring,
+and a combine kernel. K7 is K11c's launch with every slot local; K6b's
+adds one cell after the table's for the round's fresh keys, read from
+their rows (``paged_walk.launch``'s ``fresh``).
 
 K9c ``mono_q8`` is K5 over a quantized cache (``QuantKVCache``), the
 throughput profile's decode and packed verify there; it replaces
@@ -28,11 +43,12 @@ version is K5's, which reads either cache kind.
 
 K6b ``mono_fresh`` is the deferred-write packed verify on the mono
 schedule with the fresh window folded in the same launch
-(``NANO_PEARL_FRESH_MODE=kernel``): K7's work list over the cache below
-each group's pre-round context, plus one item per (group, KV head) read
-from the in-operand fresh rows and folded after the cache chunks. It
-replaces ``_grouped_kernel_db_mono_fresh`` (entry ``_mono_call_fresh``);
-its plain version is ``paged_attention_grouped_fresh_ref``.
+(``NANO_PEARL_FRESH_MODE=kernel``): K7's walk over the cache below each
+group's pre-round context, plus the fresh window read from the in-operand
+fresh rows and folded after the cache's keys (f32: one more work item per
+(group, KV head); bf16: the walk's last cell). It replaces
+``_grouped_kernel_db_mono_fresh`` (entry ``_mono_call_fresh``); its plain
+version is ``paged_attention_grouped_fresh_ref``.
 
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
@@ -51,7 +67,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
-from nano_pearl_tpu_torch.ops.cuda import build
+from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_partials, paged_walk
 from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_fresh, _check_inputs
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
@@ -146,11 +162,16 @@ def cache_partials(q, cache, layer_idx, group_tables, context_lens, scale, rows_
     if q.device.type == "cpu":
         return plain_partials(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
     n, hq = q.shape[0], q.shape[1]
-    o = torch.empty_like(q)
     m_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
     l_out = torch.empty((n, hq), dtype=torch.float32, device=q.device)
-    _launch("npt_cache_partials", "cache_partials", q, cache, layer_idx, group_tables,
-            context_lens, scale, int(rows_per_group), (o, m_out, l_out))
+    if q.dtype == torch.bfloat16:  # the walk: K11c's launch with every slot local
+        lib = paged_attention_partials._lib()
+        o = paged_walk.launch(lib, lib.npt_partials, False, q, cache, layer_idx, group_tables, context_lens,
+                              scale, int(rows_per_group), before=(None,), after=(m_out, l_out))
+    else:
+        o = torch.empty_like(q)
+        _launch("npt_cache_partials", "cache_partials", q, cache, layer_idx, group_tables,
+                context_lens, scale, int(rows_per_group), (o, m_out, l_out))
     cache_partials.launches += 1
     return o, m_out, l_out
 
@@ -178,6 +199,12 @@ def mono_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, f
     r, chunk = int(rows_per_group), lib.npt_mono_chunk_tokens()
     if not 1 <= r <= chunk:
         raise ValueError(f"mono_fresh takes 1 <= rows_per_group <= {chunk}, got {r}")
+    if q.dtype == torch.bfloat16:  # the walk, the fresh window as its last cell
+        walk = paged_attention_partials._lib()
+        out = paged_walk.launch(walk, walk.npt_fresh_walk, False, q, cache, layer_idx, group_tables, context_lens,
+                                scale, r, fresh=(ctx0, fresh_k, fresh_v))
+        mono_fresh.launches += 1
+        return out
     b = group_tables.shape[0]
     hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, b, b * r)
     _check_fresh(q, ctx0, fresh_k, fresh_v, b, hkv, d)

@@ -1,6 +1,7 @@
-"""The launch plan of the page walk behind K10a-d and K11a-d
-(``csrc/paged_walk.cuh``), mirrored in Python, and the launch both
-wrappers share (``paged_attention_fallback.py``, ``paged_attention_partials.py``).
+"""The launch plan of the page walk behind K10a-d, K11a-d and the bf16
+route of K7 and K6b (``csrc/paged_walk.cuh``), mirrored in Python, and the
+launch their wrappers share (``paged_attention_fallback.py``,
+``paged_attention_partials.py``, ``mono_attention.py``).
 
 ``walk_plan`` is the mirror of the launchers' ``walk_plan``, which both
 libraries export as ``npt_walk_plan``; the CPU tests check the mirror and
@@ -9,8 +10,10 @@ cores: 16 query vectors a warp, a group's rows over up to 8 warps a block,
 each table's key stream cut into cells of ``cell_keys(hkv)`` keys at fixed
 positions (``key_cells``), one block per (group, KV head, row slice, cell)
 and, where the table holds more than one cell, f32 partials that a
-combine kernel folds. f32 queries walk the table a page at a time on CUDA
-cores with no split (``rows_per_block``'s row slices).
+combine kernel folds. K6b's launch adds one cell after the table's, the
+round's fresh keys read from their rows (``fresh``). f32 queries walk the
+table a page at a time on CUDA cores with no split (``rows_per_block``'s
+row slices).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import MAX_SMEM, _check_inputs, rows_per_block
+from nano_pearl_tpu_torch.ops.cuda.paged_attention import MAX_SMEM, _check_fresh, _check_inputs, rows_per_block
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
 THREADS = 256  # threads per block, at most (kThreads)
@@ -110,24 +113,32 @@ def key_cells(n_keys: int, cell: int) -> list[tuple[int, int]]:
 
 
 def launch(lib, fn, quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int,
-           before: tuple = (), after: tuple = ()):
+           before: tuple = (), after: tuple = (), fresh: tuple | None = None):
     """Validate and launch ``fn`` (``npt_fallback`` / ``npt_partials`` or
-    their ``_q8`` twins) on ``tables.shape[0]`` groups of ``rows`` rows:
-    ``fn(q, cache[, scales], tables, contexts, *before, out, *after,
-    part_acc, part_ml, groups, rows, m, hq, hkv, d, bs, k_off, v_off, scale,
-    is_bf16[, is_fp8], stream)``, where ``before`` / ``after`` are the extra
-    device pointers of the partials kernels (is_local; m, l). Allocates the
-    output and, where the bf16 route splits the table into several cells,
-    the partials scratch; raises on a launch error. Returns the output."""
+    their ``_q8`` twins, ``npt_fresh_walk``) on ``tables.shape[0]`` groups
+    of ``rows`` rows: ``fn(q, cache[, scales], tables, contexts, *before,
+    out, *after, part_acc, part_ml, groups, rows, m, hq, hkv, d, bs, k_off,
+    v_off, scale, is_bf16[, is_fp8], stream)``, where ``before`` / ``after``
+    are the extra device tensors of the partials kernels (is_local, None
+    for K7's every slot local; m, l). ``fresh`` (K6b): (ctx0, fresh K,
+    fresh V), passed as ``before``; their fresh cell adds one to the
+    table's cells. Allocates the output and, where the bf16 route has
+    several cells, the partials scratch; raises on a launch error. Returns
+    the output."""
     if rows < 1:
         raise ValueError(f"rows_per_group must be >= 1, got {rows}")
     groups = tables.shape[0]
     hq, hkv, d, bs, m = _check_inputs(q, cache, tables, context_lens, groups, groups * rows, quant=quant)
     if q.element_size() == 2 and hq // hkv > MAX_WARPS * 16:  # one row's query vectors exceed 8 warps
         raise ValueError(f"{hq // hkv} query heads per KV head do not fit one block (at most 128)")
+    if fresh is not None:
+        _check_fresh(q, *fresh, groups, hkv, d)
+        if q.element_size() != 2 or fresh[1].data_ptr() % 16 or fresh[2].data_ptr() % 16:
+            raise ValueError("the fresh cell takes bf16 queries and fresh rows at 16-byte boundaries")
+        before = fresh
     k_off, v_off = global_block_offsets(cache, layer_idx)
     out = torch.empty_like(q)
-    cells = n_cells(m * bs, cell_keys(hkv)) if q.element_size() == 2 else 1  # walk_plan(...).cell: bf16 only
+    cells = n_cells(m * bs, cell_keys(hkv)) + (fresh is not None) if q.element_size() == 2 else 1  # bf16 only
     scratch = part_acc = part_ml = None
     if cells > 1:  # (acc [.., d], then (m, l) [.., 2]) of every row, head and cell in one scratch
         slots = groups * rows * hq * cells
@@ -136,8 +147,8 @@ def launch(lib, fn, quant: bool, q, cache, layer_idx, tables, context_lens, scal
         part_ml = part_acc + slots * d * 4
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), cache.q.data_ptr(), cache.s.data_ptr()) if quant else (q.data_ptr(), cache.data_ptr())
-    ptrs = (tables.data_ptr(), context_lens.data_ptr(), *(t.data_ptr() for t in before), out.data_ptr(),
-            *(t.data_ptr() for t in after), part_acc, part_ml)
+    ptrs = (tables.data_ptr(), context_lens.data_ptr(), *(t if t is None else t.data_ptr() for t in before),
+            out.data_ptr(), *(t.data_ptr() for t in after), part_acc, part_ml)
     common = (groups, rows, m, hq, hkv, d, bs, k_off, v_off, float(scale), int(q.dtype == torch.bfloat16))
     tail = (int(cache.q.dtype == torch.float8_e4m3fn),) if quant else ()
     err = fn(*head, *ptrs, *common, *tail, stream)

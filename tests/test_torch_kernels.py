@@ -13,7 +13,9 @@ PyTorch versions; K8b's rows against K8a's, K10b's against K10a's, K10d's
 against K10c's, K11c's against K11a's and K11d's against K11b's bit for
 bit; every kernel at head dims 16 to 256, and the fast kernels at D 256
 with a packed-verify group spread over blocks (the launchers'
-rows-per-block choice, checked on the CPU too).
+rows-per-block choice, checked on the CPU too); K7 and K6b with bf16
+queries on the tensor-core page walk (edge cases, contexts 1-64 and
+65-2300), with f32 queries on the mono template.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -29,6 +31,8 @@ l are f32 in both dtypes and held at 1e-4; K12 moves bytes and is held
 bit for bit. K9a-c are held at the same tolerances: their plain versions
 round the dequantized K/V to the query's dtype, as the kernels do.
 """
+
+import time
 
 import pytest
 import torch
@@ -1050,3 +1054,96 @@ def test_walk_plan_mirror_matches_the_launchers(cuda):
                                 for lib in libs:
                                     got = [lib.npt_walk_plan(rows, g, hkv, d, bs, bf16, q8, w) for w in range(6)]
                                     assert got == want, (rows, g, hkv, d, bs, size, q8)
+
+
+# ---- K7 and K6b with bf16 queries: the walk (csrc/paged_walk.cuh) ----
+
+# pre-round contexts of a verify's groups: (a) no cache (ctx0 0), windows
+# across a 128-key and a 256-key cell boundary, a pre-verify group (one
+# real row), a window deep in the table; (b) contexts 1-64 (a verify right
+# after a short prompt); (c) 65-2300 (chip_smoke.py's rows)
+MONO_WALK_CTX0 = {
+    "edges": ((0, 125, 253, 300, 470, 1000), (3,)),
+    "short": (tuple(range(0, 50, 7)), (2,)),
+    "long": (tuple(int(c) for c in torch.linspace(65, 2286, 12)), (5,)),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [3, 4])
+@pytest.mark.parametrize("hkv", [1, 2, 5])
+def test_walk_k7_and_k6b_match_plain_and_relaunch_bitwise(cuda, hkv, g, d):
+    """bf16 K7 (cache_partials at the cache-side contexts min(ctx, ctx0))
+    and K6b (mono_fresh) on the tensor-core walk, at Hkv 1/2/5, G 3/4, D
+    64/128, over each set of MONO_WALK_CTX0: against their plain versions
+    (o at TOL, K7's m and l at 1e-4), a row with cache context 0 giving (0,
+    -1e29, 0) exactly, and a second launch bit for bit."""
+    rows, bf16 = 14, TOL[torch.bfloat16]
+    for name, (ctx0s, pre) in MONO_WALK_CTX0.items():
+        args, _, scale = fresh_case(120 + hkv + g + d, torch.bfloat16, cuda, rows=rows, ctx0s=ctx0s, pre=pre,
+                                    nb=-(-sum(c + rows for c in ctx0s) // 32) + 2 * len(ctx0s), hq=g * hkv,
+                                    hkv=hkv, d=d, m=-(-(max(ctx0s) + rows) // 32))
+        q, cache, layer, bt, ctx, ctx0 = args[:6]
+        n0 = kmo.mono_fresh.launches
+        got = kmo.mono_fresh(*args, scale, rows)
+        assert kmo.mono_fresh.launches == n0 + 1
+        torch.testing.assert_close(got.float(), kpa.plain_fresh(*args, scale).float(), **bf16)
+        assert torch.equal(kmo.mono_fresh(*args, scale, rows), got), name
+
+        ctx_cache = torch.minimum(ctx, ctx0.repeat_interleave(rows)).contiguous()
+        part_args = (q, cache, layer, bt, ctx_cache, scale, rows)
+        n0 = kmo.cache_partials.launches
+        o, m, l = kmo.cache_partials(*part_args)  # noqa: E741
+        assert kmo.cache_partials.launches == n0 + 1
+        wo, wm, wl = kmo.plain_partials(*part_args)
+        torch.testing.assert_close(o.float(), wo.float(), **bf16)
+        torch.testing.assert_close(m, wm, **TOL[torch.float32])
+        torch.testing.assert_close(l, wl, **TOL[torch.float32])
+        empty = ctx_cache == 0
+        assert bool(empty.any()) == (0 in ctx0s), name
+        assert not o[empty].any() and (m[empty] == -1e29).all() and not l[empty].any(), name
+        assert all(torch.equal(a, b) for a, b in zip(kmo.cache_partials(*part_args), (o, m, l))), name
+
+
+def _kernel_names(run) -> set:
+    """The CUDA kernels one call of ``run`` launched (names without
+    namespace or arguments), from a torch.profiler trace of a second call
+    (the first may allocate and zero a wrapper's scratch). The session idles
+    5 ms before and after the call, as chip_smoke.py's ``kernel_trace``
+    does, and a session that holds no kernel record (now and then, see
+    ``launched_blocks`` there) is taken again, up to 8 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    names = set()
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        names = {e.key.split("(")[0].split("<")[0].split("::")[-1] for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+        if names:
+            break
+    return names
+
+
+def test_k7_and_k6b_routes_by_query_type(cuda):
+    """bf16 K7 and K6b launch the walk (walk_mma_kernel and its combine) and
+    no mono template; f32 K7 and K6b still launch the mono template alone,
+    and match their plain versions at the f32 tolerance."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args, _, scale = fresh_case(130, dtype, cuda)
+        q, cache, layer, bt, ctx, ctx0 = args[:6]
+        ctx_cache = torch.minimum(ctx, ctx0.repeat_interleave(14)).contiguous()
+        for run in (lambda: kmo.mono_fresh(*args, scale, 14),
+                    lambda: kmo.cache_partials(q, cache, layer, bt, ctx_cache, scale, 14)):
+            names = _kernel_names(run)
+            if dtype == torch.bfloat16:
+                assert names == {"walk_mma_kernel", "walk_combine_kernel"}, names
+            else:
+                assert names == {"mono_kernel"}, names
+        torch.testing.assert_close(kmo.mono_fresh(*args, scale, 14), kpa.plain_fresh(*args, scale),
+                                   **TOL[dtype])

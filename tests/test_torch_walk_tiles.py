@@ -20,6 +20,12 @@
   round them (the Pallas kernels' ``_kv_head``; JAX's jnp path keeps them
   in f32), as an f32 cache. In the emulation a verify row equals its
   decode row bit for bit.
+- The bf16 route of the mono schedule's deferred verify on the same walk:
+  K7 (K11c's arithmetic with every slot local) against the port's plain
+  version and, merged with JAX's fresh-window partials, against JAX's
+  ``paged_attention_grouped_fresh_jnp``; K6b (the cache cells below each
+  group's pre-round context, then one cell of the fresh keys) against the
+  same, at 1e-5.
 - Why the kernels multiply P V as hi + lo bf16 parts where the Pallas
   kernels round P once: at K10b's and K11d's chip_smoke rows (contexts
   65-2300) one bf16 P meets chip_smoke.py's bf16 tolerance against the
@@ -140,7 +146,7 @@ def test_cells_cover_the_key_stream_once_in_order(n_keys, cell):
 # ---------------------------------------------------------------- the emulation
 
 
-def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact_rows=False):
+def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact_rows=False, fresh=None):
     """The bf16 route's arithmetic: q [B*R, Hq, D] (bf16 values), k, v [B, S,
     Hkv, D] (bf16 values) of each group's table of S = M * BS keys, ctx
     [B*R] (taken within S), ``local`` [B, S] (K11: the shard's keys) or
@@ -151,29 +157,37 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
     where l = 0); one cell written directly, several folded in order over
     the row's cells below its context with l > 0. ``exact_rows`` takes
     every sum as its own reduction over the last axis, so a row's bits
-    cannot depend on the others. Returns (o f32 unrounded, m, l) [B*R, Hq
-    (, D)]."""
+    cannot depend on the others. ``fresh`` (K6b): (fk, fv [B, R, Hkv, D],
+    ctx0 [B]); the cache cells then end at each group's ctx0 (a row sees
+    min(ctx, ctx0) of them) and one more cell holds the R fresh keys at
+    positions ctx0 + t, seen where below the row's context, folded after
+    the row's cache cells. Returns (o f32 unrounded, m, l) [B*R, Hq (, D)]."""
     n, hq, d = q.shape
     b, s, hkv, _ = k.shape
     g = hq // hkv
-    ctx = ctx.clamp(max=s).reshape(b, rows)
-    qf, kf, vf = q.float().reshape(b, rows, hkv, g, d), k.float(), v.float()
+    ctx = ctx.reshape(b, rows)
+    lim = ctx.clamp(max=s)  # the keys of the table a row sees
+    if fresh is not None:
+        lim = torch.minimum(lim, fresh[2][:, None])
+    qf = q.float().reshape(b, rows, hkv, g, d)
     sl2 = scale * LOG2E
-    vis = torch.arange(s)[None, None, :] < ctx[:, :, None]
+    vis = torch.arange(s)[None, None, :] < lim[:, :, None]
     if local is not None:
         vis = vis & local[:, None, :]
-    parts = []
-    for lo, hi in key_cells(s, cell):
+
+    def fold_cell(kc, vc, vis_c):
+        """(acc, m (natural log; -1e29 where l = 0), l) of one cell's keys kc, vc
+        [B, n, Hkv, D] seen as vis_c [B, R, n], in 64-key tiles from its first."""
         m = torch.full((b, rows, hkv, g), M_FLOOR)
         l = torch.zeros((b, rows, hkv, g))  # noqa: E741
         acc = torch.zeros((b, rows, hkv, g, d))
-        for t0 in range(lo, hi, KEYS):
-            kt, vt = kf[:, t0 : min(t0 + KEYS, hi)], vf[:, t0 : min(t0 + KEYS, hi)]
+        for t0 in range(0, kc.shape[1], KEYS):
+            kt, vt = kc[:, t0 : t0 + KEYS].float(), vc[:, t0 : t0 + KEYS].float()
             if exact_rows:
                 sc = (qf[:, :, :, :, None, :] * kt.permute(0, 2, 1, 3)[:, None, :, None]).sum(-1)
             else:
                 sc = torch.einsum("brkgd,btkd->brkgt", qf, kt)
-            sc = torch.where(vis[:, :, None, None, t0 : t0 + kt.shape[1]], sc, torch.tensor(float("-inf")))
+            sc = torch.where(vis_c[:, :, None, None, t0 : t0 + kt.shape[1]], sc, torch.tensor(float("-inf")))
             mn = torch.maximum(m, sc.amax(-1) * sl2)
             p = torch.exp2(sc * sl2 - mn[..., None])
             alpha = torch.exp2(m - mn)
@@ -187,17 +201,27 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
                     pv = pv + torch.einsum("brkgt,btkd->brkgd", pp, vt)
             acc = acc * alpha[..., None] + pv
             m = mn
-        parts.append((lo, acc, torch.where(l > 0, m * LN2, torch.tensor(M_FLOOR)), l))
+        return acc, torch.where(l > 0, m * LN2, torch.tensor(M_FLOOR)), l
+
+    parts, uses = [], []
+    for lo, hi in key_cells(s, cell):
+        acc, mc, lc = fold_cell(k[:, lo:hi], v[:, lo:hi], vis[:, :, lo:hi])
+        parts.append((acc, mc, lc))
+        uses.append((lo < lim)[:, :, None, None] & (lc > 0))
+    if fresh is not None:
+        fk, fv, ctx0 = fresh
+        pos = ctx0[:, None] + torch.arange(rows)[None, :]  # [B, R] the fresh keys' positions
+        acc, mc, lc = fold_cell(fk, fv, pos[:, None, :] < ctx[:, :, None])
+        parts.append((acc, mc, lc))
+        uses.append(lc > 0)
     if len(parts) == 1:
-        _, acc, mg, lt = parts[0]
-        at = acc
+        at, mg, lt = parts[0]
     else:
         mg = torch.full((b, rows, hkv, g), M_FLOOR)
-        uses = [(lo < ctx)[:, :, None, None] & (lc > 0) for lo, _, _, lc in parts]
-        for use, (_, _, mc, _) in zip(uses, parts):
+        for use, (_, mc, _) in zip(uses, parts):
             mg = torch.where(use, torch.maximum(mg, mc), mg)
         lt, at = torch.zeros_like(mg), torch.zeros((b, rows, hkv, g, d))
-        for use, (_, acc, mc, lc) in zip(uses, parts):
+        for use, (acc, mc, lc) in zip(uses, parts):
             w = torch.exp(mc - mg)
             lt = torch.where(use, lc * w + lt, lt)
             at = torch.where(use[..., None], acc * w[..., None] + at, at)
@@ -362,3 +386,70 @@ def test_one_bf16_p_at_the_rows_shapes_and_at_short_contexts(kernel):
         outs = [walk_emulation(q, k, v, ctx, 14, d**-0.5, cell_keys(hkv), local, parts)[0] for parts in (1, 2)]
         assert _meets_tol(outs[0][real], want[real]) == one_meets, (lo, hi)
         assert _meets_tol(outs[1][real], want[real]), (lo, hi)
+
+
+# ------------------------------------------- K7 and K6b on the walk (bf16)
+
+# (pre-round context ctx0, real rows of the window) per group: no cache at
+# all, windows across a 128-key and a 256-key cell boundary, one real row
+# (its padding rows at context 1, as a pre-verify group's), a window deep
+# in the table
+MONO_GROUPS = ((0, 6), (125, 6), (253, 6), (300, 1), (470, 6))
+MONO_ROWS, MONO_BS, MONO_M = 6, 16, 32  # 512 keys a table: 4 cells of 128 or 2 of 256
+
+
+def _mono_case(hkv, g, d):
+    """The deferred verify's operands at bf16 values in f32 (cache, q, fresh
+    K/V), one group per MONO_GROUPS entry with random distinct pages,
+    staircase contexts ctx0 + 1 .. ctx0 + R (padding rows at 1)."""
+    rng = np.random.default_rng(100 + hkv * 10 + g + d)
+    groups, r = len(MONO_GROUPS), MONO_ROWS
+    nb = groups * MONO_M + 3
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float()  # noqa: E731
+    cache = bf(2, 2, nb + 1, MONO_BS, hkv * d)
+    q = bf(groups * r, g * hkv, d)
+    fk, fv = bf(groups * r, hkv, d), bf(groups * r, hkv, d)
+    bt = torch.from_numpy(rng.permutation(nb)[: groups * MONO_M].reshape(groups, MONO_M).astype(np.int32))
+    ctx = torch.tensor([c + 1 + i if i < real else 1 for c, real in MONO_GROUPS for i in range(r)], dtype=torch.int32)
+    ctx0 = torch.tensor([c for c, _ in MONO_GROUPS], dtype=torch.int32)
+    return q, cache, bt, ctx, ctx0, fk, fv, d**-0.5
+
+
+@pytest.mark.parametrize("hkv,g,d", [(1, 4, 64), (2, 3, 128), (2, 4, 128), (5, 3, 64)])
+def test_emulated_k7_and_k6b_match_jax_deferred_verify(hkv, g, d):
+    """K7 on the walk (K11c's arithmetic with every slot local, at the
+    cache-side contexts min(ctx, ctx0)) and K6b (the cache cells at min(ctx,
+    ctx0), then the fresh cell last) emulated at Hkv 1/2/5, G 3/4, D 64/128,
+    over groups with no cache (ctx0 = 0), windows across a cell boundary and
+    one real row. K7's partials equal the port's plain version's, and a row
+    with cache context 0 gives (0, -1e29, 0) exactly; merged with JAX's
+    ``fresh_window_partials`` by JAX's ``merge_attn_partials`` they give
+    JAX's ``paged_attention_grouped_fresh_jnp``, as K6b does directly, and
+    so does the port's plain K6b; all at the f32 tolerance of the tests
+    above, 1e-5."""
+    q, cache, bt, ctx, ctx0, fk, fv, scale = _mono_case(hkv, g, d)
+    r, cell = MONO_ROWS, cell_keys(hkv)
+    k, v = tatt._gather_kv(cache, 1, bt, d, torch.float32)
+    ctx_cache = torch.minimum(ctx, ctx0.repeat_interleave(r))
+    assert (ctx_cache == 0).any() and any(c0 // cell != (c0 + n) // cell for c0, n in MONO_GROUPS if c0)
+
+    o7, m7, l7 = walk_emulation(q, k, v, ctx_cache, r, scale, cell)
+    want = tatt.paged_attention_grouped_cache_partials_ref(q, cache, 1, bt, ctx_cache, scale, r)
+    for got, w in zip((o7, m7, l7), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+    empty = ctx_cache == 0
+    assert not o7[empty].any() and (m7[empty] == M_FLOOR).all() and not l7[empty].any()
+
+    j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    jfresh = jatt.paged_attention_grouped_fresh_jnp(j(q), j(cache), jnp.int32(1), j(bt), j(ctx), j(ctx0), j(fk),
+                                                     j(fv), scale)
+    of, mf, lf = jatt.fresh_window_partials(j(q), j(fk), j(fv), j(ctx), j(ctx0), scale, r)
+    merged = jatt.merge_attn_partials(j(o7), j(m7), j(l7), of, mf, lf, jnp.float32)
+    np.testing.assert_allclose(np.asarray(merged), np.asarray(jfresh), rtol=1e-5, atol=1e-5)
+
+    groups = len(MONO_GROUPS)
+    o6b = walk_emulation(q, k, v, ctx, r, scale, cell,
+                         fresh=(fk.reshape(groups, r, hkv, d), fv.reshape(groups, r, hkv, d), ctx0))[0]
+    np.testing.assert_allclose(o6b.numpy(), np.asarray(jfresh), rtol=1e-5, atol=1e-5)
+    plain = tatt.paged_attention_grouped_fresh_ref(q, cache, 1, bt, ctx, ctx0, fk, fv, scale)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(jfresh), rtol=1e-5, atol=1e-5)
