@@ -11,9 +11,12 @@ script exits non-zero without its last line):
 2. build: nvcc builds every kernel source under nano_pearl_tpu_torch/csrc
    for sm_90a, one process per source, all at once;
 3. kernels: K1 (paged decode), K2 (packed verify) and K3 (causal prefill)
-   at the main path's shapes (8x128 heads) and at the serving path's
-   (16x64 heads: 128 decode rows, verify chunks of 16 groups x 8 rows,
-   8 prompts in a 128-row bucket), K4 (prefill over a cached prefix)
+   at the main path's shapes (8x128 heads; K2 also at pre-round contexts
+   of 1-50) and at the serving path's (16x64 heads: 128 decode rows,
+   verify chunks of 16 groups x 8 rows, 8 prompts in a 128-row bucket;
+   bf16 K1/K2 run on the page walk, each K1 row against K2 over pairs of
+   its copies and each K2 row against K1 bit for bit: ``k2_row_equal``),
+   K4 (prefill over a cached prefix)
    at the serve pair's prefix hit, a chunked-prefill pass and the bench
    pair's head width, and the throughput path's K5 (mono-schedule
    attention: the B=32 decode, and 14 rows per group), K7 (cache-side
@@ -52,8 +55,8 @@ script exits non-zero without its last line):
    main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
-   against the launchers' exported choice; the K10/K11, K7 and K6b rows
-   their page walk's plan, ``design``, held against the exported
+   against the launchers' exported choice; the bf16 K1/K2, K10/K11, K7
+   and K6b rows their page walk's plan, ``design``, held against the exported
    ``npt_walk_plan``,
    the ``blocks`` they launch, their ``share`` of the bound, and, as the
    K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
@@ -271,36 +274,78 @@ def grouped_sdpa(q, cache, layer, bt, ctx, rows, hq, hkv, d, scale, key_mask=Non
             lambda o: o.transpose(1, 2).reshape(-1, hq, d))
 
 
+K1K2_REPLACES = {  # K1's and K2's wrappers -> the TPU kernel body each replaces
+    "paged_decode": "nano_pearl_tpu/ops/pallas/paged_attention.py:389",
+    "paged_verify": "nano_pearl_tpu/ops/pallas/paged_attention.py:510",
+}
+
+
+def k1k2_row(name, kernel, run, plain, got, want, lib, nbytes, flops, q, cache, bt, ctx, rows, hq, hkv, d,
+             flush) -> dict:
+    """A K1/K2 row's timings and design: the kernel (spun and unspun), its
+    plain version and its SDPA yardstick, against the bound of ``nbytes``
+    and ``flops``. bf16 queries run on the page walk (``design``, ``blocks``
+    launched by kernel, ``plan_blocks`` as the K10/K11 rows have them; the
+    source is the walk's export in ``paged_attention_fallback.cu``); f32 on
+    the chunk template of ``paged_attention.cu`` (its rows per block and the
+    blocks one call launched)."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
+
+    err = (got.float() - want.float()).abs().max().item()
+    b_ms, b_by = bound(nbytes, flops)
+    ms = time_ms(run, 50, flush)
+    bf16 = q.dtype == torch.bfloat16
+    row = dict(
+        name=name, kernel=kernel, route="cuda", dtype=str(q.dtype).removeprefix("torch."),
+        source="nano_pearl_tpu_torch/csrc/" + ("paged_attention_fallback.cu" if bf16 else "paged_attention.cu"),
+        replaces=K1K2_REPLACES[kernel], max_abs_err=err, ms=ms,
+        plain_ms=time_ms(plain, 10, flush), bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+        library_ms=time_ms(lib, 50, flush), no_spin=no_spin_ms(run, lib, 50, flush), k2_row_equal=True,
+        shape=dict(groups=bt.shape[0], rows=rows, hq=hq, hkv=hkv, d=d, block=cache.shape[3], table_pages=bt.shape[1],
+                   ctx_min=int(ctx.min()), ctx_max=int(ctx.max())),
+    )
+    # profiled last, after the row's timings
+    if bf16:
+        row.update(zip(("design", "blocks", "plan_blocks"),
+                       walk_design(name, kfb._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False)))
+    else:
+        es = q.element_size()
+        rpb = kpw.rows_per_block(rows, hq // hkv, d, es)
+        if rpb != kpa._lib().npt_rows_per_block(rows, hq // hkv, d, 0, 0, 64):
+            raise AssertionError(f"{name}: the launchers' rows per block differ from rows_per_block's {rpb}")
+        row.update(design=f"f32 chunk template on CUDA cores, {kpa._lib().npt_chunk_tokens()}-key chunks, "
+                          f"{rpb} rows a block", rows_per_block=rpb, blocks=launched_blocks(run))
+    return row
+
+
 def decode_row(gen, dev, flush, name, ctx0, hq, d, nb=520, hkv=2, layer=1) -> dict:
-    """K1 on one decode row per context in ``ctx0``."""
+    """K1 on one decode row per context in ``ctx0``; each row must equal
+    the K2 rows of the same query, context and table bit for bit (K2 over
+    groups of two copies of each decode row)."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), 1, ctx0, nb=nb, hq=hq, hkv=hkv, d=d)
     args = (q, cache, layer, bt, ctx, scale)
     got, want = kpa.paged_decode(*args), kpa.plain_decode(*args)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+    pairs = kpa.paged_verify(q.repeat_interleave(2, 0), cache, layer, bt, ctx.repeat_interleave(2), scale, 2)
+    if not (torch.equal(pairs[0::2], got) and torch.equal(pairs[1::2], got)):
+        raise AssertionError(f"{name}: K2 rows differ from K1 on the same query and context")
     lib = lib_yardstick(*grouped_sdpa(q, cache, layer, bt, ctx, 1, hq, hkv, d, scale), want)
     sum_ctx = float(ctx.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + sum_ctx * 2 * hkv * d * 2
-    b_ms, b_by = bound(nbytes, 4 * sum_ctx * hq * d)
-    return dict(
-        name=name, kernel="paged_decode", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
-        replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:389",
-        max_abs_err=err, ms=time_ms(lambda: kpa.paged_decode(*args), 50, flush),
-        plain_ms=time_ms(lambda: kpa.plain_decode(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
-        shape=dict(rows=len(ctx0), hq=hq, hkv=hkv, d=d, block=256, ctx_min=int(ctx.min()),
-                   ctx_max=int(ctx.max())),
-    )
+    return k1k2_row(name, "paged_decode", lambda: kpa.paged_decode(*args), lambda: kpa.plain_decode(*args), got,
+                    want, lib, nbytes, 4 * sum_ctx * hq * d, q, cache, bt, ctx, 1, hq, hkv, d, flush)
 
 
 def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1, dtype=torch.bfloat16) -> dict:
     """K2 on one verify chunk: a group of ``rows`` staircase rows per
     context in ``ctx0``; its rows must equal K1's bit for bit. Where the
-    group's query vectors do not fit one block's shared memory (D 256 at 8
-    query heads per KV head) the launcher spreads its rows over blocks."""
+    group's query vectors do not fill one block (D 256 at 8 query heads per
+    KV head) the launcher spreads its rows over blocks."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     groups = len(ctx0)
@@ -308,7 +353,6 @@ def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1, dtype=t
     args = (q, cache, layer, bt, ctx, scale, rows)
     got, want = kpa.paged_verify(*args), kpa.plain_verify(*args)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     single = kpa.paged_decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
     if not torch.equal(single, got):
@@ -317,21 +361,8 @@ def verify_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1, dtype=t
     kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
     es = q.element_size()
     nbytes = 2 * q.numel() * es + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * es
-    b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    rpb = kpa.rows_per_block(rows, hq // hkv, d, es)
-    if rpb != kpa._lib().npt_rows_per_block(rows, hq // hkv, d, int(es == 2), 0, 64):
-        raise AssertionError(f"{name}: the launchers' rows per block differ from rows_per_block's {rpb}")
-    return dict(
-        name=name, kernel="paged_verify", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention.cu",
-        dtype=str(dtype).removeprefix("torch."), rows_per_block=rpb,
-        replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:510",
-        max_abs_err=err, ms=time_ms(lambda: kpa.paged_verify(*args), 50, flush),
-        plain_ms=time_ms(lambda: kpa.plain_verify(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
-        k2_row_equals_k1=True,
-        shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
-                   ctx_max=int(ctx.max())),
-    )
+    return k1k2_row(name, "paged_verify", lambda: kpa.paged_verify(*args), lambda: kpa.plain_verify(*args), got,
+                    want, lib, nbytes, 4 * float(ctx.sum()) * hq * d, q, cache, bt, ctx, rows, hq, hkv, d, flush)
 
 
 def prefill_inputs(gen, dev, b, lq, n, hq, d, hkv=2) -> tuple:
@@ -387,9 +418,9 @@ def prefill_row(gen, dev, flush, name, b, lq, n, hq, d, hkv=2) -> dict:
 
 
 def no_spin_ms(run, lib, iters, flush) -> dict:
-    """A K3/K4 or K10/K11 row's kernel and SDPA timed without ``time_ms``'s
-    spin, as rows were timed before those kernels' redesigns: the wrapper's
-    host work then counts wherever it outlasts the L2 flush."""
+    """A K1/K2, K3/K4, K7/K6b or K10/K11 row's kernel and SDPA timed without
+    ``time_ms``'s spin, as rows were timed before those kernels' redesigns:
+    the wrapper's host work then counts wherever it outlasts the L2 flush."""
     return dict(ms=time_ms(run, iters, flush, spin=False), library_ms=time_ms(lib, iters, flush, spin=False))
 
 
@@ -782,6 +813,8 @@ def kernel_phase(dev, flush) -> list[dict]:
         # rows; the prefill of 32 prompts of 64 tokens in the 128-row bucket
         decode_row(gen, dev, flush, "paged_decode", spread(32, 2300, 0), hq=8, d=128),
         verify_row(gen, dev, flush, "paged_verify", spread(16, 2300, 1), 14, hq=8, d=128),
+        # K2 right after short prompts: pre-round contexts of 1-50 (rows 1-63)
+        verify_row(gen, dev, flush, "paged_verify_short", short(16, 1), 14, hq=8, d=128),
         prefill_row(gen, dev, flush, "prefill_self", 32, 128, 64, hq=8, d=128),
         # serving path: the gamma-scan's 128-row decode calls, a verify
         # chunk of 16 groups x 8 rows, contexts up to the 3,000-token
@@ -2442,14 +2475,15 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "no_spin",
-                  "share", "blocks")
+                  "share", "blocks", "k2_row_equal")
     line = []
     for name in kernel_counters():  # one row per kernel; its other shapes beside it
         first, *others = [r for r in kernels if r["kernel"] == name]
         first["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         first["launches"] = sum(first["launches_by_path"].values())
         line.append({**{k: first[k] for k in keys},
-                     **{k: first[k] for k in ("no_spin", "share", "design", "blocks") if k in first},
+                     **{k: first[k] for k in ("no_spin", "share", "design", "blocks", "k2_row_equal")
+                        if k in first},
                      "other_shapes": [{k: r[k] for k in shape_keys if k in r} for r in others]})
     emit({"kernels": line})
     print(smi, flush=True)

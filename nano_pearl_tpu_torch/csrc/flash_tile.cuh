@@ -30,7 +30,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 namespace npt {
 
@@ -381,11 +383,43 @@ __device__ void stage_q8_tile(Flash<T>& f, const uint8_t* __restrict__ cache,
   }
 }
 
-// Opt the kernel into `bytes` of dynamic shared memory.
-template <typename K>
-inline cudaError_t flash_set_smem(K kernel, size_t bytes) {
+// Opts `kernel` into `bytes` of dynamic shared memory on the current
+// device, for every launcher of the port. cudaFuncSetAttribute runs only
+// for a size above every size opted into there before (the opt-in only
+// grows), so a launch at a size seen before makes no such call. The
+// record is keyed by (kernel address, device): its statics may be one
+// object for every library that includes this header (the loader unifies
+// such statics across libraries), and each library's kernels have
+// addresses of their own.
+inline cudaError_t flash_set_smem(const void* kernel, size_t bytes) {
+  struct Opted {
+    const void* kernel;
+    int dev;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static std::vector<Opted> opted;
   if (bytes > (size_t)kMaxSmem) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  Opted* seen = nullptr;
+  for (Opted& e : opted)
+    if (e.kernel == kernel && e.dev == dev) seen = &e;
+  if (seen && bytes <= seen->bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (seen)
+    seen->bytes = bytes;
+  else
+    opted.push_back({kernel, dev, bytes});
+  return cudaSuccess;
+}
+
+template <typename K>
+inline cudaError_t flash_set_smem(K* kernel, size_t bytes) {
+  return flash_set_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 }  // namespace npt

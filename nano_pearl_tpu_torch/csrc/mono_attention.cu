@@ -253,10 +253,9 @@ mono_kernel(const T* __restrict__ q, const S* __restrict__ cache,
 }
 
 // Blocks of `kernel` the device's SMs hold at once with `smem` bytes of
-// dynamic shared memory, after opting the kernel into them. The driver is
-// asked (cudaFuncSetAttribute, the SM count, the occupancy) once per
-// (kernel, device, shared-memory size); the opt-in only grows, so a
-// launch at a size asked for before still finds it in force.
+// dynamic shared memory, after opting the kernel into them (flash_set_smem,
+// whose opt-in only grows). The SM count and the occupancy are asked
+// for once per (kernel, device, shared-memory size).
 inline cudaError_t resident_blocks(const void* kernel, size_t smem, long long& blocks) {
   struct Seen {
     const void* kernel;
@@ -270,16 +269,13 @@ inline cudaError_t resident_blocks(const void* kernel, size_t smem, long long& b
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  size_t opted = 0;  // the kernel's opt-in on this device so far
   for (const Seen& e : seen) {
-    if (e.kernel != kernel || e.dev != dev) continue;
-    if (e.smem == smem) {
+    if (e.kernel == kernel && e.dev == dev && e.smem == smem) {
       blocks = e.blocks;
       return cudaSuccess;
     }
-    opted = e.smem > opted ? e.smem : opted;
   }
-  if (smem > opted && (err = flash_set_smem(kernel, smem)) != cudaSuccess) return err;
+  if ((err = flash_set_smem(kernel, smem)) != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;

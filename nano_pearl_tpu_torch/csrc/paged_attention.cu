@@ -7,6 +7,12 @@
 //   block table and one load of each K/V tile, each row with its own
 //   (staircase) context length. Replaces _grouped_kernel_db (entry
 //   paged_attention_pallas_grouped).
+// These two entries are K1's and K2's f32 route (the exactness pairs, held
+// at 1e-4 on CUDA cores, where the tensor cores would take f32 as TF32).
+// K1's and K2's bf16 route, the main path's and the server's, is the
+// tensor-core page walk of paged_walk.cuh, launched through
+// paged_attention_fallback.cu's npt_fallback (ops/cuda/paged_attention.py
+// picks the route by the query type); these entries refuse bf16 queries.
 //
 // Cache layout: [L * 2 * (NB + 1), BS, Hkv * D] rows; layer l's keys live
 // at block offset k_off = 2 * l * (NB + 1), its values at v_off = k_off +
@@ -357,16 +363,15 @@ cudaError_t dispatch_cells(int groups, int rows, const void* q, const void* cach
                                      part_ml, m, hq, hkv, d, bs, k_off, v_off, scale, split, s);
 }
 
+// K1/K2 here take f32 queries alone: bf16 ones run on the page walk
+// (paged_attention_fallback.cu's npt_fallback), and a bf16 call here is refused.
 cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, const int* bt,
                      const int* ctx, void* out, float* part_acc, float* part_ml, int m, int hq,
                      int hkv, int d, int bs, long long k_off, long long v_off, float scale,
                      int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq,
-                                 hkv, d, bs, k_off, v_off, scale, s);
+  if (is_bf16) return cudaErrorInvalidValue;
   return launch<float>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq, hkv, d,
-                       bs, k_off, v_off, scale, s);
+                       bs, k_off, v_off, scale, static_cast<cudaStream_t>(stream));
 }
 
 template <typename T>
@@ -413,9 +418,10 @@ int npt_rows_per_block(int rows, int g, int d, int is_bf16, long long fixed, int
                  : npt::flash_rows_per_block<float>(rows, g, d, (size_t)fixed, tile);
 }
 
-// q, out [n, hq, d]; bt [n, m]; ctx [n]; part_acc [n, hq, n_chunks, d] and
-// part_ml [n, hq, n_chunks, 2] f32 scratch, n_chunks = ceil(m * bs /
-// npt_chunk_tokens()). Returns cudaGetLastError().
+// K1's f32 route: q, out [n, hq, d] f32 (is_bf16 must be 0); bt [n, m]; ctx
+// [n]; part_acc [n, hq, n_chunks, d] and part_ml [n, hq, n_chunks, 2] f32
+// scratch, n_chunks = ceil(m * bs / npt_chunk_tokens()). Returns
+// cudaGetLastError().
 int npt_paged_decode(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
                      float* part_acc, float* part_ml, int n, int m, int hq, int hkv, int d,
                      int bs, long long k_off, long long v_off, float scale, int is_bf16,
@@ -424,8 +430,8 @@ int npt_paged_decode(const void* q, const void* cache, const int* bt, const int*
                             k_off, v_off, scale, is_bf16, stream);
 }
 
-// q, out [b * rows, hq, d]; bt [b, m]; ctx [b * rows]; scratch as above
-// with b * rows rows. rows >= 2.
+// K2's f32 route: q, out [b * rows, hq, d] f32; bt [b, m]; ctx [b * rows];
+// scratch as above with b * rows rows. rows >= 2.
 int npt_paged_verify(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
                      float* part_acc, float* part_ml, int b, int rows, int m, int hq, int hkv,
                      int d, int bs, long long k_off, long long v_off, float scale, int is_bf16,

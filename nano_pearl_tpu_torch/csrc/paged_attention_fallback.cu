@@ -16,6 +16,10 @@
 // head axis Hkv * D that is not a multiple of 128, and for a 1-byte cache
 // also a block size that is not a multiple of 32 (_q8_fastpath_ok). The
 // port routes the same shapes here (ops/attention.attention_kernel).
+// npt_fallback is also the bf16 route of the fast kernels K1 (paged decode)
+// and K2 (packed verify) at every other shape: their wrappers
+// (ops/cuda/paged_attention.py) launch it with bf16 queries and count their
+// own launches, so this one library builds the walk for all four.
 //
 // Layout: the page walk of paged_walk.cuh, which also carries the argument
 // that a K10b row equals the K10a row of the same query, context and table

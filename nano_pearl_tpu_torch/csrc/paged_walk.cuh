@@ -2,7 +2,10 @@
 // (csrc/paged_attention_fallback.cu), the per-shard partials kernels
 // K11a-d of sequence parallelism and, with bf16 queries, the deferred
 // verify's kernels K7 and K6b of the mono schedule
-// (csrc/paged_attention_partials.cu): R rows of a group share one block
+// (csrc/paged_attention_partials.cu) and the main path's paged decode K1
+// and packed verify K2 (through the fallbacks' export npt_fallback; K1/K2's
+// f32 route stays on paged_attention.cu's chunk template): R rows of a
+// group share one block
 // table (R = 1: decode), each row masked at its own context; K11 also skips
 // the slots `is_local` marks as another shard's and exports (o, m, l), as
 // K7 does with every slot local. A context past the table (M * BS keys) is
@@ -26,7 +29,7 @@
 //   chip_smoke rows (contexts 65-2300, pages of 256) chip_smoke.py counts
 //   180 blocks that work for K11d on shard 0 of two (256-key cells would
 //   give about half, under the 132 SMs), 415 for K10b, 820 for K10a and
-//   302 for K11b. A launch
+//   302 for K11b; its K1/K2 rows print theirs (plan_blocks). A launch
 //   whose table holds one cell (M * BS <= cell) writes its outputs
 //   directly; otherwise each cell writes f32 (acc, m, l) partials and a
 //   combine kernel folds each row's cells in cell order with
@@ -86,8 +89,8 @@
 // the block writes (m = -1e29, l = 0), floors and never garbage (0 x NaN
 // is NaN), and the combine folds only cells with l > 0, of the row's own
 // cells in order. A one-cell fold equals the direct write (expf(0) = 1,
-// fmaf(x, 1, 0) = x). So K10b == K10a, K10d == K10c, K11c == K11a and
-// K11d == K11b at every R and G, and at any table width. A row with no
+// fmaf(x, 1, 0) = x). So K2 == K1, K10b == K10a, K10d == K10c, K11c ==
+// K11a and K11d == K11b at every R and G, and at any table width. A row with no
 // visible key gives o = 0, and under K11 m = -1e29 and l = 0 exactly,
 // which parallel/sp.merge_partials weighs 0. The f32 route gives the same
 // property by its own argument (flash_tile.cuh: each value a fixed

@@ -68,7 +68,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_ref,
 )
 from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_partials, paged_walk
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import _check_fresh, _check_inputs
+from nano_pearl_tpu_torch.ops.cuda.paged_walk import _check_fresh, _check_inputs
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
 plain_partials = paged_attention_grouped_cache_partials_ref

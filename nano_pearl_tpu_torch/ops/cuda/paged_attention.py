@@ -1,5 +1,7 @@
-"""Kernels K1 (paged decode) and K2 (packed verify): wrappers of
-``csrc/paged_attention.cu``.
+"""Kernels K1 (paged decode) and K2 (packed verify), their twins K9a/K9b
+over a 1-byte cache, and the schedule overrides' K8a, K6a and K8b:
+wrappers of ``csrc/paged_attention.cu`` and, for bf16 K1/K2, of the page
+walk's export in ``csrc/paged_attention_fallback.cu``.
 
 K1 ``paged_decode`` replaces ``_kernel_db`` (entry
 ``paged_attention_pallas``) and K2 ``paged_verify`` replaces
@@ -11,16 +13,27 @@ are ``paged_attention_ref`` and ``paged_attention_grouped_ref``
 What bounds them on the H100: bytes. A row reads ``ctx * 2 * Hkv * D``
 cache elements and does ``4 * ctx * Hq * D`` flops, about 4 flops per
 byte in bf16 at G = Hq / Hkv = 4, far under the card's ~295 flops per
-byte. The design answer: one block per (sequence, KV head, 256-position
-key chunk) streams the chunk's pages once, in 64-key tiles staged in
-shared memory with 16-byte loads, and folds every query head of the
-group (and, for K2, every packed row) into f32 online-softmax partials,
-so each K/V byte is read once per sequence and the card gets
-sequences x heads x chunks blocks; a second launch combines each row's
-partials in chunk order. K1 is K2's code with one row, so a K2 row and
-the K1 row of the same query and context fold the same tiles and
-partials with the same arithmetic and agree bit for bit (the
-draft/verify agreement PEARL relies on at the layer-share ceiling).
+byte. K1 and K2 share one launch path (``_attend``), which picks the
+route by the query type:
+
+- bf16 queries (the main path, the server): the tensor-core page walk of
+  ``csrc/paged_walk.cuh``, K10a/K10b's launch (``paged_walk.launch`` of
+  the export ``npt_fallback``). The R * G query vectors of a (group, KV
+  head) sit 16 to a warp on ``mma.sync``; each table's key stream is cut
+  into cells of 128 keys (Hkv <= 2, else 256) at fixed positions, one
+  block per (group, KV head, row slice, cell), K/V pages arrive through a
+  ``cp.async`` ring, and a combine folds each row's cells in order.
+- f32 queries (the exactness pairs): the chunk template of
+  ``csrc/paged_attention.cu`` on CUDA cores (the tensor cores would take
+  f32 as TF32): one block per (sequence, KV head, 256-position key chunk)
+  streams the chunk's pages in 64-key tiles and folds every query head of
+  the group (and, for K2, every packed row) into f32 online-softmax
+  partials; a second launch combines each row's partials in chunk order.
+
+Either way a K2 row and the K1 row of the same query, context and table
+fold the same cells (or chunks) with the same arithmetic and agree bit for
+bit (the draft/verify agreement PEARL relies on at the layer-share
+ceiling; ``paged_walk.cuh`` and ``paged_attention.cu`` carry the argument).
 
 K9a ``paged_decode_q8`` and K9b ``paged_verify_q8`` are K1 and K2 over
 a quantized cache (``QuantKVCache``: 1-byte int8 or e4m3 values and a
@@ -28,9 +41,9 @@ bf16 scale per slot and KV head). They replace ``_kernel_db_q8v2``
 (entry ``_db_call_q8_single``) and ``_grouped_kernel_db_q8v2`` (entry
 ``_db_call_q8_grouped``). Their tile loader reads 16 one-byte values per
 16-byte load and stores the tile dequantized and rounded to the query's
-dtype in the layout the shared tile update reads, so they read half
-K1/K2's cache bytes and K9b rows equal K9a rows bit for bit. Same plain
-versions: they read either cache kind.
+dtype in the layout the chunk template's tile update reads, so they read
+half the bytes of a bf16 cache and K9b rows equal K9a rows bit for bit.
+Same plain versions: they read either cache kind.
 
 K8a ``paged_decode_split``, K6a ``paged_verify_fresh`` and K8b
 ``paged_verify_fresh_split`` are the kernel-schedule overrides' decode
@@ -62,21 +75,19 @@ import ctypes
 import torch
 
 from nano_pearl_tpu_torch.ops.attention import (
-    check_head_dim,
     paged_attention_grouped_fresh_ref,
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
-from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.kv_cache import cache_is_quantized, global_block_offsets
+from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_fallback, paged_walk
+from nano_pearl_tpu_torch.ops.cuda.paged_walk import _check_fresh, _check_inputs
+from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
 plain_decode = paged_attention_ref
 plain_verify = paged_attention_grouped_ref
 plain_fresh = paged_attention_grouped_fresh_ref
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SUPPORTED = (torch.bfloat16, torch.float32)
-_Q8 = (torch.int8, torch.float8_e4m3fn)
 
 
 def _lib() -> ctypes.CDLL:
@@ -99,29 +110,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90 (kMaxSmem)
-
-
-def rows_per_block(rows: int, g: int, d: int, itemsize: int, fixed: int = 0, tile: int = 64) -> int:
-    """Rows of a packed-verify group that one CUDA block folds, as every
-    attention launcher of the port picks them (``flash_rows_per_block`` in
-    ``csrc/flash_tile.cuh``, exported as ``npt_rows_per_block``): all
-    ``rows``, halved (rounding up) while their ``rows * g`` query vectors
-    of ``d`` f32 values, their scores over a ``tile``-key tile, their
-    statistics, one int per row, ``fixed`` bytes more and the staged K/V
-    tile of ``itemsize``-byte elements exceed the block's shared memory.
-    Rows are independent, so the split changes no bit of any row."""
-
-    def smem(r: int) -> int:
-        nq = r * g
-        return 2 * itemsize * tile * (d + 8) + 4 * (2 * nq * d + nq * tile + 3 * nq) + 4 * r + fixed
-
-    rpb = rows
-    while rpb > 1 and smem(rpb) > MAX_SMEM:
-        rpb = (rpb + 1) // 2
-    return rpb
-
-
 def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device, extra: int = 0):
     """f32 (acc, (m, l)) partials of every row, head and key chunk (and
     ``extra`` more cells per row and head: K8a's cut chunk, K6a/K8b's fresh
@@ -132,48 +120,11 @@ def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device, extra: in
     return acc, ml
 
 
-def _check_inputs(q, cache, block_tables, context_lens, n_tables: int, n_rows: int, quant=False):
-    """Validate what the kernel takes (a quantized cache for the K9
-    kernels, a bf16/f32 one otherwise); returns (hq, hkv, d, bs, m)."""
-    if cache_is_quantized(cache) != quant:
-        raise ValueError(f"this kernel takes a {'quantized' if quant else 'bf16/f32'} cache")
-    tensors = {"q": q, "block_tables": block_tables, "context_lens": context_lens}
-    tensors.update({"cache.q": cache.q, "cache.s": cache.s} if quant else {"cache": cache})
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if quant:
-        if q.dtype not in _SUPPORTED or cache.q.dtype not in _Q8 or cache.s.dtype != torch.bfloat16:
-            raise ValueError(f"q must be bf16/f32, the cache int8/e4m3 with bf16 scales: "
-                             f"{q.dtype}, {cache.q.dtype}, {cache.s.dtype}")
-        if tuple(cache.s.shape) != tuple(cache.q.shape[:-1]) + (cache.q.shape[-1] // q.shape[-1],):
-            raise ValueError(f"scales {tuple(cache.s.shape)} are not one per slot and KV head")
-    elif q.dtype not in _SUPPORTED or cache.dtype != q.dtype:
-        raise ValueError(f"q/cache dtype must match and be bf16 or f32: {q.dtype}, {cache.dtype}")
-    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise ValueError("block_tables and context_lens must be int32")
-    if q.ndim != 3 or cache.ndim != 5:
-        raise ValueError(f"q must be [N, Hq, D] and cache [L, 2, NB+1, BS, Hkv*D]: {q.shape}, {cache.shape}")
-    n, hq, d = q.shape
-    check_head_dim(d)
-    if cache.shape[1] != 2 or cache.shape[-1] % d:
-        raise ValueError(f"cache shape {tuple(cache.shape)} does not fold head_dim {d}")
-    hkv = cache.shape[-1] // d
-    if hq % hkv:
-        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
-    if n != n_rows or block_tables.ndim != 2 or block_tables.shape[0] != n_tables:
-        raise ValueError(f"q rows {n} / block_tables {tuple(block_tables.shape)} mismatch")
-    if context_lens.shape != (n_rows,):
-        raise ValueError(f"context_lens shape {tuple(context_lens.shape)} != ({n_rows},)")
-    return hq, hkv, d, cache.shape[3], block_tables.shape[1]
-
-
 def _launch(fn: str, q, cache, layer_idx, tables, context_lens, scale, rows: int):
-    """Run ``fn`` (``npt_paged_decode`` / ``npt_paged_verify``, or their
-    ``_q8`` twins over a quantized cache) on ``tables.shape[0]`` groups of
-    ``rows`` rows; returns the output."""
+    """Run ``fn`` (``npt_paged_decode`` / ``npt_paged_verify``, f32 queries
+    alone, or their ``_q8`` twins over a quantized cache) on the chunk
+    template, ``tables.shape[0]`` groups of ``rows`` rows; returns the
+    output."""
     quant = fn.endswith("_q8")
     groups = tables.shape[0]
     hq, hkv, d, bs, m = _check_inputs(q, cache, tables, context_lens, groups, groups * rows, quant=quant)
@@ -196,20 +147,6 @@ def _launch(fn: str, q, cache, layer_idx, tables, context_lens, scale, rows: int
     return out
 
 
-def _check_fresh(q, ctx0, fresh_k, fresh_v, groups: int, hkv: int, d: int) -> None:
-    """The deferred verify's extra operands: ctx0 [groups] int32, fresh K/V
-    [N, Hkv, D] in q's dtype, all contiguous on q's device."""
-    for name, t in {"ctx0": ctx0, "fresh_k": fresh_k, "fresh_v": fresh_v}.items():
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on q's device, got {t.device}")
-    if ctx0.dtype != torch.int32 or ctx0.shape != (groups,):
-        raise ValueError(f"ctx0 must be int32 [{groups}], got {ctx0.dtype} {tuple(ctx0.shape)}")
-    want = (q.shape[0], hkv, d)
-    for name, t in (("fresh_k", fresh_k), ("fresh_v", fresh_v)):
-        if t.dtype != q.dtype or tuple(t.shape) != want:
-            raise ValueError(f"{name} must be {q.dtype} {want}, got {t.dtype} {tuple(t.shape)}")
-
-
 def _fresh_rows(rows_per_group, name: str) -> int:
     """Rows per group of a deferred verify: 1 .. one key chunk (the fresh
     window crosses at most one chunk multiple, which K8b's partition and
@@ -227,11 +164,23 @@ def _verify_rows(rows_per_group, name: str) -> int:
     return r
 
 
+def _attend(q, cache, layer_idx, tables, context_lens, scale, rows: int):
+    """K1 (``rows`` 1) and K2 on ``tables.shape[0]`` groups of ``rows``
+    rows, one launch path for both: bf16 queries on the page walk, f32 on
+    the chunk template. Returns the output."""
+    if q.dtype == torch.bfloat16:
+        lib = paged_attention_fallback._lib()
+        return paged_walk.launch(lib, lib.npt_fallback, False, q, cache, layer_idx, tables, context_lens,
+                                 scale, rows)
+    fn = "npt_paged_verify" if rows > 1 else "npt_paged_decode"
+    return _launch(fn, q, cache, layer_idx, tables, context_lens, scale, rows)
+
+
 def paged_decode(q, cache, layer_idx, block_tables, context_lens, scale):
     """K1: q [N, Hq, D] against its own block table row and context."""
     if q.device.type == "cpu":
         return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
-    out = _launch("npt_paged_decode", q, cache, layer_idx, block_tables, context_lens, scale, 1)
+    out = _attend(q, cache, layer_idx, block_tables, context_lens, scale, 1)
     paged_decode.launches += 1
     return out
 
@@ -243,8 +192,8 @@ def paged_verify(q, cache, layer_idx, group_tables, context_lens, scale, rows_pe
         return plain_verify(
             q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
         )
-    r = _verify_rows(rows_per_group, "paged_verify")
-    out = _launch("npt_paged_verify", q, cache, layer_idx, group_tables, context_lens, scale, r)
+    out = _attend(q, cache, layer_idx, group_tables, context_lens, scale,
+                  _verify_rows(rows_per_group, "paged_verify"))
     paged_verify.launches += 1
     return out
 

@@ -1,7 +1,9 @@
-"""The launch plan of the page walk behind K10a-d, K11a-d and the bf16
-route of K7 and K6b (``csrc/paged_walk.cuh``), mirrored in Python, and the
-launch their wrappers share (``paged_attention_fallback.py``,
-``paged_attention_partials.py``, ``mono_attention.py``).
+"""The launch plan of the page walk (``csrc/paged_walk.cuh``) behind K10a-d,
+K11a-d and the bf16 route of K1, K2, K7 and K6b, mirrored in Python; the
+launch their wrappers share (``paged_attention.py``,
+``paged_attention_fallback.py``, ``paged_attention_partials.py``,
+``mono_attention.py``); and the input checks of every paged-attention
+wrapper.
 
 ``walk_plan`` is the mirror of the launchers' ``walk_plan``, which both
 libraries export as ``npt_walk_plan``; the CPU tests check the mirror and
@@ -23,14 +25,91 @@ from dataclasses import dataclass
 
 import torch
 
+from nano_pearl_tpu_torch.ops.attention import check_head_dim
 from nano_pearl_tpu_torch.ops.cuda import build
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import MAX_SMEM, _check_fresh, _check_inputs, rows_per_block
-from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
+from nano_pearl_tpu_torch.ops.kv_cache import cache_is_quantized, global_block_offsets
 
+_SUPPORTED = (torch.bfloat16, torch.float32)
+_Q8 = (torch.int8, torch.float8_e4m3fn)
+MAX_SMEM = 232448  # bytes of shared memory a block may opt into on sm_90 (kMaxSmem)
 THREADS = 256  # threads per block, at most (kThreads)
 KEYS = 64  # bf16: keys per staged tile (kWalkKeys)
 MAX_WARPS = 8  # bf16: warps of query vectors a block, at most (kWalkMaxWarps)
 MIN_WARPS = 4  # bf16: warps a block, at least (kWalkMinWarps)
+
+
+def rows_per_block(rows: int, g: int, d: int, itemsize: int, fixed: int = 0, tile: int = 64) -> int:
+    """Rows of a packed-verify group that one CUDA block folds, as every
+    attention launcher of the port picks them (``flash_rows_per_block`` in
+    ``csrc/flash_tile.cuh``, exported as ``npt_rows_per_block``): all
+    ``rows``, halved (rounding up) while their ``rows * g`` query vectors
+    of ``d`` f32 values, their scores over a ``tile``-key tile, their
+    statistics, one int per row, ``fixed`` bytes more and the staged K/V
+    tile of ``itemsize``-byte elements exceed the block's shared memory.
+    Rows are independent, so the split changes no bit of any row."""
+
+    def smem(r: int) -> int:
+        nq = r * g
+        return 2 * itemsize * tile * (d + 8) + 4 * (2 * nq * d + nq * tile + 3 * nq) + 4 * r + fixed
+
+    rpb = rows
+    while rpb > 1 and smem(rpb) > MAX_SMEM:
+        rpb = (rpb + 1) // 2
+    return rpb
+
+
+def _check_inputs(q, cache, block_tables, context_lens, n_tables: int, n_rows: int, quant=False):
+    """Validate what the kernel takes (a quantized cache for the K9
+    kernels, a bf16/f32 one otherwise); returns (hq, hkv, d, bs, m)."""
+    if cache_is_quantized(cache) != quant:
+        raise ValueError(f"this kernel takes a {'quantized' if quant else 'bf16/f32'} cache")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"q must be on a CUDA device, got {dev}")
+    planes = (("cache.q", cache.q), ("cache.s", cache.s)) if quant else (("cache", cache),)
+    for name, t in (("q", q), ("block_tables", block_tables), ("context_lens", context_lens), *planes):
+        if t.device != dev:
+            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if quant:
+        if q.dtype not in _SUPPORTED or cache.q.dtype not in _Q8 or cache.s.dtype != torch.bfloat16:
+            raise ValueError(f"q must be bf16/f32, the cache int8/e4m3 with bf16 scales: "
+                             f"{q.dtype}, {cache.q.dtype}, {cache.s.dtype}")
+        if tuple(cache.s.shape) != tuple(cache.q.shape[:-1]) + (cache.q.shape[-1] // q.shape[-1],):
+            raise ValueError(f"scales {tuple(cache.s.shape)} are not one per slot and KV head")
+    elif q.dtype not in _SUPPORTED or cache.dtype != q.dtype:
+        raise ValueError(f"q/cache dtype must match and be bf16 or f32: {q.dtype}, {cache.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("block_tables and context_lens must be int32")
+    if q.ndim != 3 or cache.ndim != 5:
+        raise ValueError(f"q must be [N, Hq, D] and cache [L, 2, NB+1, BS, Hkv*D]: {q.shape}, {cache.shape}")
+    n, hq, d = q.shape
+    check_head_dim(d)
+    if cache.shape[1] != 2 or cache.shape[-1] % d:
+        raise ValueError(f"cache shape {tuple(cache.shape)} does not fold head_dim {d}")
+    hkv = cache.shape[-1] // d
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
+    if n != n_rows or block_tables.ndim != 2 or block_tables.shape[0] != n_tables:
+        raise ValueError(f"q rows {n} / block_tables {tuple(block_tables.shape)} mismatch")
+    if context_lens.shape != (n_rows,):
+        raise ValueError(f"context_lens shape {tuple(context_lens.shape)} != ({n_rows},)")
+    return hq, hkv, d, cache.shape[3], block_tables.shape[1]
+
+
+def _check_fresh(q, ctx0, fresh_k, fresh_v, groups: int, hkv: int, d: int) -> None:
+    """The deferred verify's extra operands: ctx0 [groups] int32, fresh K/V
+    [N, Hkv, D] in q's dtype, all contiguous on q's device."""
+    for name, t in {"ctx0": ctx0, "fresh_k": fresh_k, "fresh_v": fresh_v}.items():
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on q's device, got {t.device}")
+    if ctx0.dtype != torch.int32 or ctx0.shape != (groups,):
+        raise ValueError(f"ctx0 must be int32 [{groups}], got {ctx0.dtype} {tuple(ctx0.shape)}")
+    want = (q.shape[0], hkv, d)
+    for name, t in (("fresh_k", fresh_k), ("fresh_v", fresh_v)):
+        if t.dtype != q.dtype or tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {q.dtype} {want}, got {t.dtype} {tuple(t.shape)}")
 
 
 def cell_keys(hkv: int) -> int:

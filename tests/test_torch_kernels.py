@@ -15,7 +15,9 @@ bit; every kernel at head dims 16 to 256, and the fast kernels at D 256
 with a packed-verify group spread over blocks (the launchers'
 rows-per-block choice, checked on the CPU too); K7 and K6b with bf16
 queries on the tensor-core page walk (edge cases, contexts 1-64 and
-65-2300), with f32 queries on the mono template.
+65-2300), with f32 queries on the mono template; K1 and K2 with bf16
+queries on the same walk (contexts 1-64 too), with f32 queries on the
+chunk template, and which kernels each route launches.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -42,6 +44,7 @@ from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
 from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
 from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
+from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
 from nano_pearl_tpu_torch.ops.cuda import prefill_attention as kpf
 from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache
 
@@ -765,7 +768,7 @@ def test_rows_per_block_choice():
     block where its query vectors fit in shared memory, and are halved
     until they do: at D 256 and G 8, 14 rows go to blocks of 7 in bf16 and
     of 4 in f32, where the fast kernels refused the launch before."""
-    rpb = kpa.rows_per_block
+    rpb = kpw.rows_per_block
     assert rpb(14, 4, 128, 2) == 14  # the main path's verify chunk: one block per group
     assert rpb(14, 4, 128, 4) == 14
     assert rpb(14, 8, 256, 2) == 7
@@ -785,7 +788,7 @@ def test_rows_per_block_mirror_matches_the_launchers(cuda):
         for g, d in ((4, 128), (8, 256), (16, 64), (1, 16)):
             for bf16, size in ((1, 2), (0, 4)):
                 for fixed, tile in ((0, 64), (4 * 33, 64), (0, 16)):
-                    assert lib.npt_rows_per_block(rows, g, d, bf16, fixed, tile) == kpa.rows_per_block(
+                    assert lib.npt_rows_per_block(rows, g, d, bf16, fixed, tile) == kpw.rows_per_block(
                         rows, g, d, size, fixed, tile)
 
 
@@ -1147,3 +1150,44 @@ def test_k7_and_k6b_routes_by_query_type(cuda):
                 assert names == {"mono_kernel"}, names
         torch.testing.assert_close(kmo.mono_fresh(*args, scale, 14), kpa.plain_fresh(*args, scale),
                                    **TOL[dtype])
+
+
+def test_k1_and_k2_route_by_query_type(cuda):
+    """bf16 K1 and K2 launch the page walk (walk_mma_kernel and its combine)
+    and count their own launches, not K10a/K10b's; f32 K1 and K2 launch the
+    chunk template (paged_partial_kernel and its combine)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in (1, 14):
+            q, cache, layer, bt, ctx, scale = paged_case(131, 4, rows, dtype, cuda, bs=256, nb=40, m=4)
+            if rows == 1:
+                run = lambda: kpa.paged_decode(q, cache, layer, bt, ctx, scale)  # noqa: E731
+            else:
+                run = lambda: kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows)  # noqa: E731
+            counters = (kpa.paged_decode, kpa.paged_verify, kfb.paged_decode_fallback, kfb.paged_verify_fallback)
+            before = [fn.launches for fn in counters]
+            names = _kernel_names(run)
+            counted = [fn.launches - n for fn, n in zip(counters, before)]
+            own = 0 if rows == 1 else 1  # a warm-up and each trace count
+            assert counted[own] >= 2 and counted[1 - own] == 0 and counted[2:] == [0, 0], counted
+            if dtype == torch.bfloat16:
+                assert names == {"walk_mma_kernel", "walk_combine_kernel"}, names
+            else:
+                assert names == {"paged_partial_kernel", "paged_combine_kernel"}, names
+
+
+@pytest.mark.parametrize("rows,heads", [(14, (8, 128)), (8, (16, 64))])
+def test_paged_verify_at_short_contexts(cuda, rows, heads):
+    """K2 on the walk right after a short prompt: 16 groups at pre-round
+    contexts 1-50 (rows see 1-63 keys; a single bf16 P misses the tolerance
+    here, hi + lo meets it), against the plain version; K2 rows equal K1's
+    bit for bit and a second launch gives the same bits."""
+    hq, d = heads
+    q, cache, layer, bt, _, scale = paged_case(132, 16, rows, torch.bfloat16, cuda, hq=hq, d=d, bs=256, nb=40, m=4)
+    c0 = torch.linspace(1, 50, 16).int()
+    ctx = (c0[:, None] + torch.arange(rows, dtype=torch.int32)[None, :]).reshape(-1).contiguous().to(cuda)
+    got = kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows)
+    want = kpa.plain_verify(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    single = kpa.paged_decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
+    assert torch.equal(got, single)
+    assert torch.equal(kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows), got)

@@ -1,4 +1,5 @@
-"""The page walk behind K10a-d and K11a-d (csrc/paged_walk.cuh) on the CPU.
+"""The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K7 and
+K6b (csrc/paged_walk.cuh) on the CPU.
 
 - The launch plan's mirror (``walk_plan`` and ``key_cells`` in
   nano_pearl_tpu_torch/ops/cuda/paged_walk.py; the card holds it against
@@ -11,8 +12,9 @@
   accumulation, 64-key tiles, scores in log2 units, P as hi + lo bf16
   parts, fixed cells and their ordered combine), held against the JAX
   package on its jnp path (tests/conftest.py forces it; no interpret-mode
-  Pallas): ``paged_attention_jnp`` (K10a), ``paged_attention_grouped``
-  (K10b) and, per shard with the port's merge, ``parallel/sp.
+  Pallas): ``paged_attention_jnp`` (K10a; K1 at a fast-route shape, Hkv *
+  D = 128), ``paged_attention_grouped`` (K10b; K2 there) and, per shard
+  with the port's merge, ``parallel/sp.
   sp_paged_attention_grouped`` on a (sp=2, tp=1) mesh (K11c/K11d), at
   tests/test_torch_sp.py's f32 tolerance, 1e-5. Over an int8 cache the
   JAX side reads the values the walk reads: written by JAX's ``write_kv``,
@@ -26,6 +28,8 @@
   ``paged_attention_grouped_fresh_jnp``; K6b (the cache cells below each
   group's pre-round context, then one cell of the fresh keys) against the
   same, at 1e-5.
+- Which launch K1's and K2's wrappers reach: the walk's for bf16 queries,
+  the chunk template's for f32 ones, each counting its own launches.
 - Why the kernels multiply P V as hi + lo bf16 parts where the Pallas
   kernels round P once: at K10b's and K11d's chip_smoke rows (contexts
   65-2300) one bf16 P meets chip_smoke.py's bf16 tolerance against the
@@ -44,8 +48,16 @@ from nano_pearl_tpu.ops import kv_cache as jkv
 from nano_pearl_tpu.parallel import sp as jsp
 from nano_pearl_tpu_torch.ops import attention as tatt
 from nano_pearl_tpu_torch.ops import kv_cache as tkv
-from nano_pearl_tpu_torch.ops.cuda.paged_attention import MAX_SMEM, rows_per_block
-from nano_pearl_tpu_torch.ops.cuda.paged_walk import KEYS, THREADS, cell_keys, key_cells, n_cells, walk_plan
+from nano_pearl_tpu_torch.ops.cuda.paged_walk import (
+    KEYS,
+    MAX_SMEM,
+    THREADS,
+    cell_keys,
+    key_cells,
+    n_cells,
+    rows_per_block,
+    walk_plan,
+)
 from nano_pearl_tpu_torch.parallel import sp as tsp
 
 DIMS = list(range(16, 257, 16))
@@ -113,7 +125,8 @@ def test_plan_at_the_paths_shapes():
     5, 14 rows): 256-key cells, the 42 query vectors in 3 warps of a
     4-warp block, 3 stages. K11d on an sp shard (8x128 over 2, int8): 128-key
     cells, 56 vectors in 4 warps, 2 stages. D 256 at G 8: 14 rows in 7
-    warps."""
+    warps. K1 / K2 at the main path's decode and verify (1 and 14 rows, G 4,
+    D 128) and the serve pair's (1 and 8 rows, G 8, D 64)."""
     k10b = walk_plan(14, 3, 5, 64, 256, 2)
     assert (k10b.cell, k10b.rpb, k10b.threads, k10b.stages) == (256, 14, 128, 3)
     k11d = walk_plan(14, 4, 2, 128, 256, 2, True)
@@ -123,6 +136,18 @@ def test_plan_at_the_paths_shapes():
     assert (d256.rpb, d256.threads, d256.stages) == (14, 224, 2)
     assert walk_plan(14, 16, 2, 256, 256, 2).rpb == 8  # 128 vectors a block: 8 + 6 rows
     assert walk_plan(1, 3, 5, 64, 256, 2).threads == 128  # decode: one warp of rows, 4 warps
+    # K1 / K2 on the main path (8x128 heads over 2, pages of 256): the decode's
+    # 4 vectors in one warp of a 4-warp block, a verify group's 14 rows (56
+    # vectors) in 4 warps; 128-key cells hold 2 tiles, so 2 stages
+    for rows in (1, 14):
+        p = walk_plan(rows, 4, 2, 128, 256, 2)
+        assert (p.cell, p.rpb, p.threads, p.stages) == (128, rows, 128, 2), rows
+    assert walk_plan(14, 4, 2, 128, 256, 2).smem == 2 * 136 * 64 + 2 * 2 * 136 * 64 * 2 + 4 * 64 * 2 + 4 * 128
+    # ... and on the serve pair (16x64 over 2, G 8): the decode's 8 vectors, a
+    # verify group's 8 rows (64 vectors) in 4 warps
+    for rows in (1, 8):
+        p = walk_plan(rows, 8, 2, 64, 256, 2)
+        assert (p.cell, p.rpb, p.threads, p.stages) == (128, rows, 128, 2), rows
 
 
 @pytest.mark.parametrize("cell", [128, 256])
@@ -295,6 +320,89 @@ def test_emulated_walk_matches_jax_decode_and_verify(quant):
     np.testing.assert_allclose(verify.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(decode.numpy(), np.asarray(want_rows), rtol=1e-5, atol=1e-5)
     assert torch.equal(verify, decode)
+
+
+@pytest.mark.parametrize("g", [4, 8])
+def test_emulated_walk_matches_jax_at_k1_k2_shapes(g):
+    """K1 and K2's bf16 route, the same walk, at a fast-route shape (Hkv 2,
+    D 64: Hkv * D = 128, where ``attention_kernel`` sends decode to K1 and
+    verify to K2) and G 4 and 8, emulated against JAX's
+    ``paged_attention_jnp`` and ``paged_attention_grouped(...,
+    use_pallas=False)`` on bf16-valued f32 inputs, with contexts at each side
+    of the 128-key cell boundaries, of 1, and past the table; the verify
+    rows equal the decode rows bit for bit."""
+    hkv, d = 2, 64
+    hq, scale = g * hkv, d**-0.5
+    rng = np.random.default_rng(13 + g)
+    rows_ = rng.standard_normal((L, 2, NB + 1, BS, hkv * d)).astype(np.float32)
+    rows_ = torch.from_numpy(rows_).bfloat16().float().numpy()
+    jc, tc = jnp.asarray(rows_), torch.from_numpy(rows_.copy())
+    groups = len(CTX0)
+    bt = np.stack([rng.permutation(NB)[:M] for _ in range(groups)]).astype(np.int32)
+    ctx = np.array([c + i for c in CTX0 for i in range(ROWS)], np.int32)
+    q = torch.from_numpy(rng.standard_normal((groups * ROWS, hq, d)).astype(np.float32)).bfloat16()
+    qj = jnp.asarray(q.float().numpy())
+    want = jatt.paged_attention_grouped(qj, jc, jnp.int32(1), jnp.asarray(bt), jnp.asarray(ctx), scale, ROWS,
+                                        use_pallas=False)
+    bt_rows = np.repeat(bt, ROWS, 0)
+    want_rows = jatt.paged_attention_jnp(qj, jc, jnp.int32(1), jnp.asarray(bt_rows), jnp.asarray(ctx), scale)
+    cell = cell_keys(hkv)
+    assert cell == 128 and any(c < cell <= c + ROWS - 1 or c < 2 * cell <= c + ROWS - 1 for c in CTX0)
+
+    def emulate(tables, rows):
+        k, v = tatt._gather_kv(tc, 1, torch.from_numpy(tables), d, torch.bfloat16)
+        return walk_emulation(q, k, v, torch.from_numpy(ctx), rows, scale, cell, exact_rows=True)[0]
+
+    verify, decode = emulate(bt, ROWS), emulate(bt_rows, 1)
+    np.testing.assert_allclose(verify.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(decode.numpy(), np.asarray(want_rows), rtol=1e-5, atol=1e-5)
+    assert torch.equal(verify, decode)
+
+
+def test_k1_k2_route_by_query_type(monkeypatch):
+    """The wrappers of K1 and K2 on a tensor that is not on the CPU (here
+    on the meta device, with the launches replaced by recorders): bf16
+    queries reach the page walk's launch (``paged_walk.launch`` of the
+    fallbacks' export ``npt_fallback``, the cache taken as bf16), f32
+    queries the chunk template's (``npt_paged_decode`` / ``npt_paged_verify``),
+    and each call counts one launch of its own kernel and none of
+    K10a/K10b's."""
+    from types import SimpleNamespace
+
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk
+
+    calls = []
+    fake = SimpleNamespace(npt_fallback="npt_fallback")
+    monkeypatch.setattr(kfb, "_lib", lambda: fake)
+
+    def walk(lib, fn, quant, q, cache, layer, tables, ctx, scale, rows, **kw):
+        calls.append(("walk", lib is fake, fn, quant, rows))
+        return torch.empty_like(q)
+
+    def chunk(fn, q, cache, layer, tables, ctx, scale, rows):
+        calls.append(("chunk", fn, rows))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(paged_walk, "launch", walk)
+    monkeypatch.setattr(kpa, "_launch", chunk)
+    counters = (kpa.paged_decode, kpa.paged_verify, kfb.paged_decode_fallback, kfb.paged_verify_fallback)
+    for dtype in (torch.bfloat16, torch.float32):
+        meta = dict(dtype=dtype, device="meta")
+        q, cache = torch.empty((6, 8, 128), **meta), torch.empty((2, 2, 9, 256, 256), **meta)
+        bt = torch.empty((6, 4), dtype=torch.int32, device="meta")
+        ctx = torch.empty(6, dtype=torch.int32, device="meta")
+        before = [fn.launches for fn in counters]
+        assert kpa.paged_decode(q, cache, 1, bt, ctx, 0.1).shape == q.shape
+        assert kpa.paged_verify(q, cache, 1, bt[:2], ctx, 0.1, 3).shape == q.shape
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0, 0]
+        if dtype == torch.bfloat16:
+            assert calls[-2:] == [("walk", True, "npt_fallback", False, 1), ("walk", True, "npt_fallback", False, 3)]
+        else:
+            assert calls[-2:] == [("chunk", "npt_paged_decode", 1), ("chunk", "npt_paged_verify", 3)]
+    with pytest.raises(ValueError):  # K2 takes two rows a group or more, on either route
+        kpa.paged_verify(q, cache, 1, bt, ctx, 0.1, 1)
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])

@@ -1,35 +1,40 @@
 #!/usr/bin/env python3
-"""Two trees of the port on one card, in turns: the mono schedule's
-kernels K5, K9c, K7 and K6b at chip_smoke.py's rows, and the throughput
-round's loop.
+"""Two trees of the port on one card, in turns: kernels at chip_smoke.py's
+rows and a bench path's loop.
 
     python3 tools/pair_trees.py --parent DIR [--turns parent,change,change,parent]
-                                [--paths throughput,fresh_kernel] [--out chiprun_out/pair]
+                                [--rows k1k2[,mono] | none] [--paths main]
+                                [--out DIR]
 
 DIR holds another tree of the repository (for example the parent commit,
 unpacked with ``git archive`` into a directory that .gitignore lists);
 "change" is this tree. For each turn, in order, the script runs in a
 process of its own, with that tree's package and that tree's chip_smoke.py
-on the path (``--turn ROOT``):
+on the path (``--turn ROOT``), unless ``--rows none``:
 
 - the tree's kernel build (``build.build_all``, timed; not in any figure);
-- K5 (``mono_attention``: the B=32 decode, 32 groups x 14 rows) and K9c
-  (``mono_q8``: the decode over fp8, 14 rows over int8) on chip_smoke.py's
-  seeded inputs, their outputs saved to ``OUT/<turn>_bits.pt``;
-- for K5, K9c, K7 (``cache_partials``) and K6b (``mono_fresh``), bf16, at
-  chip_smoke.py's main rows (and K7 / K6b at its short rows: pre-round
-  contexts 1-50): kernel ms (chip_smoke.py's ``time_ms``, L2 flushed, with
-  and without the spin), the device us per call of each CUDA kernel a call
-  launches (torch.profiler over CALLS calls, L2 warm), and the wrapper's
-  host us per call (perf_counter over CALLS calls enqueued back to back,
-  after a synchronisation);
-- chip_smoke.py's ``decode_verify_throughput_phase`` (its ``mat_10_rounds``);
+- the kernel rows of each set in ``--rows``, bf16 on chip_smoke.py's seeded
+  inputs: "k1k2", K1 (``paged_decode``: the main path's B=32 decode, the
+  serve pair's 128 rows) and K2 (``paged_verify``: a main-path verify chunk
+  of 16 groups x 14 rows, the same at pre-round contexts 1-50, the serve
+  pair's 16 x 8 rows); "mono", K5 (``mono_attention``: the B=32 decode, 32
+  groups x 14 rows) and K9c (``mono_q8``: the decode over fp8, 14 rows over
+  int8), whose outputs are saved to ``OUT/<turn>_bits.pt``, and K7
+  (``cache_partials``) and K6b (``mono_fresh``) at the main rows and at
+  pre-round contexts 1-50, then chip_smoke.py's
+  ``decode_verify_throughput_phase`` (its ``mat_10_rounds``). For each row:
+  kernel ms (chip_smoke.py's ``time_ms``, L2 flushed, with and without the
+  spin), the device us per call of each CUDA kernel a call launches
+  (torch.profiler over CALLS calls, L2 warm), and the wrapper's host us per
+  call (perf_counter over CALLS calls enqueued back to back, after a
+  synchronisation);
 
-then that tree's ``tools/profile_torch_port.py --unprofiled`` over
-``--paths`` (loop ms a PEARL round, host us a call by stage and wrapper).
-Each turn's lines go to ``OUT/<i>_<turn>.out``. At the end the script
-holds every turn's K5 and K9c outputs against the first turn's bit for bit
-and prints one JSON line with the verdict. Needs one CUDA card.
+then this tree's ``tools/profile_torch_port.py --unprofiled --tree ROOT``
+over ``--paths`` (loop ms and tok/s a PEARL round, host us a call by stage
+and wrapper, K1's and K2's among them: the same stages for both trees).
+Each turn's lines go to ``OUT/<i>_<turn>.out``. At the end, with "mono",
+the script holds every turn's K5 and K9c outputs against the first turn's
+bit for bit, and prints one JSON line with the verdict. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ CALLS = 100
 BITS_ROWS = ("k5_decode", "k5_r14", "k9c_fp8_decode", "k9c_int8_r14")
 
 
-def turn(root: Path, out: Path) -> None:
-    """One turn in ``root``'s tree (run in a process of its own)."""
+def turn(root: Path, out: Path, sets: list[str]) -> None:
+    """One turn's kernel rows in ``root``'s tree (run in a process of its own)."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -57,6 +62,7 @@ def turn(root: Path, out: Path) -> None:
     import chip_smoke as cs
     from nano_pearl_tpu_torch.ops.cuda import build
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
     from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, _quantize_rows
 
     emit = cs.emit
@@ -87,23 +93,36 @@ def turn(root: Path, out: Path) -> None:
         return q, cache, 1, bt, ctx, c0, fk, fv, scale, 14
 
     rows = {}
-    for name, rows_, seed in (("k5_decode", 1, 0), ("k5_r14", 14, 1)):
-        q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
-        rows[name] = (kmo.mono_attention, (q, cache, 1, bt, ctx, scale, rows_))
-    for name, kind, rows_, seed in (("k9c_fp8_decode", "fp8", 1, 0), ("k9c_int8_r14", "int8", 14, 1)):
-        q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
-        rows[name] = (kmo.mono_q8, (q, quantized(cache, kind), 1, bt, ctx, scale, rows_))
-        del cache
-    rows["k7"] = (kmo.cache_partials, partials_args(65, 2300))
-    rows["k7_short"] = (kmo.cache_partials, partials_args(1, 50))
-    rows["k6b"] = (kmo.mono_fresh, fresh_args(65, 2300))
-    rows["k6b_short"] = (kmo.mono_fresh, fresh_args(1, 50))
+    if "k1k2" in sets:  # chip_smoke.py's decode_row / verify_row inputs
+        for name, n, rows_, lo, hi, seed, heads in (
+                ("k1_decode", 32, 1, 65, 2300, 0, (8, 128)), ("k2_r14", 16, 14, 65, 2300, 1, (8, 128)),
+                ("k2_r14_short", 16, 14, 1, 50, 1, (8, 128)), ("k1_serve", 128, 1, 65, 3200, 2, (16, 64)),
+                ("k2_serve", 16, 8, 65, 3200, 3, (16, 64))):
+            hq, d = heads
+            q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, n, rows_, ctxs(lo, hi, seed, n), hq=hq, d=d,
+                                                       nb=1100 if n == 128 else 520)
+            if rows_ == 1:
+                rows[name] = (kpa.paged_decode, (q, cache, 1, bt, ctx, scale))
+            else:
+                rows[name] = (kpa.paged_verify, (q, cache, 1, bt, ctx, scale, rows_))
+    if "mono" in sets:
+        for name, rows_, seed in (("k5_decode", 1, 0), ("k5_r14", 14, 1)):
+            q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
+            rows[name] = (kmo.mono_attention, (q, cache, 1, bt, ctx, scale, rows_))
+        for name, kind, rows_, seed in (("k9c_fp8_decode", "fp8", 1, 0), ("k9c_int8_r14", "int8", 14, 1)):
+            q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
+            rows[name] = (kmo.mono_q8, (q, quantized(cache, kind), 1, bt, ctx, scale, rows_))
+            del cache
+        rows["k7"] = (kmo.cache_partials, partials_args(65, 2300))
+        rows["k7_short"] = (kmo.cache_partials, partials_args(1, 50))
+        rows["k6b"] = (kmo.mono_fresh, fresh_args(65, 2300))
+        rows["k6b_short"] = (kmo.mono_fresh, fresh_args(1, 50))
 
-    bits = {}
-    for name in BITS_ROWS:
-        fn, args = rows[name]
-        bits[name] = fn(*args).cpu()
-    torch.save(bits, out.with_name(out.stem + "_bits.pt"))
+        bits = {}
+        for name in BITS_ROWS:
+            fn, args = rows[name]
+            bits[name] = fn(*args).cpu()
+        torch.save(bits, out.with_name(out.stem + "_bits.pt"))
 
     for name, (fn, args) in rows.items():
         run = lambda fn=fn, args=args: fn(*args)  # noqa: E731
@@ -126,20 +145,25 @@ def turn(root: Path, out: Path) -> None:
               "host_us_per_call": host_us, "device_us_per_call_by_kernel": device_us})
     del rows, flush
     torch.cuda.empty_cache()
-    cs.decode_verify_throughput_phase(dev)
+    if "mono" in sets:
+        cs.decode_verify_throughput_phase(dev)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the other tree's root")
     ap.add_argument("--turns", default="parent,change,change,parent")
-    ap.add_argument("--paths", default="throughput,fresh_kernel")
+    ap.add_argument("--rows", default="k1k2", help="kernel row sets: k1k2, mono, both comma-separated, or none")
+    ap.add_argument("--paths", default="main")
     ap.add_argument("--out", default="chiprun_out/pair")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # internal: one turn in this tree root
     args = ap.parse_args()
     out = Path(args.out)
+    sets = [] if args.rows == "none" else args.rows.split(",")
+    if not set(sets) <= {"k1k2", "mono"}:
+        ap.error(f"unknown row set in {args.rows}")
     if args.turn:
-        turn(Path(args.turn).resolve(), out)
+        turn(Path(args.turn).resolve(), out, sets)
         return 0
     import torch
 
@@ -149,17 +173,21 @@ def main() -> int:
     roots = {"parent": Path(args.parent).resolve(), "change": HERE}
     out.mkdir(parents=True, exist_ok=True)
     files = []
+    profiler = HERE / "tools" / "profile_torch_port.py"
     for i, label in enumerate(args.turns.split(",")):
         root, log = roots[label], out / f"{i}_{label}.out"
+        cmds = [[sys.executable, str(Path(__file__).resolve()), "--turn", str(root), "--rows", args.rows,
+                 "--out", str((out / f"{i}_{label}").resolve())]] if sets else []
+        cmds.append([sys.executable, str(profiler), "--unprofiled", "--paths", args.paths, "--tree", str(root)])
         with open(log, "w") as f:
-            for cmd in ([sys.executable, str(Path(__file__).resolve()), "--turn", str(root),
-                         "--out", str((out / f"{i}_{label}").resolve())],
-                        [sys.executable, "tools/profile_torch_port.py", "--unprofiled", "--paths", args.paths]):
+            for cmd in cmds:
                 f.flush()
                 subprocess.run(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT, check=True,
                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
         files.append(out / f"{i}_{label}_bits.pt")
         print(json.dumps({"turn": i, "tree": label, "log": str(log)}), flush=True)
+    if "mono" not in sets:
+        return 0
     first = torch.load(files[0])
     equal = {str(f.name): {k: bool(torch.equal(first[k], torch.load(f)[k])) for k in BITS_ROWS} for f in files[1:]}
     print(json.dumps({"k5_k9c_bits_equal_to_first_turn": equal,

@@ -3,7 +3,7 @@
 torch.profiler.
 
     python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp,fallback,prefill]
-                                        [--unprofiled]
+                                        [--unprofiled] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
@@ -28,7 +28,9 @@ loop runs twice:
   alone, between two synchronisations, so the samples spread over the
   whole window and see its growing contexts.
 
-For each path and loop it prints one JSON line: loop ms per round, sampled device
+For each path and loop it prints one JSON line: loop ms per round, PEARL (AR)
+tok/s (committed tokens over the loop's host seconds, as chip_smoke.py
+counts them), sampled device
 kernel ms per round, the device's idle share (1 - kernel time / loop
 time; the kernels run on one stream), launches per round, the kernels
 with the most device time, and, for PEARL rounds, the host's time per
@@ -37,8 +39,11 @@ and its attention, writeback and LM head, verdict), taken with
 perf_counter around those calls in the unprofiled run: the host only
 enqueues there, so this is dispatch time. It prints the card's name and
 power limit first. Needs one CUDA card. ``--unprofiled`` runs the PEARL
-loop's unprofiled pass alone (loop ms and host stages; no profiler pass,
-no AR loop), under a minute a path, for turns of two trees in one call.
+loop's unprofiled pass alone (loop ms, tok/s and host stages, K1's and K2's
+wrappers among them; no profiler pass, no AR loop), under a minute a path,
+for turns of two trees in one call. ``--tree ROOT`` runs another tree of the
+repository (its package and chip_smoke.py) under this script, so that a
+parent tree is measured with the same stages.
 
 "prefill" is no bench path: it runs the prefill kernels K3 and K4 alone
 at chip_smoke.py's main K3/K4 rows (L2 warm, PREFILL_CALLS calls after
@@ -63,7 +68,18 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def _tree() -> Path:
+    """The tree whose package and chip_smoke.py run: ``--tree ROOT`` (another
+    tree of the repository, so that two trees take the same measurement in
+    paired turns, tools/pair_trees.py), else this one."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[1])
+    return pre.parse_known_args()[0].tree.resolve()
+
+
+sys.path.insert(0, str(_tree()))
 
 from chip_smoke import (  # noqa: E402
     OVERRIDE_PATHS,
@@ -161,6 +177,8 @@ HOST_STAGES = {
     "target_verify": ("nano_pearl_tpu_torch.engine.fused", "FusedPearl._target_packed"),
     "verify_attention_k2": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped"),
     "verify_attention_deferred": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped_fresh"),
+    "k1_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_decode"),
+    "k2_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify"),
     "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
     "k6b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_fresh"),
     "k8b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh_split"),
@@ -217,14 +235,18 @@ class HostStages:
 def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive, profiled: bool = True) -> dict:
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     with PerRound(owner, name) as timed, HostStages() as host:
-        drive()
+        _, num_tokens, _, elapsed = drive()
     loop_ms = timed.start.elapsed_time(timed.end)
     n = timed.calls
     host_stages = {k: {"host_ms_per_" + unit: host.s[k] * 1e3 / n, "calls_per_" + unit: host.calls[k] / n,
                        "host_us_per_call": host.s[k] * 1e6 / host.calls[k]}
                    for k in HOST_STAGES if host.calls[k]}
+    # committed tokens over the loop's host seconds, as chip_smoke.py's tok/s
+    # (the stages' timers included)
+    tok_s = sum(num_tokens) / elapsed
     if not profiled:
-        return {"phase": label, unit + "s": n, "loop_ms_per_" + unit: loop_ms / n, "host_stages": host_stages}
+        return {"phase": label, unit + "s": n, "loop_ms_per_" + unit: loop_ms / n, "tok_s": tok_s,
+                "host_stages": host_stages}
 
     windows = Windows()
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -247,6 +269,7 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
         unit + "s": n,
         "sampled_" + unit + "s": windows.n,
         "loop_ms_per_" + unit: loop_ms / n,
+        "tok_s": tok_s,
         "device_kernel_ms_per_" + unit: kernel_ms,
         "device_idle_share": 1.0 - kernel_ms / (loop_ms / n),
         "device_launches_per_" + unit: windows.launches / windows.n,
@@ -324,7 +347,8 @@ def main() -> int:
     ap.add_argument("--paths", default="main,throughput",
                     help="comma-separated: " + ", ".join([*PATHS, "prefill"]))
     ap.add_argument("--unprofiled", action="store_true",
-                    help="the PEARL loop's unprofiled pass alone: loop ms and host stages")
+                    help="the PEARL loop's unprofiled pass alone: loop ms, tok/s and host stages")
+    ap.add_argument("--tree", help="profile this other tree of the repository (its package and chip_smoke.py)")
     args = ap.parse_args()
     paths = args.paths.split(",")
     if not set(paths) <= set(PATHS) | {"prefill"}:
@@ -334,6 +358,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     print(nvidia_smi(), flush=True)
+    print(json.dumps({"tree": str(_tree())}), flush=True)
     for path in paths:
         if path == "prefill":
             profile_prefill(dev)
