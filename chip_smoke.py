@@ -32,7 +32,8 @@ script exits non-zero without its last line):
    second launch bit for bit, the kernels of the schedule overrides
    (K8a split-boundary decode at 32 rows, K6a and K8b deferred verify at
    16 groups x 14 rows, K6b at 32 groups x 14 rows, pre-round contexts of
-   65-2300 and of 1-50, each against a second launch bit for bit too),
+   65-2300 and of 1-50, each against a second launch bit for bit too, K6a
+   against K6b bit for bit),
    the fallbacks K10a-d (decode and packed
    verify where Hkv*D % 128 != 0, or over a 1-byte cache of blocks that
    are not a multiple of 32: SmolLM2-360M's 15x64 heads over 5 KV heads
@@ -49,14 +50,16 @@ script exits non-zero without its last line):
    (scaled_dot_product_attention or index_copy_, yardsticks the port
    never calls) times from CUDA events with the L2 cache flushed before
    each launch; split_bitwise: K8b's rows against K8a's bit for bit
-   (windows inside a 256-key chunk and across one, num_input 1, ctx0 0);
+   (windows inside a cell, across a 128-key multiple and across a 256-key
+   one, num_input 1, ctx0 0) and K6a's against K6b's;
    sp_bitwise: K11c's rows against K11a's, K11d's against K11b's, bit for
    bit per shard and after the merge; prefill_bitwise: K3's rows of the
    main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
-   against the launchers' exported choice; the bf16 K1/K2, K10/K11, K7
-   and K6b rows their page walk's plan, ``design``, held against the exported
+   against the launchers' exported choice; the bf16 K1/K2, K10/K11, K7,
+   K6a/K6b and K8a/K8b rows their page walk's plan, ``design``, held
+   against the exported
    ``npt_walk_plan``,
    the ``blocks`` they launch, their ``share`` of the bound, and, as the
    K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
@@ -651,10 +654,10 @@ def fresh_sdpa(q, cache, layer, bt, ctx, c0, fk, fv, rows, hq, hkv, d, scale):
             lambda o: o.transpose(1, 2).reshape(-1, hq, d))
 
 
-OVERRIDE_KERNELS = {  # the schedule overrides' kernels -> (TPU kernel body replaced, source)
-    "paged_decode_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:436", "paged_attention.cu"),
-    "paged_verify_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1551", "paged_attention.cu"),
-    "paged_verify_fresh_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1614", "paged_attention.cu"),
+OVERRIDE_KERNELS = {  # the schedule overrides' kernels -> (TPU kernel body replaced, source of the bf16 route)
+    "paged_decode_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:436", "paged_attention_partials.cu"),
+    "paged_verify_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1551", "paged_attention_partials.cu"),
+    "paged_verify_fresh_split": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1614", "paged_attention_partials.cu"),
     "mono_fresh": ("nano_pearl_tpu/ops/pallas/paged_attention.py:1703", "paged_attention_partials.cu"),
 }
 
@@ -671,16 +674,19 @@ def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1,
     """K6a or K8b (at a ceiling verify chunk: 16 groups x 14 rows) or K6b
     (at the throughput path's 32 groups x 14 rows): one group per pre-round
     context in ``ctx0``, held against the plain version at TOL and against
-    a second launch bit for bit. The bound counts each group's cache
-    context and fresh rows once, q and o; the yardstick is SDPA over the
-    gathered cache with the fresh rows appended (o only, the SDPA call
-    alone timed). K6b's bf16 queries run on the tensor-core walk: its row
-    also carries ``no_spin``, ``share``, ``design``, ``blocks`` and
-    ``plan_blocks``, as the K10/K11 rows do."""
+    a second launch bit for bit; K6a's rows against K6b's on the same
+    inputs bit for bit (``k6b_row_equal``: one launch). The bound counts
+    each group's cache context and fresh rows once, q and o; the yardstick
+    is SDPA over the gathered cache with the fresh rows appended (o only,
+    the SDPA call alone timed). Their bf16 queries run on the tensor-core
+    walk (K8b with its cut window): the rows also carry ``no_spin``,
+    ``share``, ``design``, ``blocks`` and ``plan_blocks``, as the K10/K11
+    rows do."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
     from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
 
-    fn = override_kernel_fns()[name]
+    fns = override_kernel_fns()
+    fn = fns[name]
     q, cache, bt, ctx, c0, fk, fv, scale = fresh_inputs(gen, dev, ctx0, rows, hq, hkv, d)
     args = (q, cache, layer, bt, ctx, c0, fk, fv, scale)
     got, want = fn(*args, rows), kpa.plain_fresh(*args)
@@ -689,6 +695,8 @@ def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1,
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     if not torch.equal(fn(*args, rows), got):
         raise AssertionError(f"{name}: a second launch gives other bits")
+    if name == "paged_verify_fresh" and not torch.equal(fns["mono_fresh"](*args, rows), got):
+        raise AssertionError("paged_verify_fresh: K6a rows differ from K6b's on the same inputs")
     lib = lib_yardstick(*fresh_sdpa(q, cache, layer, bt, ctx, c0, fk, fv, rows, hq, hkv, d, scale), want)
     n = q.shape[0]
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + c0.numel() * 4 \
@@ -702,15 +710,15 @@ def fresh_row(gen, dev, flush, name, ctx0, rows=14, hq=8, d=128, hkv=2, layer=1,
         replaces=replaces, max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: kpa.plain_fresh(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
         library="SDPA over the gathered cache with the fresh rows appended, o only",
-        second_launch_bitwise=True,
+        second_launch_bitwise=True, share=b_ms / ms, no_spin=no_spin_ms(run, lib, 50, flush),
         shape=dict(groups=len(ctx0), rows=rows, hq=hq, hkv=hkv, d=d, ctx0_min=int(c0.min()),
                    ctx0_max=int(c0.max())),
     )
-    if name == "mono_fresh":
-        row.update(share=b_ms / ms, no_spin=no_spin_ms(run, lib, 50, flush))
-        row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
-                       walk_design(row["name"], kpp._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False,
-                                   ctx0=c0)))
+    if name == "paged_verify_fresh":
+        row["k6b_row_equal"] = True
+    row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
+                   walk_design(row["name"], kpp._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False,
+                               ctx0=c0, cut=c0 if name == "paged_verify_fresh_split" else None)))
     return row
 
 
@@ -718,8 +726,11 @@ def decode_split_row(gen, dev, flush, ctx0, gamma=14, hq=8, d=128, hkv=2, layer=
     """K8a on the gamma-scan's 32 decode rows, row i cut at b1 = ctx - (i %
     gamma) (the boundary of the step-(i % gamma) decode of a round, steps >=
     1 at the round-start length), held against K1's plain version at TOL and
-    a second launch bit for bit; bound and yardstick K1's."""
+    a second launch bit for bit; bound and yardstick K1's. Its bf16 queries
+    run on the walk with a cut cell: the row carries ``no_spin``,
+    ``share``, ``design``, ``blocks`` and ``plan_blocks``."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
 
     q, cache, bt, ctx, scale = paged_inputs(gen, dev, len(ctx0), 1, ctx0, hq=hq, hkv=hkv, d=d)
     b1 = (ctx - torch.arange(len(ctx0), device=dev, dtype=torch.int32) % gamma).contiguous()
@@ -735,18 +746,26 @@ def decode_split_row(gen, dev, flush, ctx0, gamma=14, hq=8, d=128, hkv=2, layer=
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + 2 * ctx.numel() * 4 + sum_ctx * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * sum_ctx * hq * d)
     replaces, source = OVERRIDE_KERNELS["paged_decode_split"]
-    return dict(
+    run = lambda: kpa.paged_decode_split(*args)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
         name="paged_decode_split", kernel="paged_decode_split", route="cuda",
         source=f"nano_pearl_tpu_torch/csrc/{source}", replaces=replaces,
-        max_abs_err=err, ms=time_ms(lambda: kpa.paged_decode_split(*args), 50, flush),
+        max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: kpa.plain_decode(q, cache, layer, bt, ctx, scale), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush), second_launch_bitwise=True,
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush), second_launch_bitwise=True,
         shape=dict(rows=len(ctx0), hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()), ctx_max=int(ctx.max())),
     )
+    row.update(zip(("design", "blocks", "plan_blocks"),  # profiled last, after the row's timings
+                   walk_design(row["name"], kpp._lib(), run, ctx, bt, 1, hq, hkv, d, cache.shape[3], False,
+                               cut=b1)))
+    return row
 
 
 SPLIT_CASES = {  # pre-round context ctx0 of the group, real rows of its window
     "window_inside_a_chunk": (1000, 14),
+    "window_across_a_128_multiple": (1150, 14),
     "window_across_a_256_multiple": (1530, 14),
     "num_input_1": (777, 1),
     "ctx0_0": (0, 14),
@@ -756,9 +775,11 @@ SPLIT_CASES = {  # pre-round context ctx0 of the group, real rows of its window
 def split_bitwise_phase(dev, rows=14, hq=8, hkv=2, d=128, layer=1) -> dict:
     """K8b's rows against K8a's at b1 = ctx0, bit for bit, K8a reading the
     fresh rows from the draft's cache (its gamma-scan wrote them there):
-    one 14-row group per case of SPLIT_CASES, at the bench pair's heads;
-    and a second launch of each new kernel against the first, bit for bit,
-    on the same groups."""
+    one 14-row group per case of SPLIT_CASES, at the bench pair's heads
+    (128-key cells: a window across a 128-key multiple and one across a
+    256-key multiple); K6a's rows against K6b's (one launch) on the same
+    groups; and a second launch of each new kernel against the first, bit
+    for bit."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     gen = torch.Generator(dev).manual_seed(7)
@@ -788,12 +809,14 @@ def split_bitwise_phase(dev, rows=14, hq=8, hkv=2, d=128, layer=1) -> dict:
     second = {name: bool(torch.equal(fns[name](*fresh_args), fns[name](*fresh_args)))
               for name in ("paged_verify_fresh", "paged_verify_fresh_split", "mono_fresh")}
     second["paged_decode_split"] = bool(torch.equal(kpa.paged_decode_split(*dec_args), decode))
-    out = {"phase": "split_bitwise", "k8b_rows_equal_k8a": equal, "second_launch_bitwise": second,
+    k6a_k6b = bool(torch.equal(fns["paged_verify_fresh"](*fresh_args), fns["mono_fresh"](*fresh_args)))
+    out = {"phase": "split_bitwise", "k8b_rows_equal_k8a": equal, "k6a_rows_equal_k6b": k6a_k6b,
+           "second_launch_bitwise": second,
            "cases": {k: {"ctx0": c, "real_rows": r} for k, (c, r) in SPLIT_CASES.items()},
            "shape": dict(rows=rows, hq=hq, hkv=hkv, d=d)}
     emit(out)
-    if not (all(equal.values()) and all(second.values())):
-        raise AssertionError(f"K8b rows != K8a rows, or a second launch differs: {out}")
+    if not (all(equal.values()) and k6a_k6b and all(second.values())):
+        raise AssertionError(f"K8b rows != K8a rows, K6a rows != K6b rows, or a second launch differs: {out}")
     return out
 
 
@@ -962,19 +985,20 @@ FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
 }
 
 
-def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None, ctx0=None
+def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None, ctx0=None, cut=None
                 ) -> tuple[str, dict, dict]:
-    """The bf16 page walk's plan for a K10/K11, K7 or K6b row
-    (``paged_walk.walk_plan``, checked against the launchers' exported
+    """The bf16 page walk's plan for a K10/K11, K1/K2, K7, K6a/K6b or K8a/K8b
+    row (``paged_walk.walk_plan``, checked against the launchers' exported
     ``npt_walk_plan``) as the row's ``design`` line; the blocks one call of
     ``run`` launched, by kernel (``launched_blocks``), checked against the
     plan's grid (and its combine's, none where the table is one cell); and
     what the plan says of them, computed here on the host from the row's
-    tables and contexts, not measured: keys a cell, cells a table, and the
-    blocks that do work (a cell below its row slice's longest context that
-    holds a local page). With ``ctx0`` (K6b) the cache cells end at each
-    group's pre-round context and one fresh cell follows, working where a
-    row of the slice sees a fresh key."""
+    tables and contexts, not measured: keys a cell, cells a launch, and the
+    blocks that do work (a cell of ``paged_walk.launch_cells`` that a row of
+    the slice sees a key of and, from the table, that holds a local page).
+    With ``ctx0`` (K6a, K6b) the cache cells end at each group's pre-round
+    context and a fresh cell follows; ``cut`` is K8a's b1 per row, or K8b's
+    ctx0 (its fresh window cut in two)."""
     from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
 
     plan = kpw.walk_plan(rows, hq // hkv, hkv, d, bs, 2, quant)
@@ -983,30 +1007,31 @@ def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=N
     if exported != want:
         raise AssertionError(f"{name}: the launchers' plan {exported} differs from walk_plan's {plan}")
     groups, m = bt.shape
-    cells = len(kpw.key_cells(m * bs, plan.cell)) + (ctx0 is not None)
+    cells = kpw.n_cells(m * bs, plan.cell, cut is not None, ctx0 is not None)
     slices = -(-rows // plan.rpb)
     ctx_all = ctx.reshape(groups, rows).cpu()
-    ctx_g = ctx_all.clamp(max=m * bs)
-    if ctx0 is not None:
-        c0 = ctx0.cpu()
-        ctx_g = torch.minimum(ctx_g, c0[:, None])
+    c0 = None if ctx0 is None else ctx0.cpu()
+    cuts = None if cut is None else cut.cpu()
     local = (is_local if is_local is not None else torch.ones_like(bt)).bool().cpu()
     working = 0
     for grp in range(groups):
+        launch = kpw.launch_cells(m * bs, plan.cell, None if cuts is None else int(cuts[grp]),
+                                  None if c0 is None else int(c0[grp]), rows)
         for sl in range(slices):
-            rs = slice(sl * plan.rpb, (sl + 1) * plan.rpb)
-            top = int(ctx_g[grp, rs].max())
-            for lo in range(0, top, plan.cell):
-                hi = min(lo + plan.cell, top)
-                working += bool(local[grp, lo // bs : (hi - 1) // bs + 1].any())
-            if ctx0 is not None:
-                working += int(ctx_all[grp, rs].max()) > int(c0[grp])
+            top = int(ctx_all[grp, sl * plan.rpb : (sl + 1) * plan.rpb].max())  # the slice's longest context
+            top_table = min(top, m * bs, top if c0 is None else int(c0[grp]))
+            for lo, hi, fresh in launch:
+                hi = min(hi, top if fresh else top_table)
+                working += lo < hi and (fresh or bool(local[grp, lo // bs : (hi - 1) // bs + 1].any()))
+    extra = {(False, False): "", (False, True): ", the fresh rows one more",
+             (True, False): ", one more (each row's cell at b1 cut in two)",
+             (True, True): ", the fresh rows two more (cut at the cell multiple)"}[cut is not None, ctx0 is not None]
     design = (f"mma.sync m16n8k16 bf16 (P as hi + lo bf16), K/V via cp.async in {plan.stages} stages of "
-              f"{kpw.KEYS} keys; {plan.cell}-key cells{'' if ctx0 is None else ', the fresh rows one more'}; "
+              f"{kpw.KEYS} keys; {plan.cell}-key cells{extra}; "
               f"{plan.rpb} rows x {hq // hkv} heads a block, {plan.threads // 32} warps, {plan.smem} B shared")
     blocks = launched_blocks(run)
     walk = sum(n for k, n in blocks.items() if k.startswith("walk_mma_kernel"))
-    combine = blocks.get("walk_combine_kernel", 0)
+    combine = sum(n for k, n in blocks.items() if k.startswith("walk_combine_kernel"))
     want = (cells * slices * hkv * groups, groups * rows * -(-hq * d // kpw.THREADS) if cells > 1 else 0)
     if (walk, combine) != want or walk + combine != sum(blocks.values()):
         raise AssertionError(f"{name}: one call launched {blocks}, the plan's grids are (walk, combine) {want}")
@@ -2482,7 +2507,8 @@ def main() -> int:
         first["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
         first["launches"] = sum(first["launches_by_path"].values())
         line.append({**{k: first[k] for k in keys},
-                     **{k: first[k] for k in ("no_spin", "share", "design", "blocks", "k2_row_equal")
+                     **{k: first[k] for k in ("no_spin", "share", "design", "blocks", "k2_row_equal",
+                                              "k6b_row_equal")
                         if k in first},
                      "other_shapes": [{k: r[k] for k in shape_keys if k in r} for r in others]})
     emit({"kernels": line})

@@ -56,6 +56,10 @@
 //   equal them bit for bit. Replaces _grouped_kernel_db_fresh_split (entry
 //   paged_attention_pallas_grouped_fresh_split). The cell partition is set
 //   out above cell_partial_kernel.
+// These three entries are K8a's, K6a's and K8b's f32 route too, and refuse
+// bf16 queries: their bf16 route is the tensor-core page walk
+// (paged_attention_partials.cu: npt_fresh_walk for K6a, npt_cut_walk for
+// K8a and K8b, the cut cells of paged_walk.cuh).
 //
 // K1 is K2 with R = 1. The chunk partition is fixed by absolute position,
 // a tile past a row's context is an exact no-op for that row, and the
@@ -173,7 +177,12 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   return cudaGetLastError();
 }
 
-// ---- K8a, K6a, K8b: kernels that fold cells other than the fixed chunks ----
+// ---- K8a, K6a, K8b (f32): kernels that fold cells other than the chunks ----
+//
+// The f32 route of the split-boundary schedule and of the db schedule's
+// deferred verify (the exactness pairs, held at 1e-4 on CUDA cores). The
+// bf16 route runs the same partition on the page walk's 128- or 256-key
+// cells (paged_walk.cuh: WalkCells).
 //
 // A cell is an interval [lo, hi) of a row's key positions folded into one
 // partial. Its tiles start at lo, so a key sits at the same place of its
@@ -205,7 +214,8 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
 // the K8a row bit for bit: the decode <-> verify agreement of the
 // layer-share ceiling without a per-layer cache write (the JAX package's
 // split-boundary schedule, with the port's 256-key chunks and 64-key tiles
-// in place of the TPU kernels' 1024-key chunks).
+// in place of the TPU kernels' 1024-key chunks). f32 alone: the bf16
+// instantiations went when the page walk took the bf16 route.
 template <bool kFresh>
 struct Cells;
 
@@ -348,19 +358,18 @@ cudaError_t launch_cells(int groups, int rows, const void* q, const void* cache,
   return cudaGetLastError();
 }
 
+// K8a, K6a, K8b here take f32 queries alone: bf16 ones run on the page walk
+// (paged_attention_partials.cu), and a bf16 call here is refused.
 template <bool kFresh>
 cudaError_t dispatch_cells(int groups, int rows, const void* q, const void* cache, const void* fk,
                            const void* fv, const int* bt, const int* ctx, const int* bnd,
                            void* out, float* part_acc, float* part_ml, int m, int hq, int hkv,
                            int d, int bs, long long k_off, long long v_off, float scale, int split,
                            int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_cells<__nv_bfloat16, kFresh>(groups, rows, q, cache, fk, fv, bt, ctx, bnd, out,
-                                               part_acc, part_ml, m, hq, hkv, d, bs, k_off,
-                                               v_off, scale, split, s);
+  if (is_bf16) return cudaErrorInvalidValue;
   return launch_cells<float, kFresh>(groups, rows, q, cache, fk, fv, bt, ctx, bnd, out, part_acc,
-                                     part_ml, m, hq, hkv, d, bs, k_off, v_off, scale, split, s);
+                                     part_ml, m, hq, hkv, d, bs, k_off, v_off, scale, split,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // K1/K2 here take f32 queries alone: bf16 ones run on the page walk
@@ -461,8 +470,9 @@ int npt_paged_verify_q8(const void* q, const void* cache, const void* scales, co
                                hkv, d, bs, k_off, v_off, scale, is_bf16, is_fp8, stream);
 }
 
-// K8a: npt_paged_decode on the split-boundary schedule, the chunk that holds
-// b1[i] cut there for row i. b1 [n] int32; part_acc [n, hq, n_cells, d] and
+// K8a's f32 route: npt_paged_decode on the split-boundary schedule, the
+// chunk that holds b1[i] cut there for row i (is_bf16 must be 0). b1 [n]
+// int32; part_acc [n, hq, n_cells, d] and
 // part_ml [n, hq, n_cells, 2] f32 scratch, n_cells = ceil(m * bs /
 // npt_chunk_tokens()) + 1.
 int npt_paged_decode_split(const void* q, const void* cache, const int* bt, const int* ctx,
@@ -474,8 +484,9 @@ int npt_paged_decode_split(const void* q, const void* cache, const int* bt, cons
                                          scale, 0, is_bf16, stream);
 }
 
-// K6a (split 0) / K8b (split 1): the deferred verify of b groups of `rows`
-// rows, 1 <= rows <= npt_chunk_tokens(). The cache holds positions < ctx0[g]
+// K6a (split 0) / K8b (split 1), f32 route (is_bf16 must be 0): the
+// deferred verify of b groups of `rows` rows, 1 <= rows <=
+// npt_chunk_tokens(). The cache holds positions < ctx0[g]
 // of group g (read-only here); fk / fv [b * rows, hkv * d] hold its fresh
 // rows, row t at position ctx0[g] + t; ctx [b * rows] each row's context
 // with its visible fresh rows. Scratch as K8a with b * rows rows and

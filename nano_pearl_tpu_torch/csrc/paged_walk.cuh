@@ -1,11 +1,13 @@
 // The page walk shared by the paged-attention fallbacks K10a-d
 // (csrc/paged_attention_fallback.cu), the per-shard partials kernels
 // K11a-d of sequence parallelism and, with bf16 queries, the deferred
-// verify's kernels K7 and K6b of the mono schedule
-// (csrc/paged_attention_partials.cu) and the main path's paged decode K1
-// and packed verify K2 (through the fallbacks' export npt_fallback; K1/K2's
-// f32 route stays on paged_attention.cu's chunk template): R rows of a
-// group share one block
+// verify's kernels K7 and K6b of the mono schedule, K6a of the db schedule
+// and the split-boundary schedule's K8a and K8b
+// (csrc/paged_attention_partials.cu), and the main path's paged decode K1
+// and packed verify K2 (through the fallbacks' export npt_fallback). The
+// f32 routes of K1/K2, K6a, K8a and K8b stay on paged_attention.cu's chunk
+// template, those of K7/K6b on mono_attention.cu. R rows of a group share
+// one block
 // table (R = 1: decode), each row masked at its own context; K11 also skips
 // the slots `is_local` marks as another shard's and exports (o, m, l), as
 // K7 does with every slot local. A context past the table (M * BS keys) is
@@ -14,7 +16,9 @@
 // Two routes, by the query type (walk_plan picks the tiles of each; it is
 // exported as npt_walk_plan and mirrored by ops/cuda/paged_walk.walk_plan):
 //
-// bf16 queries (cache bf16, int8 or e4m3): tensor cores, walk_mma_kernel<D>.
+// bf16 queries (cache bf16, int8 or e4m3): tensor cores, walk_mma_kernel<D, kCells>
+// (kCells: the launch has fresh or cut cells, K6a/K6b/K8a/K8b; the other
+// launches keep the table's cells alone, with no cell arithmetic to pay).
 // - The rows of the products are the R * G query vectors of one (group, KV
 //   head), 16 to a warp (mma_tile.cuh's step: S = Q K^T and O += P V on
 //   mma.sync m16n8k16, S, O, m and l in registers). A decode row's G
@@ -30,25 +34,35 @@
 //   180 blocks that work for K11d on shard 0 of two (256-key cells would
 //   give about half, under the 132 SMs), 415 for K10b, 820 for K10a and
 //   302 for K11b; its K1/K2 rows print theirs (plan_blocks). A launch
-//   whose table holds one cell (M * BS <= cell) writes its outputs
-//   directly; otherwise each cell writes f32 (acc, m, l) partials and a
+//   of one cell (a table of M * BS <= cell keys, with no fresh or cut cell)
+//   writes its outputs directly; otherwise each cell writes f32 (acc, m, l)
+//   partials and a
 //   combine kernel folds each row's cells in cell order with
 //   fold_partials, as K1/K2's 256-key split does.
-// - The fresh cell (K6b, bf16 route only): the deferred verify reads the
-//   round's K/V from the fresh rows fk / fv [groups * R, Hkv * D] (row t of
-//   group g at position ctx0[g] + t), not from the cache, which holds the
+// - The fresh cell (K6a, K6b; bf16 route only): the deferred verify reads
+//   the round's K/V from the fresh rows fk / fv [groups * R, Hkv * D] (row t
+//   of group g at position ctx0[g] + t), not from the cache, which holds the
 //   group's pre-round context ctx0[g] alone. The launch takes one more cell
 //   after the table's: the cache cells cover [0, ctx0[g]), a row of
 //   context ctx seeing min(ctx, ctx0[g]) of them; the last cell holds the R
 //   fresh keys, tagged with their positions, a row seeing those below its
 //   context (the tag <= position rule of mma_tile.cuh). Its keys come
-//   straight from their fresh rows (no table); every row writes its
-//   partial there, floors where it sees none (a padded row of a pre-verify
-//   group). The combine folds a row's cache cells with l > 0 in order, then
-//   the fresh cell: the order of the Pallas kernel (cache chunks, then the
-//   window). ctx0 = 0 leaves every cache cell empty. Nothing in the cell is
-//   K6b's own but its operands, so the classic schedule's fresh verify can
-//   take it as it is.
+//   straight from their fresh rows (no table). The combine folds a row's
+//   cache cells with l > 0 in order, then the fresh cell: the order of the
+//   Pallas kernel (cache chunks, then the window). ctx0 = 0 leaves every
+//   cache cell empty. Nothing in the cell is one schedule's own but its
+//   operands, so the db schedule's K6a and the mono schedule's K6b share
+//   one launch (npt_fresh_walk) and give equal bits.
+// - The cut cell (K8a, K8b; bf16 route only): a per-group position cut[g].
+//   K8a (decode, cut = b1): the table's cell that holds b1 is cut there
+//   into [k * cell, b1) and [b1, (k + 1) * cell), the second one's tiles
+//   starting at b1, so the launch has one more cell (left empty where b1 is
+//   a cell multiple or not inside the table). K8b (deferred verify, cut =
+//   ctx0, R <= cell): the cache cells as K6a's, then the fresh window cut
+//   at cstar = (ctx0 / cell + 1) * cell into [ctx0, cstar), tiles from
+//   fresh row 0, and [cstar, ctx0 + R), tiles from fresh row cstar - ctx0.
+//   WalkCells sets out every launch's cells; the walk and the combine both
+//   read them there.
 // - Copies: a block first resolves its cell's table slots (and, over a
 //   1-byte cache, the K and V scales of each slot) into shared memory, so
 //   no copy waits on a table load. K/V tiles of 64 keys then come through
@@ -95,6 +109,24 @@
 // which parallel/sp.merge_partials weighs 0. The f32 route gives the same
 // property by its own argument (flash_tile.cuh: each value a fixed
 // sequence of operations; a page skipped for every row of a table alike).
+//
+// K8b == K8a. Take b1 = ctx0 and R <= cell, and a K8b row of context ctx
+// with ctx0 < ctx <= ctx0 + R (the draft's cache holding at positions
+// ctx0 .. ctx - 1 the keys the verify gets in its fresh rows). Its cells
+// with a key it sees are, in order: the cache cells below ctx0, the one
+// holding ctx0 ending there; [ctx0, cstar); and, where ctx > cstar,
+// [cstar, ctx). The K8a row of the same query and context has the same
+// cells with the same tile starts: the table's cells below ctx0, the cut
+// cell's halves [k * cell, ctx0) and [ctx0, cstar), and the next cell
+// [cstar, cstar + cell), of which the row sees [cstar, ctx) (R <= cell
+// puts ctx below cstar + cell). (ctx0 a cell multiple: no cut, and the
+// window's second cell is empty.) A cell that
+// the row does not see is folded by neither. By the argument above, equal
+// tiles of equal keys give equal partials, and the combines fold equal
+// partials in equal order: the rows are equal bit for bit, the
+// decode/verify agreement of the layer-share ceiling without a per-layer
+// cache write. The chunk template's f32 K8a/K8b (paged_attention.cu) gives
+// it on 256-key chunks by the same partition.
 //
 // Bound on the H100: bytes (a group reads its context's K/V once per KV
 // head; ~4 flops a byte at G 3-4, far below the card's ~295). The design
@@ -187,6 +219,77 @@ inline long long walk_plan_field(int rows, int g, int hkv, int d, int bs, bool b
   }
 }
 
+// log2 of a cell's keys, a power of two (walk_cell_keys): cells are cut
+// with shifts and masks, no integer division.
+__host__ __device__ inline int walk_cell_shift(int cell) {
+#ifdef __CUDA_ARCH__
+  return __ffs(cell) - 1;
+#else
+  return __builtin_ctz(cell);
+#endif
+}
+
+// The cells of one group's launch (bf16 route), in fold order: cell i holds
+// key positions [lo, hi) (empty where lo >= hi), read through the table or,
+// in a fresh cell, from the fresh rows (position ctx0 + t is fresh row t);
+// its tiles start at lo. From the table's `keys` = M * BS keys in cells of
+// `cell` (a power of two):
+// - the table's ceil(keys / cell) cells (at least one), each ending at the
+//   table's keys a row may see (`cached`: keys, or min(keys, ctx0) with
+//   the fresh cells);
+// - K8a (a cut, no fresh cells): one more table cell, the one holding the
+//   cut split there (the second half right after the first); where the cut
+//   is no position inside a cell of the table (a cell multiple, <= 0 or
+//   >= keys) the table's cells stay whole and the last cell is empty;
+// - K6a/K6b (fresh cells): the window [ctx0, ctx0 + R);
+// - K8b (both): the window cut at cstar, [ctx0, cstar) and [cstar, ctx0 + R).
+// A row of context ctx sees a table cell's keys below min(ctx, cached) and
+// a fresh cell's below ctx; its cells are those it sees a key of: the
+// first `table_seen` table cells, then the first `fresh_seen` fresh cells.
+struct WalkCells {
+  int sh, n_table, cached, ctx0, end, cut, cstar;  // sh: log2 of the cell's keys
+  bool slot, fresh;                                // the K8a cell; the fresh cells
+
+  __host__ __device__ WalkCells(int keys, int cell, bool has_cut, int cut_, bool has_fresh,
+                                int ctx0_, int rows)
+      : sh(walk_cell_shift(cell)), n_table(max(1, (keys + cell - 1) >> sh)),
+        cached(has_fresh ? min(keys, ctx0_) : keys), ctx0(ctx0_), end(ctx0_ + rows),
+        cut(has_cut && !has_fresh && cut_ > 0 && cut_ < keys && (cut_ & (cell - 1)) ? cut_ : 0),
+        cstar(has_cut && has_fresh ? ((ctx0_ >> sh) + 1) << sh : ctx0_ + rows),
+        slot(has_cut && !has_fresh), fresh(has_fresh) {}
+
+  // The cells of a launch, the same for every group.
+  __host__ __device__ static int count(int keys, int cell, bool has_cut, bool has_fresh) {
+    return max(1, (keys + cell - 1) >> walk_cell_shift(cell)) + has_cut + has_fresh;
+  }
+
+  __host__ __device__ void bounds(int i, int& lo, int& hi, bool& from_fresh) const {
+    const int nt = n_table + slot, kb = cut >> sh;
+    from_fresh = i >= nt;
+    if (from_fresh) {
+      lo = i == nt ? ctx0 : cstar;
+      hi = i == nt ? min(cstar, end) : end;
+    } else {
+      lo = cut && i > kb ? (i == kb + 1 ? cut : (i - 1) << sh) : i << sh;
+      hi = min(cut && i == kb ? cut : (cut && i > kb ? i : i + 1) << sh, cached);
+    }
+  }
+
+  // How many of the table's cells a row sees a key of, `lim` = min(ctx,
+  // cached) its keys there: those starting below lim, a prefix.
+  __host__ __device__ int table_seen(int lim) const {
+    return lim > 0 ? ((lim - 1) >> sh) + 1 + (cut && cut < lim) : 0;
+  }
+  // How many fresh cells a row of context ctx sees a key of, a prefix.
+  __host__ __device__ int fresh_seen(int ctx) const {
+    return fresh ? (ctx > ctx0) + (cstar < min(end, ctx)) : 0;
+  }
+  // The cell of the j-th partial a row folds, of `seen` table cells.
+  __host__ __device__ int folded(int j, int seen) const {
+    return j < seen ? j : n_table + slot + j - seen;
+  }
+};
+
 // ------------------------------------------------------- bf16: tensor cores
 
 struct WalkArgs {
@@ -195,8 +298,9 @@ struct WalkArgs {
   const __nv_bfloat16* scales;  // 1-byte cache: [cache rows, hkv]
   const int *bt, *ctx;          // [groups, m], [groups * rows]
   const int* is_local;          // K11: [groups, m] (0: another shard's slot); else null
-  const int* ctx0;              // the fresh cell: [groups] pre-round contexts; else null
-  const __nv_bfloat16 *fk, *fv;  // the fresh cell: [groups * rows, hkv * d]; else null
+  const int* ctx0;              // the fresh cells: [groups] pre-round contexts; else null
+  const __nv_bfloat16 *fk, *fv;  // the fresh cells: [groups * rows, hkv * d]; else null
+  const int* cut;               // K8a: [groups] b1; K8b: ctx0 itself; else null
   __nv_bfloat16* out;           // [groups * rows, hq, d]
   float *m_out, *l_out;         // K11, K7: [groups * rows, hq]; else null
   float *part_acc, *part_ml;    // n_cells > 1: [groups * rows, hq, n_cells, d | 2]
@@ -205,10 +309,17 @@ struct WalkArgs {
   float scale;
 };
 
+// Group grp's cells (WalkCells) of the launch a describes.
+__device__ __forceinline__ WalkCells walk_cells(const WalkArgs& a, int grp) {
+  return WalkCells(a.m * a.bs, a.cell, a.cut != nullptr, a.cut ? a.cut[grp] : 0, a.fk != nullptr,
+                   a.ctx0 ? a.ctx0[grp] : 0, a.rows);
+}
+
 // One block: cell blockIdx.x % n_cells of row slice blockIdx.x / n_cells,
-// KV head blockIdx.y, group blockIdx.z; with fk, the last cell is the fresh
-// cell.
-template <int kD>
+// KV head blockIdx.y, group blockIdx.z. kCells: the launch has fresh or cut
+// cells (K6a, K6b, K8a, K8b), in WalkCells' order; else the table's cells
+// alone (K1, K2, K7, K10, K11), set out directly.
+template <int kD, bool kCells>
 __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   constexpr int kK = kWalkKeys;
   constexpr int kP = kD + 8;          // bf16 pitch (elements)
@@ -222,25 +333,31 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   const int g = a.hq / a.hkv, hd = a.hkv * kD, r0 = slice * a.rpb;
   const int nr = min(a.rpb, a.rows - r0), nq = nr * g, mrows = (a.rpb * g + 15) / 16 * 16;
   const long long row0 = (long long)grp * a.rows + r0;  // first row of the slice
-  const int keys = a.m * a.bs;                           // keys the table holds
   const bool direct = a.n_cells == 1, q8 = a.kind != 0;
-  const bool fresh = a.fk && cell == a.n_cells - 1;  // the fresh cell
-  const int pos0 = a.ctx0 ? a.ctx0[grp] : 0;         // position of the first fresh key
-  const int cached = a.ctx0 ? min(keys, pos0) : keys;  // the cache keys the rows may see
-  // Row r of the slice: its context within the cell's key stream (its
-  // context in the fresh cell, whose keys are tagged with their positions).
+  int lo, cell_hi;     // the cell's key positions
+  int cached;          // the table's keys a row may see
+  bool fresh = false;  // the cell's keys are fresh rows: position ctx0 + t is row t
+  int src0 = 0;        // ... the fresh row of key lo
+  if constexpr (kCells) {
+    const WalkCells cells = walk_cells(a, grp);
+    cells.bounds(cell, lo, cell_hi, fresh);
+    cached = cells.cached;
+    if (fresh) src0 = lo - cells.ctx0;
+  } else {
+    cached = a.m * a.bs;
+    lo = cell * a.cell;
+    cell_hi = min(lo + a.cell, cached);
+  }
+  // Row r of the slice: its keys below this position are visible (its
+  // context, within the table's keys it may see for a table cell).
   const auto ctx_of = [&](int r) { return fresh ? a.ctx[row0 + r] : min(a.ctx[row0 + r], cached); };
-  // The combine reads row r's partial of this cell.
-  const auto owns = [&](int r) { return direct || fresh || ctx_of(r) > cell * a.cell; };
+  // The combine reads row r's partial of this cell: the row sees a key of it.
+  const auto owns = [&](int r) { return direct || lo < min(cell_hi, ctx_of(r)); };
 
   int cm = 0;  // the slice's longest context, alike in every warp
   for (int r = lane; r < nr; r += 32) cm = max(cm, ctx_of(r));
   const int ctx_max = __reduce_max_sync(~0u, cm);
-  // The cell's keys [lo, hi): of the table, or fresh rows 0 .. R - 1 at
-  // positions pos0 + t (tag0: the position of key 0).
-  const int lo = fresh ? 0 : cell * a.cell;
-  const int hi = fresh ? min(a.rows, ctx_max - pos0) : min(lo + a.cell, ctx_max);
-  const int tag0 = fresh ? pos0 : 0;
+  const int hi = min(cell_hi, ctx_max);  // the keys [lo, hi) some row of the slice sees
 
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [mrows, kP]
   const int stage_bytes = q8 ? kK * kRP : kK * kP * 2;
@@ -274,11 +391,11 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
     }
   };
   if (lo >= hi) {  // past every row's context (uniform over the block)
-    if (direct || fresh) write_empty();  // else the combine reads no such cell
+    if (direct) write_empty();  // else no row owns the cell
     return;
   }
 
-  // The cell's slots (and 1-byte scales), read out of the table once; the
+  // The cell's slots (and 1-byte scales), read out of the table once; a
   // fresh cell's keys are its group's fresh rows.
   const int* bt_row = a.bt + (long long)grp * a.m;
   const int* loc_row = a.is_local ? a.is_local + (long long)grp * a.m : nullptr;
@@ -306,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
                ok);
   }
   // This KV head's K/V planes of the layer, indexed by slot (elements); in
-  // the fresh cell its group's fresh rows, indexed by fresh row.
+  // a fresh cell its group's fresh rows, indexed by fresh row.
   const long long kbase = a.k_off * a.bs * hd + kh * kD, vbase = a.v_off * a.bs * hd + kh * kD;
   const long long fbase = (long long)grp * a.rows * hd + kh * kD;
   const int n_tiles = (hi - lo + kK - 1) / kK;
@@ -315,10 +432,10 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   const auto load_tile = [&](int n, int st) {
     const int t0 = n * kK;
     const auto slot_of = [&](int kk) {
-      return t0 + kk < hi - lo ? (fresh ? t0 + kk : kslot[t0 + kk]) : -1;
+      return t0 + kk < hi - lo ? (fresh ? src0 + t0 + kk : kslot[t0 + kk]) : -1;
     };
     for (int kk = tid; kk < kK; kk += nthr)
-      tags[st * kK + kk] = slot_of(kk) >= 0 ? tag0 + lo + t0 + kk : kNone;
+      tags[st * kK + kk] = slot_of(kk) >= 0 ? lo + t0 + kk : kNone;
     unsigned char* kd = kring + st * stage_bytes;
     unsigned char* vd = vring + st * stage_bytes;
     if (q8) {
@@ -444,64 +561,73 @@ __global__ void __launch_bounds__(kThreads) walk_mma_kernel(const WalkArgs a) {
   }
 }
 
-// Output row blockIdx.x of a launch of several cells: the row's cells that
-// start below its context, those with l > 0, folded in order (none: o = 0,
-// m = -1e29, l = 0); with ctx0 (the fresh cell, the launch's last), the
-// cache cells below min(context, ctx0[group]) and then the fresh cell.
-// Grid (rows, ceil(hq * d / kThreads)): one output element a thread.
-__global__ void __launch_bounds__(kThreads)
-walk_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                    const int* __restrict__ ctx, const int* __restrict__ ctx0,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int hq, int d, int n_cells, int cell, int keys,
-                    int rows) {
+// Output row blockIdx.x of a launch of several cells: the row's cells (the
+// table cells it sees a key of, then, with kCells, the fresh cells it sees
+// a key of, in WalkCells' order), those with l > 0, folded in order (none:
+// o = 0, m = -1e29, l = 0). Grid (rows, ceil(hq * d / kThreads)): one output
+// element a thread.
+template <bool kCells>
+__global__ void __launch_bounds__(kThreads) walk_combine_kernel(const WalkArgs a, int d) {
   const long long row = blockIdx.x;
   const int idx = blockIdx.y * blockDim.x + threadIdx.x;
-  if (idx >= hq * d) return;
-  const int seen = ctx0 ? min(min(ctx[row], keys), ctx0[row / rows]) : min(ctx[row], keys);
-  const int cached = (seen + cell - 1) / cell;  // the row's cache cells, then the fresh cell
+  if (idx >= a.hq * d) return;
+  const int ctx = a.ctx[row];
+  int seen, n, fresh0 = 0;  // the row's table cells, all its cells; the first fresh cell
+  if constexpr (kCells) {
+    const WalkCells cells = walk_cells(a, (int)blockIdx.x / a.rows);
+    seen = cells.table_seen(min(ctx, cells.cached));
+    n = seen + cells.fresh_seen(ctx);
+    fresh0 = cells.folded(seen, seen);
+  } else {
+    seen = n = (min(ctx, a.m * a.bs) + a.cell - 1) / a.cell;
+  }
   const int h = idx / d, c = idx - h * d;
-  const long long slot = row * hq + h, first = slot * n_cells;
-  const auto at = [&](int i) { return first + (i < cached ? i : n_cells - 1); };
+  const long long slot = row * a.hq + h, first = slot * a.n_cells;
+  const auto at = [&](int j) { return first + (j < seen ? j : fresh0 + j - seen); };
   float mg, l;
-  out[slot * d + c] = fold_partials<__nv_bfloat16>(
-      part_acc, part_ml, d, c, cached + (ctx0 != nullptr),
-      [&](int i) { return part_ml[at(i) * 2 + 1] > 0.f; }, at, &mg, &l);
-  if (m_out && c == 0) {
-    m_out[slot] = mg;
-    l_out[slot] = l;
+  a.out[slot * d + c] = fold_partials<__nv_bfloat16>(
+      a.part_acc, a.part_ml, d, c, n, [&](int j) { return a.part_ml[at(j) * 2 + 1] > 0.f; }, at,
+      &mg, &l);
+  if (a.m_out && c == 0) {
+    a.m_out[slot] = mg;
+    a.l_out[slot] = l;
   }
 }
 
-template <int kD = 16>
+template <bool kCells, int kD = 16>
 cudaError_t launch_walk_mma(int d, const WalkArgs& a, dim3 grid, const WalkPlan& p,
                             cudaStream_t s) {
   if constexpr (kD > 256) {
     return cudaErrorInvalidValue;
   } else {
-    if (d != kD) return launch_walk_mma<kD + 16>(d, a, grid, p, s);
-    cudaError_t err = flash_set_smem(walk_mma_kernel<kD>, p.smem);
+    if (d != kD) return launch_walk_mma<kCells, kD + 16>(d, a, grid, p, s);
+    cudaError_t err = flash_set_smem(walk_mma_kernel<kD, kCells>, p.smem);
     if (err != cudaSuccess) return err;
-    walk_mma_kernel<kD><<<grid, p.threads, p.smem, s>>>(a);
+    walk_mma_kernel<kD, kCells><<<grid, p.threads, p.smem, s>>>(a);
     return cudaGetLastError();
   }
 }
 
 // The bf16 walk over `groups` groups of `rows` rows: kind 0 a bf16 cache, 1
 // int8, 2 e4m3 (with `scales`); is_local for K11, m_out and l_out for K11
-// and K7 (else null); ctx0, fk and fv for the fresh cell (K6b: a bf16
-// cache; else null); part_acc / part_ml the partials of ceil(m * bs /
-// cell) cells, plus the fresh cell (null where that is 1).
-inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const void* cache,
+// and K7 (else null); ctx0, fk and fv for the fresh cells (K6a, K6b, K8b: a
+// bf16 cache; else null); cut for K8a (b1) and K8b (ctx0 itself, rows <=
+// cell); part_acc / part_ml the partials of WalkCells::count cells (null
+// where that is 1). kCells: the launch has fresh or cut cells.
+template <bool kCells = false>
+cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const void* cache,
                                     const void* scales, const int* bt, const int* ctx,
                                     const int* is_local, void* out, float* m_out, float* l_out,
                                     float* part_acc, float* part_ml, int m, int hq, int hkv, int d,
                                     int bs, long long k_off, long long v_off, float scale,
                                     int kind, void* stream, const int* ctx0 = nullptr,
-                                    const void* fk = nullptr, const void* fv = nullptr) {
+                                    const void* fk = nullptr, const void* fv = nullptr,
+                                    const int* cut = nullptr) {
   const WalkPlan p = walk_plan(rows, hq / hkv, hkv, d, bs, true, kind != 0);
   if (p.threads > kThreads) return cudaErrorInvalidConfiguration;
   if (fk && (kind != 0 || !ctx0 || !fv)) return cudaErrorInvalidValue;
+  if (fk && cut && (cut != ctx0 || rows > p.cell)) return cudaErrorInvalidValue;
+  if (kCells != (fk || cut)) return cudaErrorInvalidValue;
   WalkArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.cache = cache;
@@ -512,6 +638,7 @@ inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const v
   a.ctx0 = ctx0;
   a.fk = static_cast<const __nv_bfloat16*>(fk);
   a.fv = static_cast<const __nv_bfloat16*>(fv);
+  a.cut = cut;
   a.out = static_cast<__nv_bfloat16*>(out);
   a.m_out = m_out;
   a.l_out = l_out;
@@ -526,18 +653,17 @@ inline cudaError_t launch_walk_bf16(int groups, int rows, const void* q, const v
   a.hkv = hkv;
   a.bs = bs;
   a.cell = p.cell;
-  a.n_cells = (m * bs + p.cell - 1) / p.cell + (fk != nullptr);
+  a.n_cells = WalkCells::count(m * bs, p.cell, cut != nullptr, fk != nullptr);
   a.stages = p.stages;
   a.kind = kind;
   a.scale = scale;
   if (a.n_cells > 1 && (!part_acc || !part_ml)) return cudaErrorInvalidValue;
   const int slices = (rows + p.rpb - 1) / p.rpb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_walk_mma(d, a, dim3(a.n_cells * slices, hkv, groups), p, s);
+  cudaError_t err = launch_walk_mma<kCells>(d, a, dim3(a.n_cells * slices, hkv, groups), p, s);
   if (err != cudaSuccess || a.n_cells == 1) return err;
-  walk_combine_kernel<<<dim3(groups * rows, (hq * d + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      part_acc, part_ml, ctx, fk ? ctx0 : nullptr, a.out, m_out, l_out, hq, d, a.n_cells, p.cell,
-      m * bs, rows);
+  const dim3 combine(groups * rows, (hq * d + kThreads - 1) / kThreads);
+  walk_combine_kernel<kCells><<<combine, kThreads, 0, s>>>(a, d);
   return cudaGetLastError();
 }
 

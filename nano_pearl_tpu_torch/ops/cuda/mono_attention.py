@@ -48,7 +48,9 @@ group's pre-round context, plus the fresh window read from the in-operand
 fresh rows and folded after the cache's keys (f32: one more work item per
 (group, KV head); bf16: the walk's last cell). It replaces
 ``_grouped_kernel_db_mono_fresh`` (entry ``_mono_call_fresh``); its plain
-version is ``paged_attention_grouped_fresh_ref``.
+version is ``paged_attention_grouped_fresh_ref``. With bf16 queries the db
+schedule's K6a (``paged_attention.paged_verify_fresh``) launches the same
+walk, so their rows are equal bit for bit.
 
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on

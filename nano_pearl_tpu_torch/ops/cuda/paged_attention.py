@@ -1,7 +1,8 @@
 """Kernels K1 (paged decode) and K2 (packed verify), their twins K9a/K9b
 over a 1-byte cache, and the schedule overrides' K8a, K6a and K8b:
-wrappers of ``csrc/paged_attention.cu`` and, for bf16 K1/K2, of the page
-walk's export in ``csrc/paged_attention_fallback.cu``.
+wrappers of ``csrc/paged_attention.cu`` and, for bf16 queries, of the
+page walk's exports in ``csrc/paged_attention_fallback.cu`` (K1/K2) and
+``csrc/paged_attention_partials.cu`` (K6a, K8a, K8b).
 
 K1 ``paged_decode`` replaces ``_kernel_db`` (entry
 ``paged_attention_pallas``) and K2 ``paged_verify`` replaces
@@ -54,14 +55,24 @@ and ``_grouped_kernel_db_fresh_split`` (entry
 ``paged_attention_pallas_grouped_fresh_split``). K6a is K2 over the
 pre-round cache (each row's context clamped to its group's ctx0) with one
 more partial per (group, head) read from the in-operand fresh rows; K8a
-is K1 with the chunk that holds a per-row boundary b1 cut in two there;
-K8b is K6a with the fresh window cut at the chunk multiple inside it.
+is K1 with the cell that holds a per-row boundary b1 cut in two there;
+K8b is K6a with the fresh window cut at the cell multiple inside it.
 Given the same keys, a K8b row equals the K8a row of the same query and
-context at b1 = ctx0 bit for bit (the cell partition is set out in
-``csrc/paged_attention.cu``). Plain versions: ``paged_attention_ref`` for
-K8a (the boundary changes only the rounding, as the JAX package's jnp
+context at b1 = ctx0 bit for bit. Plain versions: ``paged_attention_ref``
+for K8a (the boundary changes only the rounding, as the JAX package's jnp
 path ignores it) and ``paged_attention_grouped_fresh_ref`` for K6a and
-K8b.
+K8b. They take the same two routes as K1/K2:
+
+- bf16 queries: the tensor-core page walk (``paged_walk.launch``). K6a
+  launches K6b's ``npt_fresh_walk`` (the cache cells below each group's
+  ctx0, then one fresh cell), so a K6a row equals the K6b row of the same
+  inputs bit for bit; K8a and K8b launch ``npt_cut_walk``, the walk with a
+  cut cell: K8a's table cell that holds b1 is cut there, K8b's fresh window
+  is cut at the multiple of ``cell_keys(hkv)`` inside it (its groups hold
+  at most that many rows), so that both fold the same cells
+  (``csrc/paged_walk.cuh`` carries the argument).
+- f32 queries: the CUDA-core cells of ``csrc/paged_attention.cu`` (256-key
+  chunks, the same partition, set out there).
 
 Each wrapper takes the plain version for CPU tensors, launches the
 kernel for CUDA tensors (counting the launch in ``.launches``), and
@@ -79,7 +90,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
-from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_fallback, paged_walk
+from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_fallback, paged_attention_partials, paged_walk
 from nano_pearl_tpu_torch.ops.cuda.paged_walk import _check_fresh, _check_inputs
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
@@ -147,13 +158,14 @@ def _launch(fn: str, q, cache, layer_idx, tables, context_lens, scale, rows: int
     return out
 
 
-def _fresh_rows(rows_per_group, name: str) -> int:
-    """Rows per group of a deferred verify: 1 .. one key chunk (the fresh
-    window crosses at most one chunk multiple, which K8b's partition and
-    its equality with K8a rest on)."""
-    r, chunk = int(rows_per_group), _lib().npt_chunk_tokens()
-    if not 1 <= r <= chunk:
-        raise ValueError(f"{name} takes 1 <= rows_per_group <= {chunk}, got {r}")
+def _fresh_rows(rows_per_group, name: str, hkv: int) -> int:
+    """Rows per group of a deferred verify: 1 .. one of the walk's cells,
+    ``cell_keys(hkv)`` keys (the fresh window crosses at most one cell
+    multiple, and so at most one of the chunk template's, which K8b's
+    partition and its equality with K8a rest on)."""
+    r, cell = int(rows_per_group), paged_walk.cell_keys(hkv)
+    if not 1 <= r <= cell:
+        raise ValueError(f"{name} takes 1 <= rows_per_group <= {cell}, got {r}")
     return r
 
 
@@ -219,15 +231,11 @@ def paged_verify_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows
     return out
 
 
-def paged_decode_split(q, cache, layer_idx, block_tables, context_lens, b1, scale):
-    """K8a: K1 with the key chunk that holds b1[i] (int32 [N]) cut there for
-    row i; the plain version ignores b1."""
-    if q.device.type == "cpu":
-        return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+def _decode_split_f32(q, cache, layer_idx, block_tables, context_lens, b1, scale):
+    """K8a's f32 route: the chunk template's cells, the chunk that holds b1
+    cut there; returns the output."""
     n = q.shape[0]
     hq, hkv, d, bs, m = _check_inputs(q, cache, block_tables, context_lens, n, n)
-    if b1.device != q.device or b1.dtype != torch.int32 or b1.shape != (n,) or not b1.is_contiguous():
-        raise ValueError(f"b1 must be contiguous int32 [{n}] on q's device")
     k_off, v_off = global_block_offsets(cache, layer_idx)
     out = torch.empty_like(q)
     lib = _lib()
@@ -239,29 +247,61 @@ def paged_decode_split(q, cache, layer_idx, block_tables, context_lens, b1, scal
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "paged_decode_split")
+    return out
+
+
+def paged_decode_split(q, cache, layer_idx, block_tables, context_lens, b1, scale):
+    """K8a: K1 with the key cell (bf16) or chunk (f32) that holds b1[i]
+    (int32 [N]) cut there for row i; the plain version ignores b1."""
+    if q.device.type == "cpu":
+        return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
+    n = q.shape[0]
+    if b1.device != q.device or b1.dtype != torch.int32 or b1.shape != (n,) or not b1.is_contiguous():
+        raise ValueError(f"b1 must be contiguous int32 [{n}] on q's device")
+    if q.dtype == torch.bfloat16:  # the walk with a cut cell
+        lib = paged_attention_partials._lib()
+        out = paged_walk.launch(lib, lib.npt_cut_walk, False, q, cache, layer_idx, block_tables, context_lens,
+                                scale, 1, cut=b1)
+    else:
+        out = _decode_split_f32(q, cache, layer_idx, block_tables, context_lens, b1, scale)
     paged_decode_split.launches += 1
+    return out
+
+
+def _fresh_f32(split: bool, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale,
+               rows: int):
+    """K6a's (K8b's with ``split``) f32 route: the chunk template's cells,
+    then the fresh window (cut at the chunk multiple inside it); returns the
+    output."""
+    groups = group_tables.shape[0]
+    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, groups, groups * rows)
+    _check_fresh(q, ctx0, fresh_k, fresh_v, groups, hkv, d)
+    k_off, v_off = global_block_offsets(cache, layer_idx)
+    out = torch.empty_like(q)
+    lib = _lib()
+    acc, ml = _scratch(lib, groups * rows, hq, d, m, bs, q.device, extra=2)
+    err = lib.npt_paged_verify_fresh(
+        q.data_ptr(), cache.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+        group_tables.data_ptr(), context_lens.data_ptr(), ctx0.data_ptr(), out.data_ptr(),
+        acc.data_ptr(), ml.data_ptr(), groups, rows, m, hq, hkv, d, bs, k_off, v_off, float(scale),
+        int(split), int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "paged_verify_fresh_split" if split else "paged_verify_fresh")
     return out
 
 
 def _launch_fresh(split: bool, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,
                   scale, rows_per_group):
+    """K6a (K8b with ``split``) on either route: bf16 queries on the walk
+    (K6b's launch, or the cut walk), f32 on the chunk template."""
     name = "paged_verify_fresh_split" if split else "paged_verify_fresh"
-    r = _fresh_rows(rows_per_group, name)
-    groups = group_tables.shape[0]
-    hq, hkv, d, bs, m = _check_inputs(q, cache, group_tables, context_lens, groups, groups * r)
-    _check_fresh(q, ctx0, fresh_k, fresh_v, groups, hkv, d)
-    k_off, v_off = global_block_offsets(cache, layer_idx)
-    out = torch.empty_like(q)
-    lib = _lib()
-    acc, ml = _scratch(lib, groups * r, hq, d, m, bs, q.device, extra=2)
-    err = lib.npt_paged_verify_fresh(
-        q.data_ptr(), cache.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
-        group_tables.data_ptr(), context_lens.data_ptr(), ctx0.data_ptr(), out.data_ptr(),
-        acc.data_ptr(), ml.data_ptr(), groups, r, m, hq, hkv, d, bs, k_off, v_off, float(scale),
-        int(split), int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(lib, err, name)
-    return out
+    r = _fresh_rows(rows_per_group, name, cache.shape[-1] // q.shape[-1])
+    if q.dtype != torch.bfloat16:
+        return _fresh_f32(split, q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v, scale, r)
+    lib = paged_attention_partials._lib()
+    return paged_walk.launch(lib, lib.npt_cut_walk if split else lib.npt_fresh_walk, False, q, cache, layer_idx,
+                             group_tables, context_lens, scale, r, fresh=(ctx0, fresh_k, fresh_v),
+                             cut=ctx0 if split else None)
 
 
 def paged_verify_fresh(q, cache, layer_idx, group_tables, context_lens, ctx0, fresh_k, fresh_v,

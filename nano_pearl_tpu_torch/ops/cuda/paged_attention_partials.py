@@ -32,9 +32,11 @@ row of the same query, context and table bit for bit (K11d's K11b's),
 which keeps the layer-share pair's draft decode and target verify equal
 after the merge.
 
-The same library carries the bf16 route of the mono schedule's deferred
-verify, K7 (``npt_partials`` with every slot local) and K6b
-(``npt_fresh_walk``), launched by ``mono_attention.py``'s wrappers.
+The same library carries the bf16 route of the deferred verify's and the
+split-boundary schedule's kernels: K7 (``npt_partials`` with every slot
+local) and K6b (``npt_fresh_walk``), launched by ``mono_attention.py``'s
+wrappers; K6a (``npt_fresh_walk`` too), K8a and K8b (``npt_cut_walk``: the
+walk with a cut cell), launched by ``paged_attention.py``'s.
 
 Each wrapper takes the plain version for CPU tensors, launches the kernel
 for CUDA tensors (counting the launch in ``.launches``), and raises on
@@ -66,9 +68,11 @@ def _lib() -> ctypes.CDLL:
         lib.npt_partials.argtypes = [_P] * 10 + tail + [_P]
         lib.npt_partials_q8.argtypes = [_P] * 11 + tail + [_I, _P]
         lib.npt_fresh_walk.argtypes = [_P] * 10 + tail + [_P]
-        lib.npt_partials.restype = _I
-        lib.npt_partials_q8.restype = _I
-        lib.npt_fresh_walk.restype = _I
+        lib.npt_cut_walk.argtypes = [_P] * 11 + tail + [_P]
+        for fn in (lib.npt_partials, lib.npt_partials_q8, lib.npt_fresh_walk, lib.npt_cut_walk):
+            fn.restype = _I
+        lib.npt_walk_cells.argtypes = [_I] * 10
+        lib.npt_walk_cells.restype = _I
         lib.npt_walk_plan.argtypes = [_I] * 8
         lib.npt_walk_plan.restype = _LL
         lib._npt_typed = True

@@ -1,6 +1,6 @@
 """The launch plan of the page walk (``csrc/paged_walk.cuh``) behind K10a-d,
-K11a-d and the bf16 route of K1, K2, K7 and K6b, mirrored in Python; the
-launch their wrappers share (``paged_attention.py``,
+K11a-d and the bf16 route of K1, K2, K6a, K6b, K7, K8a and K8b, mirrored
+in Python; the launch their wrappers share (``paged_attention.py``,
 ``paged_attention_fallback.py``, ``paged_attention_partials.py``,
 ``mono_attention.py``); and the input checks of every paged-attention
 wrapper.
@@ -12,10 +12,14 @@ cores: 16 query vectors a warp, a group's rows over up to 8 warps a block,
 each table's key stream cut into cells of ``cell_keys(hkv)`` keys at fixed
 positions (``key_cells``), one block per (group, KV head, row slice, cell)
 and, where the table holds more than one cell, f32 partials that a
-combine kernel folds. K6b's launch adds one cell after the table's, the
-round's fresh keys read from their rows (``fresh``). f32 queries walk the
-table a page at a time on CUDA cores with no split (``rows_per_block``'s
-row slices).
+combine kernel folds. K6a's and K6b's launch adds one cell after the
+table's, the round's fresh keys read from their rows (``fresh_cells``);
+K8a's cuts the table cell that holds each row's boundary b1 in two
+(``key_cells``' cut), K8b's cuts the fresh window at the cell multiple
+inside it. ``launch_cells`` lists a launch's cells as the card's
+``WalkCells`` does (exported as ``npt_walk_cells``), ``row_cells`` those a
+row folds. f32 queries walk the table a page at a time on CUDA cores with
+no split (``rows_per_block``'s row slices).
 """
 
 from __future__ import annotations
@@ -177,33 +181,89 @@ def walk_plan(rows: int, g: int, hkv: int, d: int, bs: int, itemsize: int, q8: b
     return WalkPlan(0, 0, rpb, THREADS, 1, smem)
 
 
-def n_cells(n_keys: int, cell: int) -> int:
-    """How many cells the bf16 route cuts a table of ``n_keys`` keys into:
-    ``ceil(n_keys / cell)``, at least one (the launchers' ``n_cells``)."""
-    return max(1, -(-n_keys // cell))
+def n_cells(n_keys: int, cell: int, cut: bool = False, fresh: bool = False) -> int:
+    """How many cells the bf16 route launches for a table of ``n_keys`` keys
+    (``WalkCells::count``): ``ceil(n_keys / cell)``, at least one, one more
+    with a ``cut`` (K8a's cut cell; K8b's second fresh cell) and one more
+    with the ``fresh`` cells (K6a, K6b, K8b)."""
+    return max(1, -(-n_keys // cell)) + int(cut) + int(fresh)
 
 
-def key_cells(n_keys: int, cell: int) -> list[tuple[int, int]]:
-    """The key ranges [lo, hi) the bf16 route cuts a table of ``n_keys =
-    M * BS`` keys into: ``n_cells`` of them, cell c = [c * cell, min((c + 1)
-    * cell, n_keys)). A row of context ctx folds the cells that start below
-    min(ctx, n_keys), in this order."""
-    return [(c * cell, min((c + 1) * cell, n_keys)) for c in range(n_cells(n_keys, cell))]
+def key_cells(n_keys: int, cell: int, cut: int | None = None) -> list[tuple[int, int]]:
+    """The key ranges [lo, hi) the bf16 route cuts a table of ``n_keys = M *
+    BS`` keys into, in fold order: cell c = [c * cell, min((c + 1) * cell,
+    n_keys)). With ``cut`` (K8a's b1) one cell more: the cell that holds the
+    cut split there, its second half right after it; where the cut is no
+    position inside a cell (a cell multiple, <= 0 or >= n_keys) the cells
+    stay whole and the last one is empty (lo >= hi). A row of context ctx
+    folds the cells that start below min(ctx, n_keys), in this order."""
+    n = max(1, -(-n_keys // cell))
+    cells = [(c * cell, min((c + 1) * cell, n_keys)) for c in range(n)]
+    if cut is None:
+        return cells
+    if 0 < cut < n_keys and cut % cell:
+        kb = cut // cell
+        return cells[:kb] + [(kb * cell, cut), (cut, cells[kb][1])] + cells[kb + 1 :]
+    return cells + [(n * cell, n_keys)]
+
+
+def fresh_cells(ctx0: int, rows: int, cell: int, split: bool = False) -> list[tuple[int, int]]:
+    """The fresh cells of a deferred verify's group at pre-round context
+    ``ctx0`` with ``rows`` fresh rows (positions ctx0 .. ctx0 + rows - 1):
+    the window in one cell (K6a, K6b) or, with ``split`` (K8b, rows <=
+    cell), cut at the cell multiple cstar = (ctx0 // cell + 1) * cell into
+    [ctx0, cstar) and [cstar, ctx0 + rows) (empty where cstar >= ctx0 +
+    rows)."""
+    end = ctx0 + rows
+    if not split:
+        return [(ctx0, end)]
+    cstar = (ctx0 // cell + 1) * cell
+    return [(ctx0, min(cstar, end)), (cstar, end)]
+
+
+def launch_cells(n_keys: int, cell: int, cut: int | None = None, ctx0: int | None = None,
+                 rows: int = 0) -> list[tuple[int, int, bool]]:
+    """Every cell of one group's launch, (lo, hi, from the fresh rows), in
+    the launch's order (``WalkCells::bounds``): the table's cells (K8a's
+    ``cut`` included), and with ``ctx0`` (K6a, K6b; K8b with ``cut`` =
+    ctx0) each table cell ended at min(n_keys, ctx0), then the fresh
+    cells."""
+    if ctx0 is None:
+        return [(lo, hi, False) for lo, hi in key_cells(n_keys, cell, cut)]
+    if cut not in (None, ctx0):
+        raise ValueError(f"the fresh cells are cut at their pre-round context {ctx0} alone, not {cut}")
+    cached = min(n_keys, ctx0)
+    table = [(lo, min(hi, cached), False) for lo, hi in key_cells(n_keys, cell)]
+    return table + [(lo, hi, True) for lo, hi in fresh_cells(ctx0, rows, cell, cut is not None)]
+
+
+def row_cells(n_keys: int, cell: int, ctx: int, cut: int | None = None, ctx0: int | None = None,
+              rows: int = 0) -> list[int]:
+    """The cells of ``launch_cells`` whose partials the combine folds for a
+    row of context ``ctx`` (before it drops those with l = 0), in order: the
+    cells the row sees a key of, a table cell's below min(ctx, n_keys,
+    ctx0) and a fresh cell's below ctx. The walk writes a row's partial in
+    just these cells."""
+    lim = min(ctx, n_keys) if ctx0 is None else min(ctx, n_keys, ctx0)
+    return [i for i, (lo, hi, fresh) in enumerate(launch_cells(n_keys, cell, cut, ctx0, rows))
+            if lo < min(hi, ctx if fresh else lim)]
 
 
 def launch(lib, fn, quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int,
-           before: tuple = (), after: tuple = (), fresh: tuple | None = None):
+           before: tuple = (), after: tuple = (), fresh: tuple | None = None, cut=None):
     """Validate and launch ``fn`` (``npt_fallback`` / ``npt_partials`` or
-    their ``_q8`` twins, ``npt_fresh_walk``) on ``tables.shape[0]`` groups
-    of ``rows`` rows: ``fn(q, cache[, scales], tables, contexts, *before,
-    out, *after, part_acc, part_ml, groups, rows, m, hq, hkv, d, bs, k_off,
-    v_off, scale, is_bf16[, is_fp8], stream)``, where ``before`` / ``after``
-    are the extra device tensors of the partials kernels (is_local, None
-    for K7's every slot local; m, l). ``fresh`` (K6b): (ctx0, fresh K,
-    fresh V), passed as ``before``; their fresh cell adds one to the
-    table's cells. Allocates the output and, where the bf16 route has
-    several cells, the partials scratch; raises on a launch error. Returns
-    the output."""
+    their ``_q8`` twins, ``npt_fresh_walk``, ``npt_cut_walk``) on
+    ``tables.shape[0]`` groups of ``rows`` rows: ``fn(q, cache[, scales],
+    tables, contexts, *before, out, *after, part_acc, part_ml, groups, rows,
+    m, hq, hkv, d, bs, k_off, v_off, scale, is_bf16[, is_fp8], stream)``,
+    where ``before`` / ``after`` are the extra device tensors of the partials
+    kernels (is_local, None for K7's every slot local; m, l). ``fresh`` (K6a,
+    K6b): (ctx0, fresh K, fresh V), passed as ``before``; their fresh cell
+    adds one to the table's cells. ``cut`` (bf16 alone: K8a's b1 [groups],
+    or K8b's ctx0 with ``fresh``, rows <= ``cell_keys(hkv)``): passed with
+    the fresh operands (None without them) as ``before``; it adds one cell
+    more. Allocates the output and, where the bf16 route has several cells,
+    the partials scratch; raises on a launch error. Returns the output."""
     if rows < 1:
         raise ValueError(f"rows_per_group must be >= 1, got {rows}")
     groups = tables.shape[0]
@@ -215,9 +275,19 @@ def launch(lib, fn, quant: bool, q, cache, layer_idx, tables, context_lens, scal
         if q.element_size() != 2 or fresh[1].data_ptr() % 16 or fresh[2].data_ptr() % 16:
             raise ValueError("the fresh cell takes bf16 queries and fresh rows at 16-byte boundaries")
         before = fresh
+    if cut is not None:
+        if (cut.device != q.device or cut.dtype != torch.int32 or cut.shape != (groups,)
+                or not cut.is_contiguous()):
+            raise ValueError(f"the cut must be contiguous int32 [{groups}] on q's device")
+        if q.element_size() != 2:
+            raise ValueError("the cut cell takes bf16 queries")
+        if fresh is not None and (cut is not fresh[0] or rows > cell_keys(hkv)):
+            raise ValueError(f"the fresh window is cut at ctx0 alone, with at most {cell_keys(hkv)} rows a group")
+        before = (cut, *(fresh if fresh is not None else (None, None, None)))
     k_off, v_off = global_block_offsets(cache, layer_idx)
     out = torch.empty_like(q)
-    cells = n_cells(m * bs, cell_keys(hkv)) + (fresh is not None) if q.element_size() == 2 else 1  # bf16 only
+    # the bf16 route's cells (the f32 route has none)
+    cells = n_cells(m * bs, cell_keys(hkv), cut is not None, fresh is not None) if q.element_size() == 2 else 1
     scratch = part_acc = part_ml = None
     if cells > 1:  # (acc [.., d], then (m, l) [.., 2]) of every row, head and cell in one scratch
         slots = groups * rows * hq * cells

@@ -17,7 +17,12 @@ rows-per-block choice, checked on the CPU too); K7 and K6b with bf16
 queries on the tensor-core page walk (edge cases, contexts 1-64 and
 65-2300), with f32 queries on the mono template; K1 and K2 with bf16
 queries on the same walk (contexts 1-64 too), with f32 queries on the
-chunk template, and which kernels each route launches.
+chunk template; K6a, K8a and K8b with bf16 queries on the walk (K8a's and
+K8b's with its cut cell: K8b rows equal K8a's and K6a rows K6b's bit for
+bit, windows across 128- and 256-key multiples, as many rows as a cell,
+Hkv 2-4, D 64-256; the cells the launchers read against the mirror's),
+with f32 queries on the chunk template's cells; and which kernels each
+route launches.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -1191,3 +1196,119 @@ def test_paged_verify_at_short_contexts(cuda, rows, heads):
     single = kpa.paged_decode(q, cache, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, scale)
     assert torch.equal(got, single)
     assert torch.equal(kpa.paged_verify(q, cache, layer, bt, ctx, scale, rows), got)
+
+
+# ---- K6a, K8a and K8b with bf16 queries: the walk with a cut cell ----
+
+# pre-round contexts of a verify's groups: (a) no cache, a window inside a
+# cell, windows across a 128-key multiple alone (120, 380) and across a
+# 256-key one (250), ctx0 on a multiple of 256 and of 128 alone, a
+# pre-verify group, a window deep in the table; (b) contexts 1-64
+SPLIT_WALK_CTX0 = {
+    "edges": ((0, 100, 120, 250, 256, 380, 384, 1000), (2,)),
+    "short": (tuple(range(0, 50, 7)), (3,)),
+}
+
+
+def _split_walk_case(seed, rows, ctx0s, pre, hkv, g, d, bs=32):
+    """fresh_case at these heads, with a table wide enough for each group's
+    window."""
+    return fresh_case(seed, torch.bfloat16, "cuda", rows=rows, ctx0s=ctx0s, pre=pre,
+                      nb=-(-sum(c + rows for c in ctx0s) // bs) + 2 * len(ctx0s), bs=bs, hq=g * hkv, hkv=hkv,
+                      d=d, m=-(-(max(ctx0s) + rows) // bs))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("hkv,g", [(2, 4), (3, 3), (4, 2)])
+def test_walk_k6a_k8a_k8b_match_plain_and_k8b_equals_k8a(cuda, hkv, g, d):
+    """bf16 K6a, K8b and K8a on the tensor-core walk at Hkv 2/3/4 (128- and
+    256-key cells), D 64/128/256, 14 rows a group and as many as a cell,
+    over each set of SPLIT_WALK_CTX0: against their plain versions at TOL,
+    a second launch bit for bit, K6a rows equal to K6b's (one launch) and
+    K8b rows equal to the K8a rows of the same query and context at b1 =
+    ctx0 (K8a reading the fresh rows from the draft's cache), bit for
+    bit, windows across a 128-key multiple included."""
+    bf16, cell = TOL[torch.bfloat16], kpw.cell_keys(hkv)
+    # a window of a whole cell: from no cache, across a 128-key multiple and a 256-key one
+    cases = [(14, *ctx) for ctx in SPLIT_WALK_CTX0.items()] + [(cell, "cell_rows", ((0, 120, 250), (1,)))]
+    for rows, name, (ctx0s, pre) in cases:
+        args, drafted, scale = _split_walk_case(140 + hkv + g + d + rows, rows, ctx0s, pre, hkv, g, d)
+        q, _, layer, bt, ctx, ctx0 = args[:6]
+        want = kpa.plain_fresh(*args, scale)
+        outs = {}
+        for kernel in ("K6a", "K8b"):
+            fn = FRESH_KERNELS[kernel]
+            n0 = fn.launches
+            outs[kernel] = fn(*args, scale, rows)
+            assert fn.launches == n0 + 1
+            torch.testing.assert_close(outs[kernel].float(), want.float(), **bf16)
+            assert torch.equal(fn(*args, scale, rows), outs[kernel]), (kernel, name, rows)
+        assert torch.equal(outs["K6a"], kmo.mono_fresh(*args, scale, rows)), (name, rows)
+        b1 = ctx0.repeat_interleave(rows)
+        dec = (q, drafted, layer, bt.repeat_interleave(rows, 0).contiguous(), ctx, b1, scale)
+        n0 = kpa.paged_decode_split.launches
+        decode = kpa.paged_decode_split(*dec)
+        assert kpa.paged_decode_split.launches == n0 + 1
+        torch.testing.assert_close(decode.float(), kpa.plain_decode(*dec[:5], scale).float(), **bf16)
+        assert torch.equal(kpa.paged_decode_split(*dec), decode), (name, rows)
+        real = ctx > b1
+        assert torch.equal(outs["K8b"][real], decode[real]), (name, rows)
+
+
+@pytest.mark.parametrize("hkv", [2, 4])
+def test_walk_k8a_cuts_match_plain(cuda, hkv):
+    """bf16 K8a with b1 inside a cell, on a 128-key multiple and a 256-key
+    one, at 0, at and past the context, on contexts up to 1,280 keys,
+    against K1's plain version; a second launch bit for bit."""
+    q, cache, layer, bt, ctx, scale = paged_case(146 + hkv, 8, 1, torch.bfloat16, cuda, hq=4 * hkv, hkv=hkv, m=40)
+    b1 = torch.stack([ctx // 3, ctx - ctx % 128, ctx - ctx % 256, torch.zeros_like(ctx), ctx, ctx + 9, ctx - 1,
+                      ctx - 14]).diagonal().to(torch.int32).contiguous()
+    got = kpa.paged_decode_split(q, cache, layer, bt, ctx, b1, scale)
+    torch.testing.assert_close(got.float(), kpa.plain_decode(q, cache, layer, bt, ctx, scale).float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(kpa.paged_decode_split(q, cache, layer, bt, ctx, b1, scale), got)
+
+
+def test_k6a_k8a_k8b_route_by_query_type(cuda):
+    """bf16 K6a, K8a and K8b launch the walk (walk_mma_kernel and its
+    combine) and count their own launches; f32 ones launch the chunk
+    template's cells (cell_partial_kernel and cell_combine_kernel)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args, drafted, scale = fresh_case(147, dtype, cuda)
+        q, _, layer, bt, ctx, ctx0 = args[:6]
+        dec = (q, drafted, layer, bt.repeat_interleave(14, 0).contiguous(), ctx, ctx0.repeat_interleave(14), scale)
+        for fn, run in ((kpa.paged_verify_fresh, lambda: kpa.paged_verify_fresh(*args, scale, 14)),
+                        (kpa.paged_verify_fresh_split, lambda: kpa.paged_verify_fresh_split(*args, scale, 14)),
+                        (kpa.paged_decode_split, lambda: kpa.paged_decode_split(*dec))):
+            n0, k6b = fn.launches, kmo.mono_fresh.launches
+            names = _kernel_names(run)
+            assert fn.launches - n0 >= 2 and kmo.mono_fresh.launches == k6b, fn.__name__
+            if dtype == torch.bfloat16:
+                assert names == {"walk_mma_kernel", "walk_combine_kernel"}, names
+            else:
+                assert names == {"cell_partial_kernel", "cell_combine_kernel"}, names
+
+
+def test_walk_cells_mirror_matches_the_launchers(cuda):
+    """The cells of a launch as the walk and its combine read them
+    (``WalkCells``, exported as ``npt_walk_cells``) equal the mirror's
+    ``launch_cells`` and ``row_cells``: tables with and without K8a's cut,
+    K6a's fresh cell and K8b's cut window, at cells of 128 and 256 keys."""
+    lib = kpp._lib()
+    for cell in (128, 256):
+        for keys in (64, cell, cell + 1, 4 * cell - 3):
+            specs = [(0, 0, 0, 0, 0)] + [(1, b1, 0, 0, 0) for b1 in (-1, 0, 1, cell - 1, cell, cell + 7, keys - 1,
+                                                                       keys, keys + 3)]
+            specs += [(split, c0 if split else 0, 1, c0, rows) for c0 in (0, 1, cell - 3, cell, cell + 5)
+                      for rows in (1, 14, cell) for split in (0, 1) if c0 + rows <= keys]
+            for has_cut, cut, has_fresh, c0, rows in specs:
+                want = kpw.launch_cells(keys, cell, cut if has_cut else None, c0 if has_fresh else None, rows)
+                got = [tuple(lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, 0, i, w)
+                             for w in range(3)) for i in range(len(want))]
+                assert lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, 0, 0, 3) == len(want)
+                assert got == [(lo, hi, int(f)) for lo, hi, f in want], (keys, cell, has_cut, cut, c0, rows)
+                for ctx in (0, 1, cell - 1, cell + 2, c0, c0 + 1, c0 + rows, keys, keys + 5):
+                    folded = kpw.row_cells(keys, cell, ctx, cut if has_cut else None, c0 if has_fresh else None, rows)
+                    n = lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, ctx, 0, 4)
+                    assert [lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, ctx, j, 5)
+                            for j in range(n)] == folded, (keys, cell, has_cut, cut, c0, rows, ctx)

@@ -1,5 +1,5 @@
-"""The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K7 and
-K6b (csrc/paged_walk.cuh) on the CPU.
+"""The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K6a,
+K6b, K7, K8a and K8b (csrc/paged_walk.cuh) on the CPU.
 
 - The launch plan's mirror (``walk_plan`` and ``key_cells`` in
   nano_pearl_tpu_torch/ops/cuda/paged_walk.py; the card holds it against
@@ -28,8 +28,16 @@ K6b (csrc/paged_walk.cuh) on the CPU.
   ``paged_attention_grouped_fresh_jnp``; K6b (the cache cells below each
   group's pre-round context, then one cell of the fresh keys) against the
   same, at 1e-5.
-- Which launch K1's and K2's wrappers reach: the walk's for bf16 queries,
-  the chunk template's for f32 ones, each counting its own launches.
+- The split-boundary schedule's K8a and K8b and the db schedule's K6a on
+  the walk: the cells with a cut (``key_cells``' cut, ``launch_cells``,
+  ``row_cells``) cover each row's keys once, in order, and a K8b row folds
+  the cells of its K8a row; emulated (``exact_rows``), K8b rows equal K8a
+  rows bit for bit, K8a matches JAX's ``paged_attention_split`` and K6a
+  and K8b ``paged_attention_grouped_fresh_jnp`` at 1e-5; a deferred verify
+  takes at most ``cell_keys(hkv)`` rows a group.
+- Which launch K1's, K2's, K6a's, K8a's and K8b's wrappers reach: the
+  walk's for bf16 queries, the chunk template's for f32 ones, each
+  counting its own launches.
 - Why the kernels multiply P V as hi + lo bf16 parts where the Pallas
   kernels round P once: at K10b's and K11d's chip_smoke rows (contexts
   65-2300) one bf16 P meets chip_smoke.py's bf16 tolerance against the
@@ -53,8 +61,11 @@ from nano_pearl_tpu_torch.ops.cuda.paged_walk import (
     MAX_SMEM,
     THREADS,
     cell_keys,
+    fresh_cells,
     key_cells,
+    launch_cells,
     n_cells,
+    row_cells,
     rows_per_block,
     walk_plan,
 )
@@ -171,7 +182,25 @@ def test_cells_cover_the_key_stream_once_in_order(n_keys, cell):
 # ---------------------------------------------------------------- the emulation
 
 
-def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact_rows=False, fresh=None):
+def in_order_sum(x):
+    """The sum over the last axis, added in index order one element at a time:
+    each value's bits depend on its own terms alone, whatever the shape of
+    ``x`` (torch's reductions pick their order by the shape)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def exp(x, base=None):
+    """e^x (2^x with ``base`` 2) of f32 ``x``, taken in f64 and rounded to f32:
+    torch's f32 exp takes a vector path or a scalar one by an element's place
+    in the tensor, whose last bits differ; rounded from f64, a value's bits
+    depend on it alone."""
+    return (torch.exp2 if base == 2 else torch.exp)(x.double()).float()
+
+
+def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact_rows=False, fresh=None, cut=None):
     """The bf16 route's arithmetic: q [B*R, Hq, D] (bf16 values), k, v [B, S,
     Hkv, D] (bf16 values) of each group's table of S = M * BS keys, ctx
     [B*R] (taken within S), ``local`` [B, S] (K11: the shard's keys) or
@@ -180,15 +209,26 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
     at -inf (p = 0), P V with P as ``p_parts`` bf16 parts (1: bf16(p); 2:
     hi + lo); each cell's (acc, m, l) with m in natural-log units (-1e29
     where l = 0); one cell written directly, several folded in order over
-    the row's cells below its context with l > 0. ``exact_rows`` takes
-    every sum as its own reduction over the last axis, so a row's bits
-    cannot depend on the others. ``fresh`` (K6b): (fk, fv [B, R, Hkv, D],
-    ctx0 [B]); the cache cells then end at each group's ctx0 (a row sees
+    the row's cells below its context with l > 0 (``exp`` in f64, rounded to
+    f32). ``exact_rows`` takes every sum of products in index order
+    (``in_order_sum``), so a row's bits depend on its own terms alone. ``fresh`` (K6a, K6b): (fk, fv [B, R, Hkv,
+    D], ctx0 [B]); the cache cells then end at each group's ctx0 (a row sees
     min(ctx, ctx0) of them) and one more cell holds the R fresh keys at
     positions ctx0 + t, seen where below the row's context, folded after
-    the row's cache cells. Returns (o f32 unrounded, m, l) [B*R, Hq (, D)]."""
+    the row's cache cells. ``cut`` [B]: each group's own cells
+    (``key_cells`` / ``fresh_cells``): K8a's b1 cuts the table cell that
+    holds it; with ``fresh`` (K8b) it is ctx0, and the fresh window is cut
+    at the cell multiple inside it. Returns (o f32 unrounded, m, l) [B*R,
+    Hq (, D)]."""
     n, hq, d = q.shape
     b, s, hkv, _ = k.shape
+    if cut is not None and b > 1:  # each group's own cells, one group at a time
+        one = lambda t, i: t[i * rows : (i + 1) * rows]  # noqa: E731
+        outs = [walk_emulation(one(q, i), k[i : i + 1], v[i : i + 1], one(ctx, i), rows, scale, cell,
+                               None if local is None else local[i : i + 1], p_parts, exact_rows,
+                               None if fresh is None else tuple(t[i : i + 1] for t in fresh), cut[i : i + 1])
+                for i in range(b)]
+        return tuple(torch.cat(t) for t in zip(*outs))
     g = hq // hkv
     ctx = ctx.reshape(b, rows)
     lim = ctx.clamp(max=s)  # the keys of the table a row sees
@@ -202,26 +242,30 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
 
     def fold_cell(kc, vc, vis_c):
         """(acc, m (natural log; -1e29 where l = 0), l) of one cell's keys kc, vc
-        [B, n, Hkv, D] seen as vis_c [B, R, n], in 64-key tiles from its first."""
+        [B, n, Hkv, D] seen as vis_c [B, R, n], in 64-key tiles from its first
+        (a short last tile filled with keys no row sees, as the kernel's)."""
         m = torch.full((b, rows, hkv, g), M_FLOOR)
         l = torch.zeros((b, rows, hkv, g))  # noqa: E741
         acc = torch.zeros((b, rows, hkv, g, d))
         for t0 in range(0, kc.shape[1], KEYS):
             kt, vt = kc[:, t0 : t0 + KEYS].float(), vc[:, t0 : t0 + KEYS].float()
+            pad = KEYS - kt.shape[1]
+            kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (kt, vt))
+            seen = torch.nn.functional.pad(vis_c[:, :, t0 : t0 + KEYS], (0, pad))
             if exact_rows:
-                sc = (qf[:, :, :, :, None, :] * kt.permute(0, 2, 1, 3)[:, None, :, None]).sum(-1)
+                sc = in_order_sum(qf[:, :, :, :, None, :] * kt.permute(0, 2, 1, 3)[:, None, :, None])
             else:
                 sc = torch.einsum("brkgd,btkd->brkgt", qf, kt)
-            sc = torch.where(vis_c[:, :, None, None, t0 : t0 + kt.shape[1]], sc, torch.tensor(float("-inf")))
+            sc = torch.where(seen[:, :, None, None], sc, torch.tensor(float("-inf")))
             mn = torch.maximum(m, sc.amax(-1) * sl2)
-            p = torch.exp2(sc * sl2 - mn[..., None])
-            alpha = torch.exp2(m - mn)
+            p = exp(sc * sl2 - mn[..., None], 2)
+            alpha = exp(m - mn, 2)
             l = l * alpha + p.sum(-1)  # noqa: E741
             hi_p = p.bfloat16().float()
             pv = 0
             for pp in [hi_p] + ([(p - hi_p).bfloat16().float()] if p_parts == 2 else []):
                 if exact_rows:
-                    pv = pv + (pp[..., None, :] * vt.permute(0, 2, 3, 1)[:, None, :, None]).sum(-1)
+                    pv = pv + in_order_sum(pp[..., None, :] * vt.permute(0, 2, 3, 1)[:, None, :, None])
                 else:
                     pv = pv + torch.einsum("brkgt,btkd->brkgd", pp, vt)
             acc = acc * alpha[..., None] + pv
@@ -229,16 +273,25 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
         return acc, torch.where(l > 0, m * LN2, torch.tensor(M_FLOOR)), l
 
     parts, uses = [], []
-    for lo, hi in key_cells(s, cell):
+    table_cut = None if cut is None or fresh is not None else int(cut[0])
+    for lo, hi in key_cells(s, cell, table_cut):
+        if lo >= hi:  # K8a's cell where b1 cuts none: no row sees a key of it
+            continue
         acc, mc, lc = fold_cell(k[:, lo:hi], v[:, lo:hi], vis[:, :, lo:hi])
         parts.append((acc, mc, lc))
         uses.append((lo < lim)[:, :, None, None] & (lc > 0))
     if fresh is not None:
         fk, fv, ctx0 = fresh
         pos = ctx0[:, None] + torch.arange(rows)[None, :]  # [B, R] the fresh keys' positions
-        acc, mc, lc = fold_cell(fk, fv, pos[:, None, :] < ctx[:, :, None])
-        parts.append((acc, mc, lc))
-        uses.append(lc > 0)
+        # the fresh rows of each fresh cell: all R, or (K8b) cut at the cell multiple
+        spans = [(0, rows)] if cut is None else [
+            (lo - int(ctx0[0]), hi - int(ctx0[0])) for lo, hi in fresh_cells(int(ctx0[0]), rows, cell, True)]
+        for t0, t1 in spans:
+            if t0 >= t1:
+                continue
+            acc, mc, lc = fold_cell(fk[:, t0:t1], fv[:, t0:t1], pos[:, None, t0:t1] < ctx[:, :, None])
+            parts.append((acc, mc, lc))
+            uses.append(lc > 0)
     if len(parts) == 1:
         at, mg, lt = parts[0]
     else:
@@ -247,7 +300,7 @@ def walk_emulation(q, k, v, ctx, rows, scale, cell, local=None, p_parts=2, exact
             mg = torch.where(use, torch.maximum(mg, mc), mg)
         lt, at = torch.zeros_like(mg), torch.zeros((b, rows, hkv, g, d))
         for use, (acc, mc, lc) in zip(uses, parts):
-            w = torch.exp(mc - mg)
+            w = exp(mc - mg)
             lt = torch.where(use, lc * w + lt, lt)
             at = torch.where(use[..., None], acc * w[..., None] + at, at)
     o = at / torch.clamp(lt, min=1e-30)[..., None]
@@ -561,3 +614,207 @@ def test_emulated_k7_and_k6b_match_jax_deferred_verify(hkv, g, d):
     np.testing.assert_allclose(o6b.numpy(), np.asarray(jfresh), rtol=1e-5, atol=1e-5)
     plain = tatt.paged_attention_grouped_fresh_ref(q, cache, 1, bt, ctx, ctx0, fk, fv, scale)
     np.testing.assert_allclose(plain.numpy(), np.asarray(jfresh), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------- K6a, K8a and K8b on the walk (bf16): the cut
+
+
+@pytest.mark.parametrize("cell", [128, 256])
+def test_cut_cells_cover_the_key_stream_once_in_order(cell):
+    """The cells of a launch with a cut (``key_cells``' cut, ``launch_cells``,
+    ``row_cells``; the card's ``WalkCells``): K8a's table holds one cell more
+    (``n_cells``), the cell that holds b1 split there when b1 lies inside
+    one (else the last cell empty), together every key once, in order; K6a's
+    and K8b's launches end the cache cells at ctx0 and add their fresh
+    cell(s). For every row the cells the combine folds (``row_cells``) are
+    those it sees a key of, and they cover its keys, cache then fresh, once
+    and in order."""
+    for n_keys in (64, cell - 1, cell, cell + 1, 3 * cell + 17, 4 * cell):
+        for b1 in (-1, 0, 1, cell // 2, cell, cell + 3, 2 * cell - 1, n_keys - 1, n_keys, n_keys + 9):
+            cells = key_cells(n_keys, cell, b1)
+            assert len(cells) == n_cells(n_keys, cell, cut=True) == len(key_cells(n_keys, cell)) + 1
+            assert [t for lo, hi in cells for t in range(lo, hi)] == list(range(n_keys))
+            inside = 0 < b1 < n_keys and b1 % cell
+            assert (b1 in [lo for lo, _ in cells]) == bool(inside) or b1 % cell == 0
+            assert inside or cells[-1][0] >= cells[-1][1]
+            for ctx in (1, b1, b1 + 1, n_keys, n_keys + 4):
+                folded = row_cells(n_keys, cell, ctx, cut=b1)
+                keys = [t for i in folded for t in range(cells[i][0], min(cells[i][1], ctx))]
+                assert keys == list(range(min(ctx, n_keys))) and folded == list(range(len(folded)))
+        for ctx0 in (0, 1, cell - 3, cell, cell + 5, 2 * cell - 1):
+            for rows, split in ((1, False), (14, False), (14, True), (cell, True), (cell, False)):
+                if ctx0 + rows > n_keys:
+                    continue
+                cut = ctx0 if split else None
+                launch = launch_cells(n_keys, cell, cut, ctx0, rows)
+                assert len(launch) == n_cells(n_keys, cell, cut=split, fresh=True)
+                assert [t for lo, hi, fresh in launch if fresh for t in range(lo, hi)] == list(
+                    range(ctx0, ctx0 + rows))
+                assert sum(fresh for *_, fresh in launch) == 1 + split
+                for ctx in (1, ctx0, ctx0 + 1, ctx0 + rows // 2 + 1, ctx0 + rows):
+                    folded = row_cells(n_keys, cell, ctx, cut, ctx0, rows)
+                    keys = [t for i in folded for t in range(launch[i][0], min(launch[i][1], ctx))]
+                    assert keys == list(range(min(ctx, ctx0))) + list(range(ctx0, max(ctx, ctx0)))
+                    assert all(launch[i][0] < min(launch[i][1], ctx) for i in folded)
+
+
+@pytest.mark.parametrize("cell", [128, 256])
+def test_k8b_rows_fold_the_cells_of_k8a_rows(cell):
+    """What K8b == K8a rests on: at b1 = ctx0 and R <= cell, a K8b row of
+    context ctx0 < ctx <= ctx0 + R folds the cells of the K8a row of the
+    same context (``row_cells``), with the same tile starts (each cell's
+    first key) and the same keys, in the same order: ctx0 inside a cell, on a
+    cell multiple, 0, and windows that cross a multiple of 128 or 256."""
+    n_keys = 4 * cell
+    for ctx0 in (0, 1, 50, 125, 128, 250, cell - 1, cell, cell + 100, 2 * cell - 5):
+        for rows in (1, 6, 14, cell):
+            if ctx0 + rows > n_keys:
+                continue
+            verify = launch_cells(n_keys, cell, ctx0, ctx0, rows)
+            decode = key_cells(n_keys, cell, ctx0)
+            for ctx in range(ctx0 + 1, ctx0 + rows + 1):
+                v = [(verify[i][0], min(verify[i][1], ctx)) for i in row_cells(n_keys, cell, ctx, ctx0, ctx0, rows)]
+                d = [(decode[i][0], min(decode[i][1], ctx)) for i in row_cells(n_keys, cell, ctx, ctx0)]
+                assert v == d, (ctx0, rows, ctx)
+
+
+# (pre-round context ctx0, real rows of the window) per group: no cache,
+# contexts 1-64, a window inside a cell, across a 128-key and a 256-key
+# multiple, ctx0 on a multiple of 256 and of 128 alone, one real row
+SPLIT_GROUPS = ((0, 6), (1, 6), (57, 6), (100, 6), (125, 6), (253, 6), (256, 6), (384, 6), (300, 1))
+SPLIT_M = 25  # 400 keys a table: 4 cells of 128 or 2 of 256, the last one short
+
+
+def _split_case(hkv, g, d):
+    """The deferred verify's operands at bf16 values in f32 (``_mono_case``'s
+    layout, one group per SPLIT_GROUPS entry) and the draft's copy of the
+    cache with each group's fresh rows written at their slots, which K8a
+    reads."""
+    rng = np.random.default_rng(200 + hkv * 10 + g + d)
+    groups, r = len(SPLIT_GROUPS), MONO_ROWS
+    nb = groups * SPLIT_M + 3
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float()  # noqa: E731
+    cache = bf(2, 2, nb + 1, MONO_BS, hkv * d)
+    q = bf(groups * r, g * hkv, d)
+    fk, fv = bf(groups * r, hkv, d), bf(groups * r, hkv, d)
+    bt = torch.from_numpy(rng.permutation(nb)[: groups * SPLIT_M].reshape(groups, SPLIT_M).astype(np.int32))
+    ctx = torch.tensor([c + 1 + i if i < real else 1 for c, real in SPLIT_GROUPS for i in range(r)], dtype=torch.int32)
+    ctx0 = torch.tensor([c for c, _ in SPLIT_GROUPS], dtype=torch.int32)
+    drafted = cache.clone()
+    for i, (c, _) in enumerate(SPLIT_GROUPS):
+        for t in range(r):
+            page, off = int(bt[i, (c + t) // MONO_BS]), (c + t) % MONO_BS
+            drafted[1, 0, page, off] = fk[i * r + t].reshape(-1)
+            drafted[1, 1, page, off] = fv[i * r + t].reshape(-1)
+    return q, cache, drafted, bt, ctx, ctx0, fk, fv, d**-0.5
+
+
+@pytest.mark.parametrize("hkv,g,d", [(2, 3, 64), (4, 2, 64)])
+def test_emulated_k8b_rows_equal_k8a_rows_and_match_jax(hkv, g, d):
+    """K8a (each decode row's table cell that holds b1 = ctx0 cut there, over
+    the draft's cache with the fresh rows written), K8b (the fresh window cut
+    at the cell multiple inside it) and K6a (K6b's launch: one fresh cell)
+    emulated with ``exact_rows`` at Hkv 2 and 4 (128- and 256-key cells)
+    over SPLIT_GROUPS: every K8b row that sees a fresh key equals its K8a row
+    bit for bit; K8a matches JAX's ``paged_attention_split`` on its jnp
+    path, K8b and K6a JAX's ``paged_attention_grouped_fresh_jnp``, at the
+    f32 tolerance of the tests above, 1e-5."""
+    q, cache, drafted, bt, ctx, ctx0, fk, fv, scale = _split_case(hkv, g, d)
+    r, cell, groups = MONO_ROWS, cell_keys(hkv), len(SPLIT_GROUPS)
+    assert any(c // 128 != (c + n) // 128 and (c + n) // 256 == c // 256 for c, n in SPLIT_GROUPS)
+    b1 = ctx0.repeat_interleave(r)
+    bt_rows = bt.repeat_interleave(r, 0)
+    kd, vd = tatt._gather_kv(drafted, 1, bt_rows, d, torch.float32)
+    k8a = walk_emulation(q, kd, vd, ctx, 1, scale, cell, exact_rows=True, cut=b1)[0]
+    k, v = tatt._gather_kv(cache, 1, bt, d, torch.float32)
+    fresh = (fk.reshape(groups, r, hkv, d), fv.reshape(groups, r, hkv, d), ctx0)
+    k8b = walk_emulation(q, k, v, ctx, r, scale, cell, exact_rows=True, fresh=fresh, cut=ctx0)[0]
+    k6a = walk_emulation(q, k, v, ctx, r, scale, cell, exact_rows=True, fresh=fresh)[0]
+    real = ctx > b1
+    assert torch.equal(k8b[real], k8a[real])
+
+    import jax
+
+    j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    split = jax.jit(lambda *a: jatt.paged_attention_split(a[0], a[1], jnp.int32(1), *a[2:], scale, use_pallas=False))
+    want_a = split(j(q), j(drafted), j(bt_rows), j(ctx), j(b1))
+    np.testing.assert_allclose(k8a.numpy(), np.asarray(want_a), rtol=1e-5, atol=1e-5)
+    fresh_jnp = jax.jit(lambda *a: jatt.paged_attention_grouped_fresh_jnp(a[0], a[1], jnp.int32(1), *a[2:], scale))
+    want_b = fresh_jnp(j(q), j(cache), j(bt), j(ctx), j(ctx0), j(fk), j(fv))
+    for got in (k8b, k6a):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_b), rtol=1e-5, atol=1e-5)
+
+
+def test_k6a_k8a_k8b_route_by_query_type(monkeypatch):
+    """The wrappers of K6a, K8a and K8b on tensors that are not on the CPU
+    (the meta device, the launches replaced by recorders): bf16 queries
+    reach the walk's launch (``paged_walk.launch``), K6a with K6b's export
+    ``npt_fresh_walk`` and the fresh rows, K8a with ``npt_cut_walk`` and
+    its b1 as the cut, K8b with ``npt_cut_walk``, the fresh rows and ctx0
+    as the cut; f32 queries reach the chunk template's routes; each call
+    counts one launch of its own kernel and none of K6b's."""
+    from types import SimpleNamespace
+
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_partials as kpp
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk
+
+    calls = []
+    fake = SimpleNamespace(npt_fresh_walk="npt_fresh_walk", npt_cut_walk="npt_cut_walk")
+    monkeypatch.setattr(kpp, "_lib", lambda: fake)
+
+    def walk(lib, fn, quant, q, cache, layer, tables, ctx, scale, rows, fresh=None, cut=None, **kw):
+        calls.append(("walk", lib is fake, fn, quant, rows, fresh is not None and fresh[0] is c0,
+                      None if cut is None else "b1" if cut is b1 else "ctx0" if cut is c0 else "other"))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(paged_walk, "launch", walk)
+    monkeypatch.setattr(kpa, "_decode_split_f32", lambda *a: calls.append(("chunk", "split")) or torch.empty_like(a[0]))
+    monkeypatch.setattr(kpa, "_fresh_f32",
+                        lambda split, *a: calls.append(("chunk", "fresh", split, a[-1])) or torch.empty_like(a[0]))
+    counters = (kpa.paged_decode_split, kpa.paged_verify_fresh, kpa.paged_verify_fresh_split, kmo.mono_fresh)
+    for dtype in (torch.bfloat16, torch.float32):
+        meta = dict(dtype=dtype, device="meta")
+        i32 = dict(dtype=torch.int32, device="meta")
+        q, cache = torch.empty((6, 8, 128), **meta), torch.empty((2, 2, 9, 256, 256), **meta)
+        fk, fv = torch.empty((6, 2, 128), **meta), torch.empty((6, 2, 128), **meta)
+        bt, c0 = torch.empty((6, 4), **i32), torch.empty(2, **i32)
+        ctx, b1 = torch.empty(6, **i32), torch.empty(6, **i32)
+        before = [fn.launches for fn in counters]
+        assert kpa.paged_decode_split(q, cache, 1, bt, ctx, b1, 0.1).shape == q.shape
+        assert kpa.paged_verify_fresh(q, cache, 1, bt[:2], ctx, c0, fk, fv, 0.1, 3).shape == q.shape
+        assert kpa.paged_verify_fresh_split(q, cache, 1, bt[:2], ctx, c0, fk, fv, 0.1, 3).shape == q.shape
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 1, 0]
+        if dtype == torch.bfloat16:
+            assert calls[-3:] == [("walk", True, "npt_cut_walk", False, 1, False, "b1"),
+                                  ("walk", True, "npt_fresh_walk", False, 3, True, None),
+                                  ("walk", True, "npt_cut_walk", False, 3, True, "ctx0")]
+        else:
+            assert calls[-3:] == [("chunk", "split"), ("chunk", "fresh", False, 3), ("chunk", "fresh", True, 3)]
+        with pytest.raises(ValueError):  # b1 of another length, on either route
+            kpa.paged_decode_split(q, cache, 1, bt, ctx, c0, 0.1)
+
+
+@pytest.mark.parametrize("hkv", [1, 2, 3, 8])
+def test_deferred_verify_rows_are_bounded_by_the_cell(hkv):
+    """``_fresh_rows``: a deferred verify (K6a, K8b) takes 1 to
+    ``cell_keys(hkv)`` rows a group (128 at Hkv <= 2, else 256), so that
+    K8b's window crosses at most one cell multiple; more, or none, is
+    refused, through the wrappers too."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+
+    cell = cell_keys(hkv)
+    assert kpa._fresh_rows(cell, "k", hkv) == cell and kpa._fresh_rows(1, "k", hkv) == 1
+    for bad in (0, cell + 1):
+        with pytest.raises(ValueError):
+            kpa._fresh_rows(bad, "k", hkv)
+    rows, d = cell + 1, 16
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    q, cache = torch.empty((rows, hkv, d), **meta), torch.empty((1, 2, 3, 256, hkv * d), **meta)
+    f = torch.empty((rows, hkv, d), **meta)
+    bt, ctx = torch.empty((1, 4), dtype=torch.int32, device="meta"), torch.empty(rows, dtype=torch.int32, device="meta")
+    c0 = torch.empty(1, dtype=torch.int32, device="meta")
+    for fn in (kpa.paged_verify_fresh, kpa.paged_verify_fresh_split):
+        with pytest.raises(ValueError, match=f"<= {cell}"):
+            fn(q, cache, 1, bt, ctx, c0, f, f, 0.1, rows)

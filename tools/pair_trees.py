@@ -3,7 +3,7 @@
 rows and a bench path's loop.
 
     python3 tools/pair_trees.py --parent DIR [--turns parent,change,change,parent]
-                                [--rows k1k2[,mono] | none] [--paths main]
+                                [--rows k1k2[,mono][,overrides] | none] [--paths main]
                                 [--out DIR]
 
 DIR holds another tree of the repository (for example the parent commit,
@@ -22,7 +22,11 @@ on the path (``--turn ROOT``), unless ``--rows none``:
   int8), whose outputs are saved to ``OUT/<turn>_bits.pt``, and K7
   (``cache_partials``) and K6b (``mono_fresh``) at the main rows and at
   pre-round contexts 1-50, then chip_smoke.py's
-  ``decode_verify_throughput_phase`` (its ``mat_10_rounds``). For each row:
+  ``decode_verify_throughput_phase`` (its ``mat_10_rounds``); "overrides",
+  K8a (``paged_decode_split``: the split path's 32 gamma-scan rows), K6a
+  (``paged_verify_fresh``) and K8b (``paged_verify_fresh_split``) at a
+  verify chunk of 16 groups x 14 rows and at pre-round contexts 1-50
+  (chip_smoke.py's decode_split_row and fresh_row inputs). For each row:
   kernel ms (chip_smoke.py's ``time_ms``, L2 flushed, with and without the
   spin), the device us per call of each CUDA kernel a call launches
   (torch.profiler over CALLS calls, L2 warm), and the wrapper's host us per
@@ -105,6 +109,15 @@ def turn(root: Path, out: Path, sets: list[str]) -> None:
                 rows[name] = (kpa.paged_decode, (q, cache, 1, bt, ctx, scale))
             else:
                 rows[name] = (kpa.paged_verify, (q, cache, 1, bt, ctx, scale, rows_))
+    if "overrides" in sets:
+        q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, 1, ctxs(65, 2300, 0))
+        b1 = (ctx - torch.arange(32, device=dev, dtype=torch.int32) % 14).contiguous()
+        rows["k8a"] = (kpa.paged_decode_split, (q, cache, 1, bt, ctx, b1, scale))
+        for name, lo, hi in (("", 65, 2300), ("_short", 1, 50)):
+            q, cache, bt, ctx, c0, fk, fv, scale = cs.fresh_inputs(gen, dev, ctxs(lo, hi, 1, 16), 14)
+            args = (q, cache, 1, bt, ctx, c0, fk, fv, scale, 14)
+            rows["k6a" + name] = (kpa.paged_verify_fresh, args)
+            rows["k8b" + name] = (kpa.paged_verify_fresh_split, args)
     if "mono" in sets:
         for name, rows_, seed in (("k5_decode", 1, 0), ("k5_r14", 14, 1)):
             q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
@@ -153,14 +166,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the other tree's root")
     ap.add_argument("--turns", default="parent,change,change,parent")
-    ap.add_argument("--rows", default="k1k2", help="kernel row sets: k1k2, mono, both comma-separated, or none")
+    ap.add_argument("--rows", default="k1k2", help="kernel row sets: k1k2, mono, overrides, comma-separated, or none")
     ap.add_argument("--paths", default="main")
     ap.add_argument("--out", default="chiprun_out/pair")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # internal: one turn in this tree root
     args = ap.parse_args()
     out = Path(args.out)
     sets = [] if args.rows == "none" else args.rows.split(",")
-    if not set(sets) <= {"k1k2", "mono"}:
+    if not set(sets) <= {"k1k2", "mono", "overrides"}:
         ap.error(f"unknown row set in {args.rows}")
     if args.turn:
         turn(Path(args.turn).resolve(), out, sets)

@@ -2,7 +2,7 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,fresh_kernel,sp,fallback,prefill]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,prefill]
                                         [--unprofiled] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
@@ -10,10 +10,11 @@ gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
 that path: 145 PEARL rounds, then 2174 AR steps, on the same prompts.
 "main" is the ceiling profile on the noiseless pair; "throughput" the
 throughput profile with draft_noise 0.005 (chip_smoke.py's
-throughput_path); "split" and "fresh_kernel" chip_smoke.py's split_path
-(main under NANO_PEARL_SPLIT=1) and fresh_kernel_path (throughput under
-NANO_PEARL_FRESH_MODE=kernel), the variable set around the engine's
-construction only; "sp" chip_smoke.py's sp_path (main with draft_sp =
+throughput_path); "split", "deferred_db" and "fresh_kernel" chip_smoke.py's
+split_path (main under NANO_PEARL_SPLIT=1: K8a, K8b), deferred_db_path
+(main under NANO_PEARL_DEFERRED_VERIFY=1: K1, K6a) and fresh_kernel_path
+(throughput under NANO_PEARL_FRESH_MODE=kernel), the variable set around
+the engine's construction only; "sp" chip_smoke.py's sp_path (main with draft_sp =
 target_sp = 2, both shards on the one card: K11a/K11c and the merge);
 "fallback" the main path's run on the layer-share pair at SmolLM2-360M's
 published widths (3L/32L, 15x64 query heads over 5: chip_smoke.py's
@@ -164,6 +165,7 @@ PATHS = {
     "main": ("ceiling", 0.0, None, 1),
     "throughput": ("throughput", 0.005, None, 1),
     "split": OVERRIDE_PATHS["split_path"][:3] + (1,),
+    "deferred_db": OVERRIDE_PATHS["deferred_db_path"][:3] + (1,),
     "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3] + (1,),
     "sp": ("ceiling", 0.0, None, 2),
     "fallback": ("ceiling", 0.0, None, 1),
@@ -181,6 +183,8 @@ HOST_STAGES = {
     "k2_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify"),
     "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
     "k6b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_fresh"),
+    "k6a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh"),
+    "k8a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_decode_split"),
     "k8b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh_split"),
     "draft_attention_k8a": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_split"),
     "fresh_window_partials": ("nano_pearl_tpu_torch.ops.attention", "fresh_window_partials"),
