@@ -57,9 +57,9 @@ script exits non-zero without its last line):
    main path's prompts in a 128-row and a 256-row bucket, and K4's rows of
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
-   against the launchers' exported choice; the bf16 K1/K2, K10/K11, K7,
-   K6a/K6b and K8a/K8b rows their page walk's plan, ``design``, held
-   against the exported
+   against the launchers' exported choice; the bf16 K1/K2, K9a/K9b (the
+   walk's 1-byte path), K10/K11, K7, K6a/K6b and K8a/K8b rows their page
+   walk's plan, ``design``, held against the exported
    ``npt_walk_plan``,
    the ``blocks`` they launch, their ``share`` of the bound, and, as the
    K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
@@ -95,10 +95,10 @@ script exits non-zero without its last line):
    throughput_path: the same run with draft_noise 0.005 under the
    throughput profile (bench.py --draft-noise 0.005); quant_path: the
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
-   decode through K9a, verify through K9b, the KV pools' bytes per block
-   against the bf16 run's); quant_throughput_path: the throughput path
-   with --kv-quant fp8 --quant fp8 (K9c), 73 rounds; each with its AR
-   over the first sixth of its window;
+   decode through K9a, verify through K9b, no K10c/K10d launch, the KV
+   pools' bytes per block against the bf16 run's); quant_throughput_path:
+   the throughput path with --kv-quant fp8 --quant fp8 (K9c), 73 rounds;
+   each with its AR over the first sixth of its window;
    split_path, deferred_db_path (the main path's run under
    NANO_PEARL_SPLIT=1: K8a, K8b; and NANO_PEARL_DEFERRED_VERIFY=1: K1, K6a)
    and fresh_kernel_path (the throughput path's under
@@ -289,11 +289,10 @@ def k1k2_row(name, kernel, run, plain, got, want, lib, nbytes, flops, q, cache, 
     plain version and its SDPA yardstick, against the bound of ``nbytes``
     and ``flops``. bf16 queries run on the page walk (``design``, ``blocks``
     launched by kernel, ``plan_blocks`` as the K10/K11 rows have them; the
-    source is the walk's export in ``paged_attention_fallback.cu``); f32 on
-    the chunk template of ``paged_attention.cu`` (its rows per block and the
-    blocks one call launched)."""
+    source is the walk's export in ``paged_walk.cu``); f32 on the chunk
+    template of ``paged_attention.cu`` (its rows per block and the blocks
+    one call launched)."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
-    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
     from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
 
     err = (got.float() - want.float()).abs().max().item()
@@ -302,7 +301,7 @@ def k1k2_row(name, kernel, run, plain, got, want, lib, nbytes, flops, q, cache, 
     bf16 = q.dtype == torch.bfloat16
     row = dict(
         name=name, kernel=kernel, route="cuda", dtype=str(q.dtype).removeprefix("torch."),
-        source="nano_pearl_tpu_torch/csrc/" + ("paged_attention_fallback.cu" if bf16 else "paged_attention.cu"),
+        source="nano_pearl_tpu_torch/csrc/" + ("paged_walk.cu" if bf16 else "paged_attention.cu"),
         replaces=K1K2_REPLACES[kernel], max_abs_err=err, ms=ms,
         plain_ms=time_ms(plain, 10, flush), bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
         library_ms=time_ms(lib, 50, flush), no_spin=no_spin_ms(run, lib, 50, flush), k2_row_equal=True,
@@ -312,7 +311,7 @@ def k1k2_row(name, kernel, run, plain, got, want, lib, nbytes, flops, q, cache, 
     # profiled last, after the row's timings
     if bf16:
         row.update(zip(("design", "blocks", "plan_blocks"),
-                       walk_design(name, kfb._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False)))
+                       walk_design(name, kpw._lib(), run, ctx, bt, rows, hq, hkv, d, cache.shape[3], False)))
     else:
         es = q.element_size()
         rpb = kpw.rows_per_block(rows, hq // hkv, d, es)
@@ -933,9 +932,13 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
     bit for bit; K9b's rows against K9a's bit for bit. The bound counts the
     1-byte values and the 2 scale bytes per (slot, KV head) of each group's
     context once, q and o; the yardstick is SDPA over the cache gathered and
-    dequantized to bf16 (the SDPA call alone is timed)."""
+    dequantized to bf16 (the SDPA call alone is timed), both timed with and
+    without the spin (``no_spin``). K9a and K9b run on the page walk's 1-byte
+    path (``paged_walk.cu``): their rows carry the walk's ``design``, the
+    ``blocks`` one call launched and ``plan_blocks``, as K1/K2's rows do."""
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
     from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, _quantize_rows
 
     kernel = next(k for k in Q8_KERNELS if name.startswith(k))
@@ -963,18 +966,25 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
     kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * (d + 2)
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    source = "paged_attention.cu" if kernel.startswith("paged") else "mono_attention.cu"
-    return dict(
-        name=name, kernel=kernel, route="cuda", source=f"nano_pearl_tpu_torch/csrc/{source}",
+    walked = kernel != "mono_q8"
+    run = lambda: fn(*args)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
+        name=name, kernel=kernel, route="cuda",
+        source="nano_pearl_tpu_torch/csrc/" + ("paged_walk.cu" if walked else "mono_attention.cu"),
         replaces=Q8_KERNELS[kernel], cache=kind,
-        max_abs_err=err, ms=time_ms(lambda: fn(*args), 50, flush),
-        plain_ms=time_ms(lambda: plain(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: plain(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush),
         library="SDPA over the cache gathered and dequantized to bf16, the SDPA call alone",
         second_launch_bitwise=True, **({"k9b_row_equals_k9a": True} if kernel == "paged_verify_q8" else {}),
         shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
                    ctx_max=int(ctx.max())),
     )
+    if walked:  # profiled last, after the row's timings
+        row.update(zip(("design", "blocks", "plan_blocks"),
+                       walk_design(name, kpw._lib(), run, ctx, bt, rows, hq, hkv, d, qc.q.shape[3], True)))
+    return row
 
 
 FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
@@ -987,9 +997,9 @@ FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
 
 def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None, ctx0=None, cut=None
                 ) -> tuple[str, dict, dict]:
-    """The bf16 page walk's plan for a K10/K11, K1/K2, K7, K6a/K6b or K8a/K8b
-    row (``paged_walk.walk_plan``, checked against the launchers' exported
-    ``npt_walk_plan``) as the row's ``design`` line; the blocks one call of
+    """The bf16 page walk's plan for a K10/K11, K1/K2, K9a/K9b, K7, K6a/K6b or
+    K8a/K8b row (``paged_walk.walk_plan``, checked against the launchers'
+    exported ``npt_walk_plan``) as the row's ``design`` line; the blocks one call of
     ``run`` launched, by kernel (``launched_blocks``), checked against the
     plan's grid (and its combine's, none where the table is one cell); and
     what the plan says of them, computed here on the host from the row's
@@ -1026,8 +1036,9 @@ def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=N
     extra = {(False, False): "", (False, True): ", the fresh rows one more",
              (True, False): ", one more (each row's cell at b1 cut in two)",
              (True, True): ", the fresh rows two more (cut at the cell multiple)"}[cut is not None, ctx0 is not None]
+    raw = ", 1-byte K/V dequantized to bf16 in shared memory" if quant else ""
     design = (f"mma.sync m16n8k16 bf16 (P as hi + lo bf16), K/V via cp.async in {plan.stages} stages of "
-              f"{kpw.KEYS} keys; {plan.cell}-key cells{extra}; "
+              f"{kpw.KEYS} keys{raw}; {plan.cell}-key cells{extra}; "
               f"{plan.rpb} rows x {hq // hkv} heads a block, {plan.threads // 32} warps, {plan.smem} B shared")
     blocks = launched_blocks(run)
     walk = sum(n for k, n in blocks.items() if k.startswith("walk_mma_kernel"))
@@ -1047,6 +1058,7 @@ def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, l
     the yardstick is SDPA over the gathered (dequantized) cache, the SDPA
     call alone timed."""
     from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
     from nano_pearl_tpu_torch.ops.kv_cache import QuantKVCache, _quantize_rows
 
     q8 = "_q8" if kind else ""
@@ -1078,7 +1090,7 @@ def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, l
     run = lambda: fn(*args)  # noqa: E731
     ms = time_ms(run, 50, flush)
     row = dict(
-        name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_attention_fallback.cu",
+        name=name, kernel=kernel, route="cuda", source="nano_pearl_tpu_torch/csrc/paged_walk.cu",
         replaces=FALLBACK_KERNELS[kernel], cache=kind or "bf16",
         max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: plain(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
@@ -1090,7 +1102,7 @@ def fallback_row(gen, dev, flush, name, ctx0, rows, hq, hkv, d, bs, kind=None, l
     )
     # profiled last, after the row's timings
     row.update(zip(("design", "blocks", "plan_blocks"),
-                   walk_design(name, kfb._lib(), run, ctx, bt, rows, hq, hkv, d, bs, bool(kind))))
+                   walk_design(name, kpw._lib(), run, ctx, bt, rows, hq, hkv, d, bs, bool(kind))))
     return row
 
 
@@ -1936,7 +1948,7 @@ def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
     emit({"phase": "quant_path", **out})
     check_launches("quant_path", launches, ("prefill_self", "paged_decode_q8", "paged_verify_q8"),
                    ("paged_decode", "paged_verify", "prefill_prefix", "mono_attention", "cache_partials",
-                    "write_fresh", "mono_q8"))
+                    "write_fresh", "mono_q8", *FALLBACK_KERNELS))
     if out["mat"] != gamma:
         raise AssertionError(f"quant_path MAT {out['mat']} below the layer-share ceiling {gamma}")
     if out["kv_pool_bytes_per_block_vs_bf16"] > 0.55:

@@ -319,7 +319,7 @@ __device__ __forceinline__ T fold_partials(const float* acc, const float* ml, in
   return from_f32<T>(a / fmaxf(l, 1e-30f));
 }
 
-// ---- 1-byte (int8 / e4m3) KV caches: kernels K9a-c --------------------
+// ---- 1-byte (int8 / e4m3) KV caches: K9c, and the f32 K9a/K9b, K10c/d, K11b/d ----
 //
 // A quantized cache holds 1-byte values in the folded [rows, Hkv * D]
 // layout and one bf16 scale per (row, KV head) in [rows, Hkv]. The tile

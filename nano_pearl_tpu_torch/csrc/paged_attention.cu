@@ -10,9 +10,9 @@
 // These two entries are K1's and K2's f32 route (the exactness pairs, held
 // at 1e-4 on CUDA cores, where the tensor cores would take f32 as TF32).
 // K1's and K2's bf16 route, the main path's and the server's, is the
-// tensor-core page walk of paged_walk.cuh, launched through
-// paged_attention_fallback.cu's npt_fallback (ops/cuda/paged_attention.py
-// picks the route by the query type); these entries refuse bf16 queries.
+// tensor-core page walk of paged_walk.cuh, launched through paged_walk.cu's
+// npt_walk (ops/cuda/paged_attention.py picks the route by the query type);
+// these entries refuse bf16 queries.
 //
 // Cache layout: [L * 2 * (NB + 1), BS, Hkv * D] rows; layer l's keys live
 // at block offset k_off = 2 * l * (NB + 1), its values at v_off = k_off +
@@ -37,9 +37,11 @@
 //   Replace _kernel_db_q8v2 (entry _db_call_q8_single, from
 //   paged_attention_pallas) and _grouped_kernel_db_q8v2 (entry
 //   _db_call_q8_grouped, from paged_attention_pallas_grouped). Only the
-//   tile load differs (flash_tile.cuh stage_q8_tile: dequantized and
-//   rounded to the query type in shared memory), so K9b rows equal K9a
-//   rows bit for bit as K2's equal K1's.
+//   tile load differs (flash_tile.cuh stage_q8_tile: dequantized in shared
+//   memory), so K9b rows equal K9a rows bit for bit as K2's equal K1's.
+//   These entries are K9a's and K9b's f32 route and refuse bf16 queries:
+//   their bf16 route, quant_path's, is the page walk's 1-byte path
+//   (paged_walk.cu's npt_walk_q8).
 //
 // K8a npt_paged_decode_split: K1 with the chunk that holds a per-row
 //   boundary b1 cut into two partials there, the second one's tiles
@@ -373,7 +375,7 @@ cudaError_t dispatch_cells(int groups, int rows, const void* q, const void* cach
 }
 
 // K1/K2 here take f32 queries alone: bf16 ones run on the page walk
-// (paged_attention_fallback.cu's npt_fallback), and a bf16 call here is refused.
+// (paged_walk.cu's npt_walk), and a bf16 call here is refused.
 cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, const int* bt,
                      const int* ctx, void* out, float* part_acc, float* part_ml, int m, int hq,
                      int hkv, int d, int bs, long long k_off, long long v_off, float scale,
@@ -383,32 +385,20 @@ cudaError_t dispatch(int groups, int rows, const void* q, const void* cache, con
                        bs, k_off, v_off, scale, static_cast<cudaStream_t>(stream));
 }
 
-template <typename T>
-cudaError_t dispatch_q8_type(int groups, int rows, const void* q, const void* cache,
-                             const void* scales, const int* bt, const int* ctx, void* out,
-                             float* part_acc, float* part_ml, int m, int hq, int hkv, int d, int bs,
-                             long long k_off, long long v_off, float scale, int is_fp8,
-                             cudaStream_t s) {
-  if (is_fp8)
-    return launch<T, __nv_fp8_e4m3>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m,
-                                    hq, hkv, d, bs, k_off, v_off, scale, s, scales);
-  return launch<T, int8_t>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq, hkv,
-                           d, bs, k_off, v_off, scale, s, scales);
-}
-
+// K9a/K9b here take f32 queries alone: bf16 ones run on the page walk's
+// 1-byte path (paged_walk.cu's npt_walk_q8), and a bf16 call here is refused.
 cudaError_t dispatch_q8(int groups, int rows, const void* q, const void* cache,
                         const void* scales, const int* bt, const int* ctx, void* out,
                         float* part_acc, float* part_ml, int m, int hq, int hkv, int d, int bs,
                         long long k_off, long long v_off, float scale, int is_bf16, int is_fp8,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 16) return cudaErrorInvalidValue;  // 16 one-byte values per load
-  if (is_bf16)
-    return dispatch_q8_type<__nv_bfloat16>(groups, rows, q, cache, scales, bt, ctx, out, part_acc,
-                                           part_ml, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                           is_fp8, s);
-  return dispatch_q8_type<float>(groups, rows, q, cache, scales, bt, ctx, out, part_acc, part_ml,
-                                 m, hq, hkv, d, bs, k_off, v_off, scale, is_fp8, s);
+  if (is_bf16 || d % 16) return cudaErrorInvalidValue;  // 16 one-byte values per load
+  if (is_fp8)
+    return launch<float, __nv_fp8_e4m3>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml,
+                                        m, hq, hkv, d, bs, k_off, v_off, scale, s, scales);
+  return launch<float, int8_t>(groups, rows, q, cache, bt, ctx, out, part_acc, part_ml, m, hq,
+                               hkv, d, bs, k_off, v_off, scale, s, scales);
 }
 
 }  // namespace npt
@@ -450,8 +440,9 @@ int npt_paged_verify(const void* q, const void* cache, const int* bt, const int*
                             bs, k_off, v_off, scale, is_bf16, stream);
 }
 
-// K9a: npt_paged_decode over a 1-byte cache (int8, or e4m3 with is_fp8)
-// and its bf16 scales [rows, hkv]; q, out bf16 or f32 (is_bf16).
+// K9a's f32 route: npt_paged_decode over a 1-byte cache (int8, or e4m3
+// with is_fp8) and its bf16 scales [rows, hkv]; q, out f32 (is_bf16 must
+// be 0).
 int npt_paged_decode_q8(const void* q, const void* cache, const void* scales, const int* bt,
                         const int* ctx, void* out, float* part_acc, float* part_ml, int n, int m,
                         int hq, int hkv, int d, int bs, long long k_off, long long v_off,
@@ -460,7 +451,7 @@ int npt_paged_decode_q8(const void* q, const void* cache, const void* scales, co
                                hkv, d, bs, k_off, v_off, scale, is_bf16, is_fp8, stream);
 }
 
-// K9b: npt_paged_verify over a 1-byte cache, as K9a. rows >= 2.
+// K9b's f32 route: npt_paged_verify over a 1-byte cache, as K9a. rows >= 2.
 int npt_paged_verify_q8(const void* q, const void* cache, const void* scales, const int* bt,
                         const int* ctx, void* out, float* part_acc, float* part_ml, int b,
                         int rows, int m, int hq, int hkv, int d, int bs, long long k_off,

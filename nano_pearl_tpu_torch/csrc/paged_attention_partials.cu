@@ -51,7 +51,7 @@
 // max(l, 1e-30) in the query's type (the Pallas entries return q.dtype),
 // m and l in f32.
 //
-// Layout: the page walk of the fallbacks K10a-d (paged_walk.cuh), which
+// Layout: the page walk of K1/K2, K9a/K9b and K10a-d (paged_walk.cuh), which
 // takes every head dim 16..256 and every Hkv * D and carries the argument
 // that a K11c row equals the K11a row of the same query, context and table
 // bit for bit (K11d's K11b's): the layer-share pair's draft decodes through
@@ -68,7 +68,7 @@
 
 extern "C" {
 
-// walk_plan's field `what`, as npt_walk_plan in paged_attention_fallback.cu.
+// walk_plan's field `what`, as npt_walk_plan in paged_walk.cu.
 long long npt_walk_plan(int rows, int g, int hkv, int d, int bs, int is_bf16, int q8, int what) {
   return npt::walk_plan_field(rows, g, hkv, d, bs, is_bf16 != 0, q8 != 0, what);
 }
@@ -78,7 +78,7 @@ long long npt_walk_plan(int rows, int g, int hkv, int d, int bs, int is_bf16, in
 // local block ids; ctx [b * rows] global contexts; is_local [b, m] int32,
 // or null with bf16 queries (every slot local: K7 over the whole cache,
 // ctx the cache-side contexts, >= 0); m_out, l_out [b * rows, hq] f32;
-// part_acc / part_ml as npt_fallback's. Returns cudaGetLastError() after
+// part_acc / part_ml as npt_walk's. Returns cudaGetLastError() after
 // the launches.
 int npt_partials(const void* q, const void* cache, const int* bt, const int* ctx,
                  const int* is_local, void* out, float* m_out, float* l_out, float* part_acc,
@@ -121,7 +121,7 @@ int npt_fresh_walk(const void* q, const void* cache, const int* bt, const int* c
 }
 
 // K8a (ctx0, fk, fv null; rows 1): cut [b] int32, each row's boundary b1;
-// otherwise as npt_fallback over a bf16 cache, with part_acc / part_ml of
+// otherwise as npt_walk over a bf16 cache, with part_acc / part_ml of
 // ceil(m * bs / cell) + 1 cells. K8b (cut == ctx0, 1 <= rows <= cell):
 // npt_fresh_walk's arguments, with ceil(m * bs / cell) + 2 cells. bf16
 // queries alone (is_bf16 must be set).

@@ -1,13 +1,12 @@
-// The page walk shared by the paged-attention fallbacks K10a-d
-// (csrc/paged_attention_fallback.cu), the per-shard partials kernels
-// K11a-d of sequence parallelism and, with bf16 queries, the deferred
-// verify's kernels K7 and K6b of the mono schedule, K6a of the db schedule
-// and the split-boundary schedule's K8a and K8b
-// (csrc/paged_attention_partials.cu), and the main path's paged decode K1
-// and packed verify K2 (through the fallbacks' export npt_fallback). The
-// f32 routes of K1/K2, K6a, K8a and K8b stay on paged_attention.cu's chunk
-// template, those of K7/K6b on mono_attention.cu. R rows of a group share
-// one block
+// The page walk shared by the paged decode and packed verify of
+// csrc/paged_walk.cu (the main path's K1 and K2, with bf16 queries, and
+// over a 1-byte cache K9a and K9b; the fallbacks K10a-d), the per-shard
+// partials kernels K11a-d of sequence parallelism and, with bf16 queries,
+// the deferred verify's kernels K7 and K6b of the mono schedule, K6a of the
+// db schedule and the split-boundary schedule's K8a and K8b
+// (csrc/paged_attention_partials.cu). The f32 routes of K1/K2, K9a/K9b,
+// K6a, K8a and K8b stay on paged_attention.cu's chunk template, those of
+// K7/K6b on mono_attention.cu. R rows of a group share one block
 // table (R = 1: decode), each row masked at its own context; K11 also skips
 // the slots `is_local` marks as another shard's and exports (o, m, l), as
 // K7 does with every slot local. A context past the table (M * BS keys) is
@@ -72,7 +71,7 @@
 //   longest context, or another shard's) are zero-filled, never read.
 //   Over a 1-byte cache the ring carries the raw bytes; each tile is
 //   dequantized in shared memory to bf16 (value x scale, rounded once to
-//   the query type, as K9a-c and the plain versions do) before ldmatrix,
+//   the query type, as K9c and the plain versions do) before ldmatrix,
 //   which costs a second barrier a tile.
 // - P: the Pallas kernels round P once to the value type before P V
 //   (_gr_update, p.astype(vdt), ops/pallas/paged_attention.py:140-195).
@@ -103,9 +102,9 @@
 // the block writes (m = -1e29, l = 0), floors and never garbage (0 x NaN
 // is NaN), and the combine folds only cells with l > 0, of the row's own
 // cells in order. A one-cell fold equals the direct write (expf(0) = 1,
-// fmaf(x, 1, 0) = x). So K2 == K1, K10b == K10a, K10d == K10c, K11c ==
-// K11a and K11d == K11b at every R and G, and at any table width. A row with no
-// visible key gives o = 0, and under K11 m = -1e29 and l = 0 exactly,
+// fmaf(x, 1, 0) = x). So K2 == K1, K9b == K9a, K10b == K10a, K10d == K10c,
+// K11c == K11a and K11d == K11b at every R and G, and at any table width. A
+// row with no visible key gives o = 0, and under K11 m = -1e29 and l = 0 exactly,
 // which parallel/sp.merge_partials weighs 0. The f32 route gives the same
 // property by its own argument (flash_tile.cuh: each value a fixed
 // sequence of operations; a page skipped for every row of a table alike).

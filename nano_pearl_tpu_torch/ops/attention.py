@@ -402,9 +402,9 @@ def attention_kernel(kind: str, cache, mono: bool = False):
     (``_q8_fastpath_ok``; on one device its strided scale width always
     passes). There:
 
-    - decode: K1 (K9a over a quantized cache); verify: K2 (K9b); K1's and
-      K2's bf16 route runs on the page walk that K10a/K10b launch, but
-      each counts its own launches;
+    - decode: K1 (K9a over a quantized cache); verify: K2 (K9b); their
+      bf16 route runs on the page walk that K10a-d launch, but each
+      counts its own launches;
     - on the mono schedule (``mono``) both K5 (K9c).
 
     Every other shape goes to the fallbacks, on either schedule: decode

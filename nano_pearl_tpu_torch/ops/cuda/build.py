@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = (
     "paged_attention", "prefill_attention", "mono_attention", "kv_writeback",
-    "paged_attention_fallback", "paged_attention_partials",
+    "paged_walk", "paged_attention_partials",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -38,8 +38,8 @@ K9c ``mono_q8`` is K5 over a quantized cache (``QuantKVCache``), the
 throughput profile's decode and packed verify there; it replaces
 ``_grouped_kernel_db_mono_q8v2`` (entry ``_mono_call_q8``). Only its tile
 load differs: 16 one-byte values per 16-byte load, dequantized per (slot,
-head) and rounded to the query's dtype (the loader of K9a/K9b). Its plain
-version is K5's, which reads either cache kind.
+head) and rounded to the query's dtype (the loader of K9a/K9b's f32
+route). Its plain version is K5's, which reads either cache kind.
 
 K6b ``mono_fresh`` is the deferred-write packed verify on the mono
 schedule with the fresh window folded in the same launch

@@ -1,7 +1,7 @@
 """Kernels K1 (paged decode) and K2 (packed verify), their twins K9a/K9b
 over a 1-byte cache, and the schedule overrides' K8a, K6a and K8b:
 wrappers of ``csrc/paged_attention.cu`` and, for bf16 queries, of the
-page walk's exports in ``csrc/paged_attention_fallback.cu`` (K1/K2) and
+page walk's exports in ``csrc/paged_walk.cu`` (K1/K2, K9a/K9b) and
 ``csrc/paged_attention_partials.cu`` (K6a, K8a, K8b).
 
 K1 ``paged_decode`` replaces ``_kernel_db`` (entry
@@ -14,12 +14,13 @@ are ``paged_attention_ref`` and ``paged_attention_grouped_ref``
 What bounds them on the H100: bytes. A row reads ``ctx * 2 * Hkv * D``
 cache elements and does ``4 * ctx * Hq * D`` flops, about 4 flops per
 byte in bf16 at G = Hq / Hkv = 4, far under the card's ~295 flops per
-byte. K1 and K2 share one launch path (``_attend``), which picks the
-route by the query type:
+byte (8 over a 1-byte cache). K1, K2, K9a and K9b share one launch path
+(``_attend``), which picks the route by the query type:
 
-- bf16 queries (the main path, the server): the tensor-core page walk of
-  ``csrc/paged_walk.cuh``, K10a/K10b's launch (``paged_walk.launch`` of
-  the export ``npt_fallback``). The R * G query vectors of a (group, KV
+- bf16 queries (the main path, the server, the quantized path): the
+  tensor-core page walk of ``csrc/paged_walk.cuh``, K10a-d's launch
+  (``paged_walk.launch`` of the export ``npt_walk``, over a 1-byte cache
+  ``npt_walk_q8``). The R * G query vectors of a (group, KV
   head) sit 16 to a warp on ``mma.sync``; each table's key stream is cut
   into cells of 128 keys (Hkv <= 2, else 256) at fixed positions, one
   block per (group, KV head, row slice, cell), K/V pages arrive through a
@@ -40,11 +41,13 @@ K9a ``paged_decode_q8`` and K9b ``paged_verify_q8`` are K1 and K2 over
 a quantized cache (``QuantKVCache``: 1-byte int8 or e4m3 values and a
 bf16 scale per slot and KV head). They replace ``_kernel_db_q8v2``
 (entry ``_db_call_q8_single``) and ``_grouped_kernel_db_q8v2`` (entry
-``_db_call_q8_grouped``). Their tile loader reads 16 one-byte values per
-16-byte load and stores the tile dequantized and rounded to the query's
-dtype in the layout the chunk template's tile update reads, so they read
-half the bytes of a bf16 cache and K9b rows equal K9a rows bit for bit.
-Same plain versions: they read either cache kind.
+``_db_call_q8_grouped``). Both routes copy the raw bytes, half those of a
+bf16 cache, and dequantize each tile once in shared memory (value x
+scale, rounded to the query's dtype, as the plain versions round it): the
+walk's 1-byte path for bf16 queries (K10c/K10d's launch), the chunk
+template's ``npt_paged_decode_q8`` / ``npt_paged_verify_q8`` for f32
+ones. Either way K9b rows equal K9a rows bit for bit. Same plain
+versions: they read either cache kind.
 
 K8a ``paged_decode_split``, K6a ``paged_verify_fresh`` and K8b
 ``paged_verify_fresh_split`` are the kernel-schedule overrides' decode
@@ -90,7 +93,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     paged_attention_grouped_ref,
     paged_attention_ref,
 )
-from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_fallback, paged_attention_partials, paged_walk
+from nano_pearl_tpu_torch.ops.cuda import build, paged_attention_partials, paged_walk
 from nano_pearl_tpu_torch.ops.cuda.paged_walk import _check_fresh, _check_inputs
 from nano_pearl_tpu_torch.ops.kv_cache import global_block_offsets
 
@@ -132,8 +135,8 @@ def _scratch(lib, rows: int, hq: int, d: int, m: int, bs: int, device, extra: in
 
 
 def _launch(fn: str, q, cache, layer_idx, tables, context_lens, scale, rows: int):
-    """Run ``fn`` (``npt_paged_decode`` / ``npt_paged_verify``, f32 queries
-    alone, or their ``_q8`` twins over a quantized cache) on the chunk
+    """Run ``fn`` (``npt_paged_decode`` / ``npt_paged_verify`` or their
+    ``_q8`` twins over a quantized cache, f32 queries alone) on the chunk
     template, ``tables.shape[0]`` groups of ``rows`` rows; returns the
     output."""
     quant = fn.endswith("_q8")
@@ -176,15 +179,16 @@ def _verify_rows(rows_per_group, name: str) -> int:
     return r
 
 
-def _attend(q, cache, layer_idx, tables, context_lens, scale, rows: int):
-    """K1 (``rows`` 1) and K2 on ``tables.shape[0]`` groups of ``rows``
-    rows, one launch path for both: bf16 queries on the page walk, f32 on
-    the chunk template. Returns the output."""
+def _attend(q, cache, layer_idx, tables, context_lens, scale, rows: int, quant: bool = False):
+    """K1 (``rows`` 1) and K2 (K9a and K9b over a ``quant`` cache) on
+    ``tables.shape[0]`` groups of ``rows`` rows, one launch path for all
+    four: bf16 queries on the page walk, f32 on the chunk template. Returns
+    the output."""
     if q.dtype == torch.bfloat16:
-        lib = paged_attention_fallback._lib()
-        return paged_walk.launch(lib, lib.npt_fallback, False, q, cache, layer_idx, tables, context_lens,
-                                 scale, rows)
-    fn = "npt_paged_verify" if rows > 1 else "npt_paged_decode"
+        lib = paged_walk._lib()
+        return paged_walk.launch(lib, lib.npt_walk_q8 if quant else lib.npt_walk, quant, q, cache, layer_idx,
+                                 tables, context_lens, scale, rows)
+    fn = ("npt_paged_verify" if rows > 1 else "npt_paged_decode") + ("_q8" if quant else "")
     return _launch(fn, q, cache, layer_idx, tables, context_lens, scale, rows)
 
 
@@ -214,7 +218,7 @@ def paged_decode_q8(q, cache, layer_idx, block_tables, context_lens, scale):
     """K9a: K1 over a quantized cache."""
     if q.device.type == "cpu":
         return plain_decode(q, cache, layer_idx, block_tables, context_lens, scale)
-    out = _launch("npt_paged_decode_q8", q, cache, layer_idx, block_tables, context_lens, scale, 1)
+    out = _attend(q, cache, layer_idx, block_tables, context_lens, scale, 1, quant=True)
     paged_decode_q8.launches += 1
     return out
 
@@ -225,8 +229,8 @@ def paged_verify_q8(q, cache, layer_idx, group_tables, context_lens, scale, rows
         return plain_verify(
             q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
         )
-    r = _verify_rows(rows_per_group, "paged_verify_q8")
-    out = _launch("npt_paged_verify_q8", q, cache, layer_idx, group_tables, context_lens, scale, r)
+    out = _attend(q, cache, layer_idx, group_tables, context_lens, scale,
+                  _verify_rows(rows_per_group, "paged_verify_q8"), quant=True)
     paged_verify_q8.launches += 1
     return out
 

@@ -1,5 +1,5 @@
-"""Kernels K10a-d (the paged-attention fallbacks): wrappers of
-``csrc/paged_attention_fallback.cu``.
+"""Kernels K10a-d (the paged-attention fallbacks): wrappers of the page
+walk's exports in ``csrc/paged_walk.cu`` (``npt_walk``, ``npt_walk_q8``).
 
 K10a ``paged_decode_fallback`` and K10b ``paged_verify_fallback`` replace
 ``_kernel`` and ``_grouped_kernel``, K10c ``paged_decode_fallback_q8`` and
@@ -31,36 +31,17 @@ anything else, a cache of the other kind included.
 
 from __future__ import annotations
 
-import ctypes
-
 from nano_pearl_tpu_torch.ops.attention import paged_attention_grouped_ref, paged_attention_ref
-from nano_pearl_tpu_torch.ops.cuda import build, paged_walk
+from nano_pearl_tpu_torch.ops.cuda import paged_walk
 
 plain_decode = paged_attention_ref
 plain_verify = paged_attention_grouped_ref
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("paged_attention_fallback")
-    if not getattr(lib, "_npt_typed", False):
-        tail = [_I] * 7 + [_LL, _LL, _F, _I]
-        lib.npt_fallback.argtypes = [_P] * 7 + tail + [_P]
-        lib.npt_fallback_q8.argtypes = [_P] * 8 + tail + [_I, _P]
-        lib.npt_fallback.restype = _I
-        lib.npt_fallback_q8.restype = _I
-        lib.npt_walk_plan.argtypes = [_I] * 8
-        lib.npt_walk_plan.restype = _LL
-        lib._npt_typed = True
-    return lib
-
-
 def _launch(quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int):
     """K10a/K10b (K10c/K10d with ``quant``) on ``tables.shape[0]`` groups of
     ``rows`` rows; returns the output."""
-    lib = _lib()
-    fn = lib.npt_fallback_q8 if quant else lib.npt_fallback
+    lib = paged_walk._lib()
+    fn = lib.npt_walk_q8 if quant else lib.npt_walk
     return paged_walk.launch(lib, fn, quant, q, cache, layer_idx, tables, context_lens, scale, rows)
 
 

@@ -1,12 +1,14 @@
 """The launch plan of the page walk (``csrc/paged_walk.cuh``) behind K10a-d,
-K11a-d and the bf16 route of K1, K2, K6a, K6b, K7, K8a and K8b, mirrored
-in Python; the launch their wrappers share (``paged_attention.py``,
+K11a-d and the bf16 route of K1, K2, K6a, K6b, K7, K8a, K8b, K9a and K9b,
+mirrored in Python; the launch their wrappers share (``paged_attention.py``,
 ``paged_attention_fallback.py``, ``paged_attention_partials.py``,
-``mono_attention.py``); and the input checks of every paged-attention
-wrapper.
+``mono_attention.py``); the walk's library of decode and packed verify
+(``csrc/paged_walk.cu``: ``npt_walk``, ``npt_walk_q8``, loaded by ``_lib``),
+which K1/K2, K9a/K9b and K10a-d launch; and the input checks of every
+paged-attention wrapper.
 
 ``walk_plan`` is the mirror of the launchers' ``walk_plan``, which both
-libraries export as ``npt_walk_plan``; the CPU tests check the mirror and
+walk libraries export as ``npt_walk_plan``; the CPU tests check the mirror and
 the card tests hold it against the export. bf16 queries run on the tensor
 cores: 16 query vectors a warp, a group's rows over up to 8 warps a block,
 each table's key stream cut into cells of ``cell_keys(hkv)`` keys at fixed
@@ -24,6 +26,7 @@ no split (``rows_per_block``'s row slices).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -40,6 +43,24 @@ THREADS = 256  # threads per block, at most (kThreads)
 KEYS = 64  # bf16: keys per staged tile (kWalkKeys)
 MAX_WARPS = 8  # bf16: warps of query vectors a block, at most (kWalkMaxWarps)
 MIN_WARPS = 4  # bf16: warps a block, at least (kWalkMinWarps)
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    """``csrc/paged_walk.cu``'s library: ``npt_walk`` over a bf16/f32 cache,
+    ``npt_walk_q8`` over a 1-byte one, and ``npt_walk_plan``."""
+    lib = build.load("paged_walk")
+    if not getattr(lib, "_npt_typed", False):
+        tail = [_I] * 7 + [_LL, _LL, _F, _I]
+        lib.npt_walk.argtypes = [_P] * 7 + tail + [_P]
+        lib.npt_walk_q8.argtypes = [_P] * 8 + tail + [_I, _P]
+        lib.npt_walk.restype = _I
+        lib.npt_walk_q8.restype = _I
+        lib.npt_walk_plan.argtypes = [_I] * 8
+        lib.npt_walk_plan.restype = _LL
+        lib._npt_typed = True
+    return lib
 
 
 def rows_per_block(rows: int, g: int, d: int, itemsize: int, fixed: int = 0, tile: int = 64) -> int:
@@ -251,7 +272,7 @@ def row_cells(n_keys: int, cell: int, ctx: int, cut: int | None = None, ctx0: in
 
 def launch(lib, fn, quant: bool, q, cache, layer_idx, tables, context_lens, scale, rows: int,
            before: tuple = (), after: tuple = (), fresh: tuple | None = None, cut=None):
-    """Validate and launch ``fn`` (``npt_fallback`` / ``npt_partials`` or
+    """Validate and launch ``fn`` (``npt_walk`` / ``npt_partials`` or
     their ``_q8`` twins, ``npt_fresh_walk``, ``npt_cut_walk``) on
     ``tables.shape[0]`` groups of ``rows`` rows: ``fn(q, cache[, scales],
     tables, contexts, *before, out, *after, part_acc, part_ml, groups, rows,

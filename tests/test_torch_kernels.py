@@ -17,7 +17,10 @@ rows-per-block choice, checked on the CPU too); K7 and K6b with bf16
 queries on the tensor-core page walk (edge cases, contexts 1-64 and
 65-2300), with f32 queries on the mono template; K1 and K2 with bf16
 queries on the same walk (contexts 1-64 too), with f32 queries on the
-chunk template; K6a, K8a and K8b with bf16 queries on the walk (K8a's and
+chunk template; K9a and K9b with bf16 queries on the walk's 1-byte path
+(K9b rows equal K9a's bit for bit at D 16-256, G 8, int8 and e4m3,
+contexts across the 128-key cells), with f32 queries on the chunk
+template, whose 1-byte entries refuse bf16; K6a, K8a and K8b with bf16 queries on the walk (K8a's and
 K8b's with its cut cell: K8b rows equal K8a's and K6a rows K6b's bit for
 bit, windows across 128- and 256-key multiples, as many rows as a cell,
 Hkv 2-4, D 64-256; the cells the launchers read against the mirror's),
@@ -1045,11 +1048,11 @@ def test_walk_bf16_rows_spread_over_blocks(cuda):
 
 def test_walk_plan_mirror_matches_the_launchers(cuda):
     """The exported plan of the walk's launchers (``npt_walk_plan``, in both
-    libraries) equals the mirror ``walk_plan`` for every head dim, G, page
-    size, cache kind and route."""
+    walk libraries) equals the mirror ``walk_plan`` for every head dim, G,
+    page size, cache kind and route."""
     from nano_pearl_tpu_torch.ops.cuda.paged_walk import walk_plan
 
-    libs = (kfb._lib(), kpp._lib())
+    libs = (kpw._lib(), kpp._lib())
     for d in range(16, 257, 16):
         for g in (1, 2, 3, 4, 5, 8, 16):
             for hkv in (1, 2, 5):
@@ -1178,6 +1181,61 @@ def test_k1_and_k2_route_by_query_type(cuda):
                 assert names == {"walk_mma_kernel", "walk_combine_kernel"}, names
             else:
                 assert names == {"paged_partial_kernel", "paged_combine_kernel"}, names
+
+
+def test_k9a_and_k9b_route_by_query_type(cuda):
+    """bf16 K9a and K9b launch the page walk's 1-byte path (walk_mma_kernel
+    and its combine) and count their own launches, not K10c/K10d's nor
+    K1/K2's; f32 K9a and K9b launch the chunk template (paged_partial_kernel
+    and its combine), whose 1-byte entries refuse bf16 queries."""
+    counters = (kpa.paged_decode_q8, kpa.paged_verify_q8, kfb.paged_decode_fallback_q8,
+                kfb.paged_verify_fallback_q8, kpa.paged_decode, kpa.paged_verify)
+    for kind in ("int8", "fp8"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows in (1, 14):
+                q, cache, layer, bt, ctx, scale = q8_case(132, 4, rows, dtype, kind, cuda, bs=256, nb=40, m=4)
+                if rows == 1:
+                    run = lambda: kpa.paged_decode_q8(q, cache, layer, bt, ctx, scale)  # noqa: E731
+                else:
+                    run = lambda: kpa.paged_verify_q8(q, cache, layer, bt, ctx, scale, rows)  # noqa: E731
+                before = [fn.launches for fn in counters]
+                names = _kernel_names(run)
+                counted = [fn.launches - n for fn, n in zip(counters, before)]
+                own = 0 if rows == 1 else 1  # a warm-up and each trace count
+                assert counted[own] >= 2 and counted[1 - own] == 0 and counted[2:] == [0] * 4, counted
+                if dtype == torch.bfloat16:
+                    assert names == {"walk_mma_kernel", "walk_combine_kernel"}, names
+                else:
+                    assert names == {"paged_partial_kernel", "paged_combine_kernel"}, names
+    q, cache, layer, bt, ctx, scale = q8_case(133, 2, 2, torch.bfloat16, "int8", cuda)
+    for fn, rows in (("npt_paged_decode_q8", 1), ("npt_paged_verify_q8", 2)):
+        tables = bt.repeat_interleave(2, 0).contiguous() if rows == 1 else bt
+        with pytest.raises(RuntimeError):  # the chunk template has no bf16 1-byte instantiation
+            kpa._launch(fn, q, cache, layer, tables, ctx, scale, rows)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [16, 32, 128, 256])
+def test_walk_k9b_rows_equal_k9a_bitwise(cuda, kind, d):
+    """bf16 K9b on the walk's 1-byte path, G 8, D 16/32/128/256 (Hkv * D >=
+    128, the fast route's shapes): groups of 14 staircase rows whose
+    contexts start at 1 and at each side of the 128-key cell boundaries
+    (rows 120-133, 250-263 cross one), against the plain version at TOL;
+    its rows equal K9a's on the same query, context and table bit for bit,
+    and a second launch of each gives equal bits."""
+    rows, hkv = 14, max(2, 128 // d)
+    ctx0 = (1, 60, 120, 250, 375, 498)
+    q, cache, layer, bt, _, scale = q8_case(134 + d, len(ctx0), rows, torch.bfloat16, kind, cuda, hq=8 * hkv,
+                                            hkv=hkv, d=d)
+    ctx = torch.tensor([c + i for c in ctx0 for i in range(rows)], dtype=torch.int32, device=cuda)
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    got = kpa.paged_verify_q8(q, cache, layer, bt, ctx, scale, rows)
+    torch.testing.assert_close(got.float(), kpa.plain_verify(q, cache, layer, bt, ctx, scale, rows).float(),
+                               **TOL[torch.bfloat16])
+    single = kpa.paged_decode_q8(q, cache, layer, bt_rows, ctx, scale)
+    assert torch.equal(got, single)
+    assert torch.equal(kpa.paged_verify_q8(q, cache, layer, bt, ctx, scale, rows), got)
+    assert torch.equal(kpa.paged_decode_q8(q, cache, layer, bt_rows, ctx, scale), single)
 
 
 @pytest.mark.parametrize("rows,heads", [(14, (8, 128)), (8, (16, 64))])

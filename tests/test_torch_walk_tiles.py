@@ -1,5 +1,5 @@
 """The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K6a,
-K6b, K7, K8a and K8b (csrc/paged_walk.cuh) on the CPU.
+K6b, K7, K8a, K8b, K9a and K9b (csrc/paged_walk.cuh) on the CPU.
 
 - The launch plan's mirror (``walk_plan`` and ``key_cells`` in
   nano_pearl_tpu_torch/ops/cuda/paged_walk.py; the card holds it against
@@ -16,8 +16,9 @@ K6b, K7, K8a and K8b (csrc/paged_walk.cuh) on the CPU.
   D = 128), ``paged_attention_grouped`` (K10b; K2 there) and, per shard
   with the port's merge, ``parallel/sp.
   sp_paged_attention_grouped`` on a (sp=2, tp=1) mesh (K11c/K11d), at
-  tests/test_torch_sp.py's f32 tolerance, 1e-5. Over an int8 cache the
-  JAX side reads the values the walk reads: written by JAX's ``write_kv``,
+  tests/test_torch_sp.py's f32 tolerance, 1e-5. Over an int8 or e4m3
+  cache (the 1-byte path of K9a/K9b and K10c/K10d) the JAX side reads the
+  values the walk reads: written by JAX's ``write_kv``,
   dequantized and rounded to bf16 as the kernels and the plain versions
   round them (the Pallas kernels' ``_kv_head``; JAX's jnp path keeps them
   in f32), as an f32 cache. In the emulation a verify row equals its
@@ -35,9 +36,9 @@ K6b, K7, K8a and K8b (csrc/paged_walk.cuh) on the CPU.
   rows bit for bit, K8a matches JAX's ``paged_attention_split`` and K6a
   and K8b ``paged_attention_grouped_fresh_jnp`` at 1e-5; a deferred verify
   takes at most ``cell_keys(hkv)`` rows a group.
-- Which launch K1's, K2's, K6a's, K8a's and K8b's wrappers reach: the
-  walk's for bf16 queries, the chunk template's for f32 ones, each
-  counting its own launches.
+- Which launch K1's, K2's, K9a's, K9b's, K6a's, K8a's and K8b's wrappers
+  reach: the walk's for bf16 queries (its 1-byte export for K9a/K9b), the
+  chunk template's for f32 ones, each counting its own launches.
 - Why the kernels multiply P V as hi + lo bf16 parts where the Pallas
   kernels round P once: at K10b's and K11d's chip_smoke rows (contexts
   65-2300) one bf16 P meets chip_smoke.py's bf16 tolerance against the
@@ -137,7 +138,9 @@ def test_plan_at_the_paths_shapes():
     4-warp block, 3 stages. K11d on an sp shard (8x128 over 2, int8): 128-key
     cells, 56 vectors in 4 warps, 2 stages. D 256 at G 8: 14 rows in 7
     warps. K1 / K2 at the main path's decode and verify (1 and 14 rows, G 4,
-    D 128) and the serve pair's (1 and 8 rows, G 8, D 64)."""
+    D 128) and the serve pair's (1 and 8 rows, G 8, D 64); K9a / K9b at the
+    quantized path's (1 and 14 rows, G 4, D 128, int8) and K9b at D 256, G 8
+    over 1 byte."""
     k10b = walk_plan(14, 3, 5, 64, 256, 2)
     assert (k10b.cell, k10b.rpb, k10b.threads, k10b.stages) == (256, 14, 128, 3)
     k11d = walk_plan(14, 4, 2, 128, 256, 2, True)
@@ -159,6 +162,19 @@ def test_plan_at_the_paths_shapes():
     for rows in (1, 8):
         p = walk_plan(rows, 8, 2, 64, 256, 2)
         assert (p.cell, p.rpb, p.threads, p.stages) == (128, rows, 128, 2), rows
+    # K9a / K9b on the quantized path (the main path's heads over a 1-byte
+    # cache): K11d's tiles, raw bytes in the ring and one dequantized tile
+    for rows in (1, 14):
+        p = walk_plan(rows, 4, 2, 128, 256, 2, True)
+        assert (p.cell, p.rpb, p.threads, p.stages) == (128, rows, 128, 2), rows
+        mrows = 16 if rows == 1 else 64
+        assert p.smem == 2 * 136 * mrows + 2 * 64 * 144 * 2 + 2 * 2 * 136 * 64 + 4 * 64 * 2 + 4 * 128 * 3
+    # ... and K9b at D 256, G 8: 14 rows (112 vectors) in 7 warps, Q 59,136 +
+    # ring 69,632 + dequantized tile 67,584 + tags 512 + slots and scales 1,536
+    q8_d256 = walk_plan(14, 8, 2, 256, 256, 2, True)
+    assert (q8_d256.cell, q8_d256.rpb, q8_d256.threads, q8_d256.stages) == (128, 14, 224, 2)
+    assert q8_d256.smem == 2 * 264 * 112 + 2 * 64 * 272 * 2 + 2 * 2 * 264 * 64 + 4 * 64 * 2 + 4 * 128 * 3
+    assert q8_d256.smem == 198_400 <= MAX_SMEM
 
 
 @pytest.mark.parametrize("cell", [128, 256])
@@ -319,9 +335,12 @@ CTX0 = [126, 254, 1, 318, 60, 330]
 
 def _caches(quant):
     """The JAX cache and the port's copy of it: bf16-valued f32 rows, or an
-    int8 cache written by JAX's ``write_kv`` (the port's copy) and, for
-    JAX, its values dequantized and rounded to bf16 as the walk reads them,
-    as f32 rows."""
+    int8 or e4m3 (``"fp8"``) cache written by JAX's ``write_kv`` (the port's
+    copy; e4m3 bytes move as uint8, which ``torch.from_numpy`` takes, and
+    are viewed as ``float8_e4m3fn``) and, for JAX, its values dequantized
+    and rounded to bf16 as the walk reads them, as f32 rows: the port's
+    dequantized values equal JAX's ``dequant_rows`` of its own cache, rounded
+    to bf16, bit for bit."""
     rng = np.random.default_rng(11)
     n = (NB + 1) * BS
     if quant is None:
@@ -335,8 +354,15 @@ def _caches(quant):
         jc = jkv.write_kv(jc, jnp.asarray(k), jnp.asarray(v), jnp.arange(n, dtype=jnp.int32), jnp.int32(li))
     stride = jc["s"].shape[-1] // HKV
     s = torch.from_numpy(np.asarray(jc["s"])[..., ::stride].view(np.int16).copy()).view(torch.bfloat16)
-    tc = tkv.QuantKVCache(torch.from_numpy(np.asarray(jc["q"]).copy()), s)
+    values = np.asarray(jc["q"])
+    if quant == "fp8":
+        q8 = torch.from_numpy(values.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    else:
+        q8 = torch.from_numpy(values.copy())
+    tc = tkv.QuantKVCache(q8, s)
     read = tkv.dequant_rows(tc.q, tc.s, D).bfloat16().float().reshape(tc.q.shape)
+    jax_read = jkv.dequant_rows(jc["q"], jc["s"], D).astype(jnp.bfloat16).astype(jnp.float32)
+    np.testing.assert_array_equal(read.numpy(), np.asarray(jax_read).reshape(read.shape))
     return jnp.asarray(read.numpy()), tc
 
 
@@ -354,13 +380,16 @@ def _emulate(q, tc, bt, ctx, rows, local=None, **kw):
     return walk_emulation(q, k, v, torch.from_numpy(ctx), rows, SCALE, CELL, local, **kw)
 
 
-@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
 def test_emulated_walk_matches_jax_decode_and_verify(quant):
     """K10b (groups of 3 rows sharing a table) and K10a (one row a table)
-    emulated against JAX's ``paged_attention_grouped`` and
-    ``paged_attention_jnp``, contexts at each side of the cell boundaries,
-    of 1 and past the table; the verify rows equal the decode rows bit for
-    bit."""
+    emulated against JAX's ``paged_attention_grouped(..., use_pallas=False)``
+    and ``paged_attention_jnp``, contexts at each side of the cell
+    boundaries, of 1 and past the table; the verify rows equal the decode
+    rows bit for bit. Over an int8 or e4m3 cache this is the walk's 1-byte
+    path, which K10c/K10d and, for bf16 queries, K9a/K9b launch, on the same
+    quantized values and scales as JAX's. Tolerance 1e-5: both sides sum
+    the same bf16-valued products in f32, in other orders."""
     jc, tc = _caches(quant)
     q, bt, ctx = _case()
     qj = jnp.asarray(q.float().numpy())
@@ -412,23 +441,19 @@ def test_emulated_walk_matches_jax_at_k1_k2_shapes(g):
     assert torch.equal(verify, decode)
 
 
-def test_k1_k2_route_by_query_type(monkeypatch):
-    """The wrappers of K1 and K2 on a tensor that is not on the CPU (here
-    on the meta device, with the launches replaced by recorders): bf16
-    queries reach the page walk's launch (``paged_walk.launch`` of the
-    fallbacks' export ``npt_fallback``, the cache taken as bf16), f32
-    queries the chunk template's (``npt_paged_decode`` / ``npt_paged_verify``),
-    and each call counts one launch of its own kernel and none of
-    K10a/K10b's."""
+def _record_launches(monkeypatch) -> list:
+    """Replace the walk's launch (and its library, by a stand-in whose
+    exports are their names) and the chunk template's launch by recorders;
+    returns the list they append to: ("walk", the stand-in library, export,
+    quant, rows) or ("chunk", entry, rows)."""
     from types import SimpleNamespace
 
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
-    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
     from nano_pearl_tpu_torch.ops.cuda import paged_walk
 
     calls = []
-    fake = SimpleNamespace(npt_fallback="npt_fallback")
-    monkeypatch.setattr(kfb, "_lib", lambda: fake)
+    fake = SimpleNamespace(npt_walk="npt_walk", npt_walk_q8="npt_walk_q8")
+    monkeypatch.setattr(paged_walk, "_lib", lambda: fake)
 
     def walk(lib, fn, quant, q, cache, layer, tables, ctx, scale, rows, **kw):
         calls.append(("walk", lib is fake, fn, quant, rows))
@@ -440,6 +465,20 @@ def test_k1_k2_route_by_query_type(monkeypatch):
 
     monkeypatch.setattr(paged_walk, "launch", walk)
     monkeypatch.setattr(kpa, "_launch", chunk)
+    return calls
+
+
+def test_k1_k2_route_by_query_type(monkeypatch):
+    """The wrappers of K1 and K2 on a tensor that is not on the CPU (here
+    on the meta device, with the launches replaced by recorders): bf16
+    queries reach the page walk's launch (``paged_walk.launch`` of the
+    walk's export ``npt_walk``, the cache taken as bf16), f32 queries the
+    chunk template's (``npt_paged_decode`` / ``npt_paged_verify``), and each
+    call counts one launch of its own kernel and none of K10a/K10b's."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+
+    calls = _record_launches(monkeypatch)
     counters = (kpa.paged_decode, kpa.paged_verify, kfb.paged_decode_fallback, kfb.paged_verify_fallback)
     for dtype in (torch.bfloat16, torch.float32):
         meta = dict(dtype=dtype, device="meta")
@@ -451,11 +490,45 @@ def test_k1_k2_route_by_query_type(monkeypatch):
         assert kpa.paged_verify(q, cache, 1, bt[:2], ctx, 0.1, 3).shape == q.shape
         assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0, 0]
         if dtype == torch.bfloat16:
-            assert calls[-2:] == [("walk", True, "npt_fallback", False, 1), ("walk", True, "npt_fallback", False, 3)]
+            assert calls[-2:] == [("walk", True, "npt_walk", False, 1), ("walk", True, "npt_walk", False, 3)]
         else:
             assert calls[-2:] == [("chunk", "npt_paged_decode", 1), ("chunk", "npt_paged_verify", 3)]
     with pytest.raises(ValueError):  # K2 takes two rows a group or more, on either route
         kpa.paged_verify(q, cache, 1, bt, ctx, 0.1, 1)
+
+
+def test_k9_route_by_query_type(monkeypatch):
+    """The wrappers of K9a and K9b on an int8 cache that is not on the CPU
+    (the meta device, the launches replaced by recorders): bf16 queries
+    reach the page walk's launch of its 1-byte export ``npt_walk_q8`` with
+    ``quant`` set (K10c/K10d's launch), f32 queries the chunk template's
+    ``npt_paged_decode_q8`` / ``npt_paged_verify_q8``; each call counts one
+    launch of its own kernel and none of K10c/K10d's, and K9b refuses one
+    row a group on either route."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+
+    calls = _record_launches(monkeypatch)
+    cache = tkv.QuantKVCache(torch.empty((2, 2, 9, 256, 256), dtype=torch.int8, device="meta"),
+                             torch.empty((2, 2, 9, 256, 2), dtype=torch.bfloat16, device="meta"))
+    bt = torch.empty((6, 4), dtype=torch.int32, device="meta")
+    ctx = torch.empty(6, dtype=torch.int32, device="meta")
+    counters = (kpa.paged_decode_q8, kpa.paged_verify_q8, kfb.paged_decode_fallback_q8,
+                kfb.paged_verify_fallback_q8, kpa.paged_decode, kpa.paged_verify)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.empty((6, 8, 128), dtype=dtype, device="meta")
+        before = [fn.launches for fn in counters]
+        assert kpa.paged_decode_q8(q, cache, 1, bt, ctx, 0.1).shape == q.shape
+        assert kpa.paged_verify_q8(q, cache, 1, bt[:2], ctx, 0.1, 3).shape == q.shape
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
+        if dtype == torch.bfloat16:
+            assert calls[-2:] == [("walk", True, "npt_walk_q8", True, 1), ("walk", True, "npt_walk_q8", True, 3)]
+        else:
+            assert calls[-2:] == [("chunk", "npt_paged_decode_q8", 1), ("chunk", "npt_paged_verify_q8", 3)]
+        n = len(calls)
+        with pytest.raises(ValueError):  # K9b takes two rows a group or more, on either route
+            kpa.paged_verify_q8(q, cache, 1, bt, ctx, 0.1, 1)
+        assert len(calls) == n
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])

@@ -3,7 +3,7 @@
 rows and a bench path's loop.
 
     python3 tools/pair_trees.py --parent DIR [--turns parent,change,change,parent]
-                                [--rows k1k2[,mono][,overrides] | none] [--paths main]
+                                [--rows k1k2[,mono][,overrides][,q8] | none] [--paths main]
                                 [--out DIR]
 
 DIR holds another tree of the repository (for example the parent commit,
@@ -26,7 +26,10 @@ on the path (``--turn ROOT``), unless ``--rows none``:
   K8a (``paged_decode_split``: the split path's 32 gamma-scan rows), K6a
   (``paged_verify_fresh``) and K8b (``paged_verify_fresh_split``) at a
   verify chunk of 16 groups x 14 rows and at pre-round contexts 1-50
-  (chip_smoke.py's decode_split_row and fresh_row inputs). For each row:
+  (chip_smoke.py's decode_split_row and fresh_row inputs); "q8", K9a
+  (``paged_decode_q8``: the quantized path's B=32 decode) and K9b
+  (``paged_verify_q8``: a verify chunk of 16 groups x 14 rows), each over an
+  int8 and an e4m3 cache (chip_smoke.py's q8_row inputs). For each row:
   kernel ms (chip_smoke.py's ``time_ms``, L2 flushed, with and without the
   spin), the device us per call of each CUDA kernel a call launches
   (torch.profiler over CALLS calls, L2 warm), and the wrapper's host us per
@@ -118,6 +121,14 @@ def turn(root: Path, out: Path, sets: list[str]) -> None:
             args = (q, cache, 1, bt, ctx, c0, fk, fv, scale, 14)
             rows["k6a" + name] = (kpa.paged_verify_fresh, args)
             rows["k8b" + name] = (kpa.paged_verify_fresh_split, args)
+    if "q8" in sets:
+        for name, n, rows_, seed in (("k9a", 32, 1, 0), ("k9b", 16, 14, 1)):
+            for kind in ("int8", "fp8"):
+                q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, n, rows_, ctxs(65, 2300, seed, n))
+                args = (q, quantized(cache, kind), 1, bt, ctx, scale)
+                del cache
+                rows[f"{name}_{kind}"] = ((kpa.paged_decode_q8, args) if rows_ == 1 else
+                                          (kpa.paged_verify_q8, args + (rows_,)))
     if "mono" in sets:
         for name, rows_, seed in (("k5_decode", 1, 0), ("k5_r14", 14, 1)):
             q, cache, bt, ctx, scale = cs.paged_inputs(gen, dev, 32, rows_, ctxs(65, 2300, seed))
@@ -166,14 +177,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the other tree's root")
     ap.add_argument("--turns", default="parent,change,change,parent")
-    ap.add_argument("--rows", default="k1k2", help="kernel row sets: k1k2, mono, overrides, comma-separated, or none")
+    ap.add_argument("--rows", default="k1k2",
+                    help="kernel row sets: k1k2, mono, overrides, q8, comma-separated, or none")
     ap.add_argument("--paths", default="main")
     ap.add_argument("--out", default="chiprun_out/pair")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # internal: one turn in this tree root
     args = ap.parse_args()
     out = Path(args.out)
     sets = [] if args.rows == "none" else args.rows.split(",")
-    if not set(sets) <= {"k1k2", "mono", "overrides"}:
+    if not set(sets) <= {"k1k2", "mono", "overrides", "q8"}:
         ap.error(f"unknown row set in {args.rows}")
     if args.turn:
         turn(Path(args.turn).resolve(), out, sets)

@@ -2,7 +2,7 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,prefill]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,prefill]
                                         [--unprofiled] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
@@ -19,9 +19,11 @@ target_sp = 2, both shards on the one card: K11a/K11c and the merge);
 "fallback" the main path's run on the layer-share pair at SmolLM2-360M's
 published widths (3L/32L, 15x64 query heads over 5: chip_smoke.py's
 checkpoint_path shapes, built in memory, no checkpoint written), whose
-Hkv * D = 320 sends decode to K10a and the verify to K10b. An override
-path runs its PEARL rounds only: its AR is the base path's program. Each
-loop runs twice:
+Hkv * D = 320 sends decode to K10a and the verify to K10b; "quant"
+chip_smoke.py's quant_path (main with an int8 KV cache and int8 weights,
+bench.py --kv-quant int8 --quant int8: decode through K9a, the verify
+through K9b). An override path runs its PEARL rounds only: its AR is the
+base path's program. Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -40,8 +42,8 @@ and its attention, writeback and LM head, verdict), taken with
 perf_counter around those calls in the unprofiled run: the host only
 enqueues there, so this is dispatch time. It prints the card's name and
 power limit first. Needs one CUDA card. ``--unprofiled`` runs the PEARL
-loop's unprofiled pass alone (loop ms, tok/s and host stages, K1's and K2's
-wrappers among them; no profiler pass, no AR loop), under a minute a path,
+loop's unprofiled pass alone (loop ms, tok/s and host stages, K1's, K2's,
+K9a's and K9b's wrappers among them; no profiler pass, no AR loop), under a minute a path,
 for turns of two trees in one call. ``--tree ROOT`` runs another tree of the
 repository (its package and chip_smoke.py) under this script, so that a
 parent tree is measured with the same stages.
@@ -169,9 +171,12 @@ PATHS = {
     "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3] + (1,),
     "sp": ("ceiling", 0.0, None, 2),
     "fallback": ("ceiling", 0.0, None, 1),
+    "quant": ("ceiling", 0.0, None, 1),
 }
 # path -> (target layers, the pair's widths) where not the bench's 36 layers
 PAIRS = {"fallback": (32, SMOLLM2_360M)}
+# path -> (KV cache quantization, weight quantization) of both models
+QUANT = {"quant": ("int8", "int8")}
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
 HOST_STAGES = {
@@ -181,6 +186,8 @@ HOST_STAGES = {
     "verify_attention_deferred": ("nano_pearl_tpu_torch.engine.runner", "paged_attention_grouped_fresh"),
     "k1_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_decode"),
     "k2_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify"),
+    "k9a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_decode_q8"),
+    "k9b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_q8"),
     "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
     "k6b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_fresh"),
     "k6a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh"),
@@ -290,8 +297,9 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
 def profile_path(dev, path: str, profiled: bool = True) -> None:
     profile, noise, env, sp = PATHS[path]
     layers, widths = PAIRS.get(path, (36, None))
-    engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, env=env, sp=sp,
-                         widths=widths)
+    kv_quant, quant = QUANT.get(path, (None, None))
+    engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, kv_quant=kv_quant,
+                         quant=quant, env=env, sp=sp, widths=widths)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -302,7 +310,8 @@ def profile_path(dev, path: str, profiled: bool = True) -> None:
 
     head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
             **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {}),
-            **({"target_layers": layers, "widths": "SmolLM2-360M"} if widths else {})}
+            **({"target_layers": layers, "widths": "SmolLM2-360M"} if widths else {}),
+            **({"kv_quant": kv_quant, "quant": quant} if kv_quant else {})}
     out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
                   lambda: engine.bench_generate(num_pearl_steps=ROUNDS), profiled)
     print(json.dumps({**head, **out}), flush=True)
