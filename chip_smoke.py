@@ -58,11 +58,13 @@ script exits non-zero without its last line):
    one serve-shape sequence alone and in its batch of 8, bit for bit (the
    K3/K4 rows carry their tiles and split, ``design`` and ``split``, held
    against the launchers' exported choice; the bf16 K1/K2, K9a/K9b (the
-   walk's 1-byte path), K10/K11, K7, K6a/K6b and K8a/K8b rows their page
-   walk's plan, ``design``, held against the exported
-   ``npt_walk_plan``,
+   walk's 1-byte path), K10/K11, K7, K6a/K6b, K8a/K8b and K5/K9c (K1/K2's
+   and K9a/K9b's walk) rows their page walk's plan,
+   ``design``, held against the exported ``npt_walk_plan``,
    the ``blocks`` they launch, their ``share`` of the bound, and, as the
-   K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin);
+   K3/K4 rows, ``no_spin``: kernel and SDPA timed without the spin; the
+   K5/K9c rows also their rows against K1's (K9a's) and their own decode
+   rows bit for bit, ``k5_k1_equal`` / ``k9c_k9a_equal``);
 4. decode_verify_bitwise: the draft's decode and the target's verify
    chunk re-score one position at the main path's and the serve pair's
    shapes (batches below and above one verify chunk's rows); the first
@@ -97,7 +99,8 @@ script exits non-zero without its last line):
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
    decode through K9a, verify through K9b, no K10c/K10d launch, the KV
    pools' bytes per block against the bf16 run's); quant_throughput_path:
-   the throughput path with --kv-quant fp8 --quant fp8 (K9c), 73 rounds;
+   the throughput path with --kv-quant fp8 --quant fp8 (K9c), 73 rounds
+   (each path's K5/K9c calls counted by kind, decode or verify);
    each with its AR over the first sixth of its window;
    split_path, deferred_db_path (the main path's run under
    NANO_PEARL_SPLIT=1: K8a, K8b; and NANO_PEARL_DEFERRED_VERIFY=1: K1, K6a)
@@ -496,10 +499,35 @@ def prefill_design(name, g, d, prefix, n_keys=0) -> tuple[str, dict | None]:
     return design, dict(cell_keys=plan.cell, cells=cells, combine=cells > 1)
 
 
+def mono_walk_fields(name, fn, single, quant, got, q, cache, layer, bt, ctx, scale, rows, hq, hkv, d) -> dict:
+    """What a bf16 K5 / K9c row adds on K1/K2's (K9a/K9b's) walk: ``fn``
+    (K5 or K9c) again gives ``got`` bit for bit, ``single`` (K1 or K9a) and
+    ``fn``'s own decode give its rows bit for bit (``k5_k1_equal`` /
+    ``k9c_k9a_equal``); the walk's ``design``, ``blocks`` and
+    ``plan_blocks`` (profiled last)."""
+    from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
+
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    if not torch.equal(fn(q, cache, layer, bt, ctx, scale, rows), got):
+        raise AssertionError(f"{name}: a second launch gives other bits")
+    if not (torch.equal(single(q, cache, layer, bt_rows, ctx, scale), got)
+            and torch.equal(fn(q, cache, layer, bt_rows, ctx, scale, 1), got)):
+        raise AssertionError(f"{name}: rows differ from {single.__name__}'s or from its own decode rows")
+    run = lambda: fn(q, cache, layer, bt, ctx, scale, rows)  # noqa: E731
+    out = {"k9c_k9a_equal" if quant else "k5_k1_equal": True, "second_launch_bitwise": True}
+    out.update(zip(("design", "blocks", "plan_blocks"),
+                   walk_design(name, kpw._lib(), run, ctx, bt, rows, hq, hkv, d,
+                               (cache.q if quant else cache).shape[3], quant)))
+    return out
+
+
 def mono_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
     """K5 on one group of ``rows`` staircase rows per context in ``ctx0``
-    (rows 1: the throughput profile's decode)."""
+    (rows 1: the throughput profile's decode), bf16 on K1/K2's walk
+    (``mono_walk_fields``), timed spun and unspun (``no_spin``) beside
+    SDPA."""
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
 
     groups = len(ctx0)
     q, cache, bt, ctx, scale = paged_inputs(gen, dev, groups, rows, ctx0, hq=hq, hkv=hkv, d=d)
@@ -512,15 +540,20 @@ def mono_row(gen, dev, flush, name, ctx0, rows, hq, d, hkv=2, layer=1) -> dict:
     kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * d * 2
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    return dict(
-        name=name, kernel="mono_attention", route="cuda", source="nano_pearl_tpu_torch/csrc/mono_attention.cu",
+    run = lambda: kmo.mono_attention(*args)  # noqa: E731
+    ms = time_ms(run, 50, flush)
+    row = dict(
+        name=name, kernel="mono_attention", route="cuda", source="nano_pearl_tpu_torch/csrc/paged_walk.cu",
         replaces="nano_pearl_tpu/ops/pallas/paged_attention.py:612",
-        max_abs_err=err, ms=time_ms(lambda: kmo.mono_attention(*args), 50, flush),
-        plain_ms=time_ms(lambda: kmo.plain_mono(*args), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 50, flush),
+        max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: kmo.plain_mono(*args), 10, flush),
+        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
+        no_spin=no_spin_ms(run, lib, 50, flush),
         shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
                    ctx_max=int(ctx.max())),
     )
+    row.update(mono_walk_fields(name, kmo.mono_attention, kpa.paged_decode, False, got, q, cache, layer, bt,
+                                ctx, scale, rows, hq, hkv, d))
+    return row
 
 
 def cache_partials_row(gen, dev, flush, name="cache_partials", lo=65, hi=2300, hq=8, d=128, hkv=2, layer=1,
@@ -935,7 +968,9 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
     dequantized to bf16 (the SDPA call alone is timed), both timed with and
     without the spin (``no_spin``). K9a and K9b run on the page walk's 1-byte
     path (``paged_walk.cu``): their rows carry the walk's ``design``, the
-    ``blocks`` one call launched and ``plan_blocks``, as K1/K2's rows do."""
+    ``blocks`` one call launched and ``plan_blocks``, as K1/K2's rows do; K9c
+    on the same launch, with ``mono_walk_fields`` (its rows against K9a's
+    bit for bit)."""
     from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
     from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
     from nano_pearl_tpu_torch.ops.cuda import paged_walk as kpw
@@ -966,12 +1001,11 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
     kv_tokens = float(ctx.reshape(groups, rows).max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + ctx.numel() * 4 + kv_tokens * 2 * hkv * (d + 2)
     b_ms, b_by = bound(nbytes, 4 * float(ctx.sum()) * hq * d)
-    walked = kernel != "mono_q8"
     run = lambda: fn(*args)  # noqa: E731
     ms = time_ms(run, 50, flush)
     row = dict(
         name=name, kernel=kernel, route="cuda",
-        source="nano_pearl_tpu_torch/csrc/" + ("paged_walk.cu" if walked else "mono_attention.cu"),
+        source="nano_pearl_tpu_torch/csrc/paged_walk.cu",
         replaces=Q8_KERNELS[kernel], cache=kind,
         max_abs_err=err, ms=ms, plain_ms=time_ms(lambda: plain(*args), 10, flush),
         bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, library_ms=time_ms(lib, 50, flush),
@@ -981,7 +1015,10 @@ def q8_row(gen, dev, flush, name, kind, ctx0, rows, hq=8, d=128, hkv=2, layer=1)
         shape=dict(groups=groups, rows=rows, hq=hq, hkv=hkv, d=d, ctx_min=int(ctx.min()),
                    ctx_max=int(ctx.max())),
     )
-    if walked:  # profiled last, after the row's timings
+    if kernel == "mono_q8":
+        row.update(mono_walk_fields(name, kmo.mono_q8, kpa.paged_decode_q8, True, got, q, qc, layer, bt, ctx,
+                                    scale, rows, hq, hkv, d))
+    else:  # profiled last, after the row's timings
         row.update(zip(("design", "blocks", "plan_blocks"),
                        walk_design(name, kpw._lib(), run, ctx, bt, rows, hq, hkv, d, qc.q.shape[3], True)))
     return row
@@ -997,7 +1034,7 @@ FALLBACK_KERNELS = {  # K10a-d's wrappers -> the TPU kernel body each replaces
 
 def walk_design(name, lib, run, ctx, bt, rows, hq, hkv, d, bs, quant, is_local=None, ctx0=None, cut=None
                 ) -> tuple[str, dict, dict]:
-    """The bf16 page walk's plan for a K10/K11, K1/K2, K9a/K9b, K7, K6a/K6b or
+    """The bf16 page walk's plan for a K10/K11, K1/K2, K9a-c, K5, K7, K6a/K6b or
     K8a/K8b row (``paged_walk.walk_plan``, checked against the launchers'
     exported ``npt_walk_plan``) as the row's ``design`` line; the blocks one call of
     ``run`` launched, by kernel (``launched_blocks``), checked against the
@@ -1819,6 +1856,31 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def mono_calls(calls: dict):
+    """Count the mono schedule's attention calls of the engine's runners
+    (each one K5 or K9c call on the card) by kind into ``calls``: decode
+    (one row a group) or verify (more)."""
+    import functools
+
+    from nano_pearl_tpu_torch.engine import runner
+
+    orig = runner.paged_attention_mono
+
+    @functools.wraps(orig)
+    def counted(*args, **kwargs):
+        rows = kwargs.get("rows_per_group", args[6] if len(args) > 6 else 1)
+        kind = "decode" if rows == 1 else "verify"
+        calls[kind] = calls.get(kind, 0) + 1
+        return orig(*args, **kwargs)
+
+    runner.paged_attention_mono = counted
+    try:
+        yield calls
+    finally:
+        runner.paged_attention_mono = orig
+
+
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
               ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
               label: str | None = None, sp: int = 1) -> tuple[dict, dict]:
@@ -1834,8 +1896,9 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     limit). ``dirs``: the (draft, target) checkpoint directories to load in
     place of the layer-share pair (``label`` its description, ``vocab`` its
     vocabulary). ``sp``: draft_sp = target_sp. The launch counters are set
-    to 0 just before the measured runs. Returns (the phase's line without
-    its name, launches)."""
+    to 0 just before the measured runs; the mono schedule's K5/K9c calls
+    are also counted by kind (``mono_calls``). Returns (the phase's line
+    without its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
     counters = kernel_counters()
@@ -1865,12 +1928,14 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     torch.cuda.reset_peak_memory_stats(dev)
     # both runs decode the same prompts, so their streams can be compared
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
-    pearl_toks, num_tokens, _, pearl_t = engine.bench_generate(num_pearl_steps=steps)
+    with mono_calls({}) as pearl_mono:
+        pearl_toks, num_tokens, _, pearl_t = engine.bench_generate(num_pearl_steps=steps)
     pearl_launches = {k: fn.launches for k, fn in counters.items()}
-    ar_toks = []
+    ar_toks, ar_mono = [], {}
     if ar_of is None:
         add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
-        ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
+        with mono_calls(ar_mono):
+            ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
     launches = {k: fn.launches for k, fn in counters.items()}
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1897,6 +1962,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
         "round_ms": pearl_t / steps * 1e3, "engine_build_s": build_s,
         "launches": launches, "launches_pearl_run": pearl_launches,
         "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
+        **({"mono_calls_pearl_run": pearl_mono, "mono_calls_ar_run": ar_mono} if pearl_mono or ar_mono else {}),
         "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes, **shards,
     }
     if ar_of is not None:
@@ -2512,7 +2578,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "no_spin",
-                  "share", "blocks", "k2_row_equal")
+                  "share", "blocks", "k2_row_equal", "k5_k1_equal", "k9c_k9a_equal")
     line = []
     for name in kernel_counters():  # one row per kernel; its other shapes beside it
         first, *others = [r for r in kernels if r["kernel"] == name]
@@ -2520,7 +2586,7 @@ def main() -> int:
         first["launches"] = sum(first["launches_by_path"].values())
         line.append({**{k: first[k] for k in keys},
                      **{k: first[k] for k in ("no_spin", "share", "design", "blocks", "k2_row_equal",
-                                              "k6b_row_equal")
+                                              "k6b_row_equal", "k5_k1_equal", "k9c_k9a_equal")
                         if k in first},
                      "other_shapes": [{k: r[k] for k in shape_keys if k in r} for r in others]})
     emit({"kernels": line})

@@ -1,6 +1,6 @@
 // Grouped paged attention on the mono schedule, for sm_90a: the
-// "throughput" profile's attention kernels, on CUDA cores (the mono
-// template below).
+// "throughput" profile's attention kernels with f32 queries, on CUDA cores
+// (the mono template below).
 //
 // K5 npt_mono_attention: R query rows per group share one block table,
 //   each row with its own (staircase) context; decode is R = 1. Replaces
@@ -28,18 +28,19 @@
 //   merge_attn_partials, three launches and a dozen torch ops per layer.
 //
 // Where each route runs:
-// - K5 and K9c, bf16 and f32 queries: here.
-// - K7 and K6b, f32 queries: here (the f32 exactness pairs hold them at
-//   1e-4; the tensor cores would take f32 as TF32).
-// - K7 and K6b, bf16 queries: not here; the entries below refuse them.
-//   They run on the tensor-core page walk of csrc/paged_walk.cuh, through
-//   csrc/paged_attention_partials.cu (npt_partials with every slot local;
-//   npt_fresh_walk, the fresh window as the walk's last cell). At a packed
+// - K5, K7, K6b and K9c, f32 queries: here (the f32 exactness pairs hold
+//   them at 1e-4; the tensor cores would take f32 as TF32).
+// - bf16 queries: not here; every entry below refuses them. At a packed
 //   verify's 14 rows the template's serial dot products on CUDA cores are
 //   bound by shared-memory reads, and no copy is in flight while a tile is
-//   folded; the walk runs S = Q K^T and P V on mma.sync behind a cp.async
-//   ring. Nothing under the throughput profile relies on K7 or K6b giving
-//   K5's bits.
+//   folded; the tensor-core page walk of csrc/paged_walk.cuh runs S = Q K^T
+//   and P V on mma.sync behind a cp.async ring. K7 and K6b run on it through
+//   csrc/paged_attention_partials.cu (npt_partials with every slot local;
+//   npt_fresh_walk, the fresh window as the walk's last cell), K5 and K9c
+//   through K1/K2's and K9a/K9b's launch of csrc/paged_walk.cu (npt_walk,
+//   npt_walk_q8: the walk and its combine kernel, two launches a call; a
+//   fold inside the walk's last block measured slower, PERF.md). Nothing
+//   under the throughput profile relies on K7 or K6b giving K5's bits.
 //
 // The TPU kernels walk one flat stream of (group, 1024-key chunk) items
 // in one grid step, counted from each group's own context, so no step
@@ -62,9 +63,9 @@
 // 0, 1, ... and writes the output; it also resets the counter to 0, so
 // the counters are zero again when the launch ends. The fold reads the
 // stored partials in a fixed order whichever block arrives last, so the
-// result does not depend on the blocks' timing. The fold order differs
-// from K1/K2's (partials of K1's separate combine launch); nothing under
-// the throughput profile relies on decode == verify bit for bit.
+// result does not depend on the blocks' timing. Its chunks and fold order
+// differ from the f32 K1/K2's (paged_attention.cu): nothing relies on f32
+// K5 rows equalling K1's bit for bit (bf16 K5 rows do, on the walk).
 //
 // Bound on the H100: bytes. A group reads its context's K/V once per KV
 // head (ctx * 2 * Hkv * D elements) and does 4 * ctx * Hq * D flops per
@@ -313,20 +314,6 @@ cudaError_t launch(int groups, int rows, const void* q, const void* cache, const
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_q8_type(int groups, int rows, const void* q, const void* cache,
-                             const void* scales, const int* bt, const int* ctx, void* out,
-                             float* part_acc, float* part_ml, int* counters, int m, int hq,
-                             int hkv, int d, int bs, long long k_off, long long v_off, float scale,
-                             int max_chunks, int is_fp8, cudaStream_t s) {
-  if (is_fp8)
-    return launch<T, false, __nv_fp8_e4m3>(groups, rows, q, cache, bt, ctx, out, nullptr, nullptr,
-                                           part_acc, part_ml, counters, m, hq, hkv, d, bs, k_off,
-                                           v_off, scale, max_chunks, s, scales);
-  return launch<T, false, int8_t>(groups, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
-                                  part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                  max_chunks, s, scales);
-}
 
 }  // namespace npt
 
@@ -335,22 +322,19 @@ extern "C" {
 // Key positions per work item: the wrapper sizes the scratch with it.
 int npt_mono_chunk_tokens() { return npt::kMonoChunk; }
 
-// K5. q, out [b * rows, hq, d]; bt [b, m]; ctx [b * rows], each >= 1;
-// part_acc [b * max_chunks, hkv, rows * hq / hkv, d] and part_ml [..., 2]
-// f32 scratch, max_chunks = ceil(m * bs / npt_mono_chunk_tokens());
+// K5, f32 queries (bf16 ones are refused: they take K1/K2's walk of
+// paged_walk.cu). q, out [b * rows, hq, d]; bt [b, m]; ctx [b * rows],
+// each >= 1; part_acc [b * max_chunks, hkv, rows * hq / hkv, d] and part_ml
+// [..., 2] f32 scratch, max_chunks = ceil(m * bs / npt_mono_chunk_tokens());
 // counters [b * hkv * rows] int32, zero. Returns cudaGetLastError().
 int npt_mono_attention(const void* q, const void* cache, const int* bt, const int* ctx, void* out,
                        float* part_acc, float* part_ml, int* counters, int b, int rows, int m,
                        int hq, int hkv, int d, int bs, long long k_off, long long v_off,
                        float scale, int max_chunks, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)npt::launch<__nv_bfloat16, false>(b, rows, q, cache, bt, ctx, out, nullptr,
-                                                  nullptr, part_acc, part_ml, counters, m, hq, hkv,
-                                                  d, bs, k_off, v_off, scale, max_chunks, s);
+  if (is_bf16) return (int)cudaErrorInvalidValue;
   return (int)npt::launch<float, false>(b, rows, q, cache, bt, ctx, out, nullptr, nullptr, part_acc,
                                         part_ml, counters, m, hq, hkv, d, bs, k_off, v_off, scale,
-                                        max_chunks, s);
+                                        max_chunks, static_cast<cudaStream_t>(stream));
 }
 
 // K7, f32 queries (bf16 ones are refused: they take the walk). As K5, ctx
@@ -384,22 +368,23 @@ int npt_mono_fresh(const void* q, const void* cache, const void* fk, const void*
       d, bs, k_off, v_off, scale, max_chunks, s, nullptr, ctx0, fk, fv);
 }
 
-// K9c. As K5 over a 1-byte cache (int8, or e4m3 with is_fp8) and its
-// bf16 scales [rows, hkv]; q, out bf16 or f32 (is_bf16).
+// K9c, f32 queries (bf16 ones are refused: they take K9a/K9b's walk of
+// paged_walk.cu, its 1-byte path). As K5 over a 1-byte cache (int8, or
+// e4m3 with is_fp8) and its bf16 scales [rows, hkv].
 int npt_mono_q8(const void* q, const void* cache, const void* scales, const int* bt,
                 const int* ctx, void* out, float* part_acc, float* part_ml, int* counters, int b,
                 int rows, int m, int hq, int hkv, int d, int bs, long long k_off, long long v_off,
                 float scale, int max_chunks, int is_bf16, int is_fp8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 16) return (int)cudaErrorInvalidValue;  // 16 one-byte values per load
-  if (is_bf16)
-    return (int)npt::dispatch_q8_type<__nv_bfloat16>(b, rows, q, cache, scales, bt, ctx, out,
-                                                     part_acc, part_ml, counters, m, hq, hkv, d,
-                                                     bs, k_off, v_off, scale, max_chunks, is_fp8,
-                                                     s);
-  return (int)npt::dispatch_q8_type<float>(b, rows, q, cache, scales, bt, ctx, out, part_acc,
-                                           part_ml, counters, m, hq, hkv, d, bs, k_off, v_off,
-                                           scale, max_chunks, is_fp8, s);
+  if (is_bf16 || d % 16) return (int)cudaErrorInvalidValue;  // 16 one-byte values per load
+  if (is_fp8)
+    return (int)npt::launch<float, false, __nv_fp8_e4m3>(b, rows, q, cache, bt, ctx, out, nullptr,
+                                                         nullptr, part_acc, part_ml, counters, m,
+                                                         hq, hkv, d, bs, k_off, v_off, scale,
+                                                         max_chunks, s, scales);
+  return (int)npt::launch<float, false, int8_t>(b, rows, q, cache, bt, ctx, out, nullptr, nullptr,
+                                                part_acc, part_ml, counters, m, hq, hkv, d, bs,
+                                                k_off, v_off, scale, max_chunks, s, scales);
 }
 
 const char* npt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

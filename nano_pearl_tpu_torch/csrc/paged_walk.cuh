@@ -4,9 +4,11 @@
 // partials kernels K11a-d of sequence parallelism and, with bf16 queries,
 // the deferred verify's kernels K7 and K6b of the mono schedule, K6a of the
 // db schedule and the split-boundary schedule's K8a and K8b
-// (csrc/paged_attention_partials.cu). The f32 routes of K1/K2, K9a/K9b,
-// K6a, K8a and K8b stay on paged_attention.cu's chunk template, those of
-// K7/K6b on mono_attention.cu. R rows of a group share one block
+// (csrc/paged_attention_partials.cu); the mono schedule's K5 and, over a
+// 1-byte cache, K9c launch paged_walk.cu's K1/K2 (K9a/K9b) launch with bf16
+// queries. The f32 routes of K1/K2, K9a/K9b, K6a, K8a and K8b stay on
+// paged_attention.cu's chunk template, those of K5, K7, K6b and K9c on
+// mono_attention.cu. R rows of a group share one block
 // table (R = 1: decode), each row masked at its own context; K11 also skips
 // the slots `is_local` marks as another shard's and exports (o, m, l), as
 // K7 does with every slot local. A context past the table (M * BS keys) is

@@ -1,10 +1,10 @@
 """The launch plan of the page walk (``csrc/paged_walk.cuh``) behind K10a-d,
-K11a-d and the bf16 route of K1, K2, K6a, K6b, K7, K8a, K8b, K9a and K9b,
+K11a-d and the bf16 route of K1, K2, K5, K6a, K6b, K7, K8a, K8b and K9a-c,
 mirrored in Python; the launch their wrappers share (``paged_attention.py``,
 ``paged_attention_fallback.py``, ``paged_attention_partials.py``,
 ``mono_attention.py``); the walk's library of decode and packed verify
 (``csrc/paged_walk.cu``: ``npt_walk``, ``npt_walk_q8``, loaded by ``_lib``),
-which K1/K2, K9a/K9b and K10a-d launch; and the input checks of every
+which K1/K2, K9a/K9b, K5/K9c and K10a-d launch; and the input checks of every
 paged-attention wrapper.
 
 ``walk_plan`` is the mirror of the launchers' ``walk_plan``, which both

@@ -24,8 +24,12 @@ template, whose 1-byte entries refuse bf16; K6a, K8a and K8b with bf16 queries o
 K8b's with its cut cell: K8b rows equal K8a's and K6a rows K6b's bit for
 bit, windows across 128- and 256-key multiples, as many rows as a cell,
 Hkv 2-4, D 64-256; the cells the launchers read against the mirror's),
-with f32 queries on the chunk template's cells; and which kernels each
-route launches.
+with f32 queries on the chunk template's cells; K5 and K9c with bf16
+queries on K1/K2's and K9a/K9b's walk and combine (their rows equal K1's
+and K9a's bit for bit at D 16-256, G 4/8, R 1 and 14, int8 and e4m3, and
+at long contexts; two streams at once), with f32 queries on the mono
+template, whose entries refuse bf16 and whose arrival counters are 0
+after each call; and which kernels each route launches.
 
 The kernel tests need a CUDA card and skip elsewhere; this file imports
 neither JAX nor the JAX package, so the card runs it without the
@@ -1370,3 +1374,185 @@ def test_walk_cells_mirror_matches_the_launchers(cuda):
                     n = lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, ctx, 0, 4)
                     assert [lib.npt_walk_cells(keys, cell, has_cut, cut, has_fresh, c0, rows, ctx, j, 5)
                             for j in range(n)] == folded, (keys, cell, has_cut, cut, c0, rows, ctx)
+
+
+# ---- K5 and K9c with bf16 queries: K1/K2's and K9a/K9b's walk (csrc/paged_walk.cu) ----
+
+
+def _counters_zero() -> bool:
+    """Every arrival counter of the mono template, of every (device,
+    stream), is back to 0."""
+    torch.cuda.synchronize()
+    return all(not bool(t.any()) for t in kmo._counters.values())
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("g", [4, 8])
+@pytest.mark.parametrize("d", [16, 32, 128, 256])
+def test_walk_k5_rows_equal_k1_and_k9c_rows_equal_k9a_bitwise(cuda, d, g, kind):
+    """bf16 K5 (a bf16 cache) and K9c (int8, e4m3) on K1's (K9a's) walk, G
+    4 and 8, D 16/32/128/256 (Hkv * D >= 128), groups of 14 staircase rows
+    whose contexts start at 1 and at each side of the 128-key cells (rows
+    120-133, 250-263 cross one), and one row a table: against the plain
+    version at TOL; the 14-row rows equal the decode rows and both equal
+    K1's (K9a's) on the same query, context and table, bit for bit; a
+    second launch gives the same bits, and no call leaves an arrival
+    counter of the template set."""
+    rows, hkv = 14, max(2, 128 // d)
+    ctx0 = (1, 60, 120, 250, 375, 498)
+    kw = dict(hq=g * hkv, hkv=hkv, d=d)
+    if kind is None:
+        q, cache, layer, bt, _, scale = paged_case(150 + d + g, len(ctx0), rows, torch.bfloat16, cuda, **kw)
+        mono, single = kmo.mono_attention, kpa.paged_decode
+    else:
+        q, cache, layer, bt, _, scale = q8_case(150 + d + g, len(ctx0), rows, torch.bfloat16, kind, cuda, **kw)
+        mono, single = kmo.mono_q8, kpa.paged_decode_q8
+    ctx = torch.tensor([c + i for c in ctx0 for i in range(rows)], dtype=torch.int32, device=cuda)
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    n0 = mono.launches
+    verify = mono(q, cache, layer, bt, ctx, scale, rows)
+    decode = mono(q, cache, layer, bt_rows, ctx, scale)
+    assert mono.launches == n0 + 2 and _counters_zero()
+    torch.testing.assert_close(verify.float(), kmo.plain_mono(q, cache, layer, bt, ctx, scale, rows).float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(verify, decode)
+    assert torch.equal(decode, single(q, cache, layer, bt_rows, ctx, scale))
+    assert torch.equal(mono(q, cache, layer, bt, ctx, scale, rows), verify)
+    assert torch.equal(mono(q, cache, layer, bt_rows, ctx, scale), decode)
+    assert _counters_zero()
+
+
+def _kernel_counts(run) -> dict:
+    """The CUDA kernels one call of ``run`` launched and how many times
+    each, from a torch.profiler trace of a second call (``_kernel_names``'
+    sessions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    counts = {}
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        counts = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                name = e.key.split("(")[0].split("<")[0].split("::")[-1]
+                counts[name] = counts.get(name, 0) + e.count
+        if counts:
+            break
+    return counts
+
+
+def test_k5_and_k9c_route_by_query_type(cuda):
+    """bf16 K5 and K9c launch K1/K2's (K9a/K9b's) walk and its combine,
+    one kernel each a call over a table of several cells, and count their
+    own launches, not K1/K2/K9a/K9b's; f32 K5 and K9c launch the mono
+    template alone."""
+    counters = (kmo.mono_attention, kmo.mono_q8, kpa.paged_decode, kpa.paged_verify, kpa.paged_decode_q8,
+                kpa.paged_verify_q8)
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in (1, 14):
+            for kind in (None, "int8", "fp8"):
+                if kind is None:
+                    q, cache, layer, bt, ctx, scale = paged_case(160, 4, rows, dtype, cuda, bs=256, nb=40, m=4)
+                    fn, own = kmo.mono_attention, 0
+                else:
+                    q, cache, layer, bt, ctx, scale = q8_case(160, 4, rows, dtype, kind, cuda, bs=256, nb=40, m=4)
+                    fn, own = kmo.mono_q8, 1
+                before = [c.launches for c in counters]
+                counts = _kernel_counts(lambda: fn(q, cache, layer, bt, ctx, scale, rows))
+                counted = [c.launches - n for c, n in zip(counters, before)]
+                assert counted[own] >= 2 and not any(counted[:own] + counted[own + 1:]), counted
+                if dtype == torch.bfloat16:
+                    assert counts == {"walk_mma_kernel": 1, "walk_combine_kernel": 1}, counts
+                else:
+                    assert set(counts) == {"mono_kernel"}, counts
+
+
+def test_walk_k5_on_two_streams_at_once(cuda):
+    """K5 (verify and decode, bf16 and f32 queries) and K9c (bf16 and f32)
+    launched on two streams at once, many times over; the mono template's
+    f32 launches take their own stream's arrival counters: every output
+    equals the same call's output alone, bit for bit, and the counters are
+    0 afterwards."""
+    runs = []
+    for seed, rows, dtype in ((170, 14, torch.bfloat16), (171, 1, torch.bfloat16), (175, 14, torch.float32)):
+        q, cache, layer, bt, ctx, scale = paged_case(seed, 8, rows, dtype, cuda, m=40)
+        runs.append(lambda q=q, cache=cache, layer=layer, bt=bt, ctx=ctx, scale=scale, rows=rows:
+                    kmo.mono_attention(q, cache, layer, bt, ctx, scale, rows))
+    for seed, dtype in ((172, torch.bfloat16), (176, torch.float32)):
+        args = q8_case(seed, 8, 14, dtype, "fp8", cuda, m=40)
+        runs.append(lambda args=args: kmo.mono_q8(*args, 14))
+    alone = [run() for run in runs]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[] for _ in streams]
+    for it in range(30):
+        for j, s in enumerate(streams):
+            i = (it + j) % len(runs)
+            with torch.cuda.stream(s):
+                outs[j].append((i, runs[i]()))
+    torch.cuda.synchronize()
+    for s_outs in outs:
+        for i, got in s_outs:
+            assert torch.equal(got, alone[i]), i
+    used = {stream for _, stream in kmo._counters}
+    assert {s.cuda_stream for s in streams} <= used and _counters_zero()
+
+
+def test_mono_template_refuses_bf16(cuda):
+    """Every entry of csrc/mono_attention.cu refuses bf16 queries (their
+    bf16 routes run on the walk): K5's npt_mono_attention, K9c's
+    npt_mono_q8, K7's npt_cache_partials and K6b's npt_mono_fresh."""
+    q, cache, layer, bt, ctx, scale = paged_case(173, 3, 2, torch.bfloat16, cuda)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError):
+        kmo._launch("npt_mono_attention", "mono_attention", q, cache, layer, bt, ctx, scale, 2, (out,))
+    m_l = [torch.empty(q.shape[:2], dtype=torch.float32, device=cuda) for _ in range(2)]
+    with pytest.raises(RuntimeError):
+        kmo._launch("npt_cache_partials", "cache_partials", q, cache, layer, bt, ctx, scale, 2, (out, *m_l))
+    q8 = q8_case(173, 3, 2, torch.bfloat16, "int8", cuda)
+    with pytest.raises(RuntimeError):
+        kmo._launch("npt_mono_q8", "mono_q8", *q8[:6], 2, (out,))
+    (fq, fcache, flayer, fbt, fctx, c0, fk, fv), _, fscale = fresh_case(174, torch.bfloat16, cuda, rows=2)
+    scratch = torch.zeros(1 << 20, dtype=torch.float32, device=cuda)
+    cnt = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    b, m = fbt.shape
+    hq, d = fq.shape[1:]
+    ptrs = (fq, fcache, fk, fv, fbt, fctx, c0, torch.empty_like(fq), scratch, scratch, cnt)
+    err = kmo._lib().npt_mono_fresh(*(t.data_ptr() for t in ptrs), b, 2, m, hq, fk.shape[1], d, fcache.shape[3],
+                                    0, 0, fscale, 2, 1, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+
+
+def test_walk_k5_at_long_contexts(cuda):
+    """bf16 K5 and K9c at 14 rows of G 8 (112 query vectors a block) over
+    contexts of 14,800-16,370 keys, some 120 cells a row for the combine to
+    fold: against the plain version at TOL and K1's (K9a's) rows bit for
+    bit."""
+    rows, hq, hkv, d, bs, m = 14, 16, 2, 128, 256, 64
+    c0 = (14_800, 15_600, 16_356)
+    assert -(-(max(c0) + rows - 1) // kpw.walk_plan(rows, hq // hkv, hkv, d, bs, 2).cell) > 120
+    q, cache, layer, bt, _, scale = paged_case(180, len(c0), rows, torch.bfloat16, "cpu", nb=len(c0) * m + 4, bs=bs,
+                                               hq=hq, hkv=hkv, d=d, m=m)
+    bt = torch.arange(len(c0) * m, dtype=torch.int32).reshape(len(c0), m)
+    ctx = torch.tensor([c + i for c in c0 for i in range(rows)], dtype=torch.int32)
+    q, cache, bt, ctx = (t.to(cuda) for t in (q, cache, bt, ctx))
+    bt_rows = bt.repeat_interleave(rows, 0).contiguous()
+    caches = {None: cache}
+    for kind, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        from nano_pearl_tpu_torch.ops.kv_cache import _quantize_rows
+
+        values, scales = _quantize_rows(cache.view(-1, hkv, d), qdt)
+        caches[kind] = QuantKVCache(values.view(cache.shape), scales.view(cache.shape[:-1] + (hkv,)))
+    for kind, c in caches.items():
+        mono, single = (kmo.mono_attention, kpa.paged_decode) if kind is None else (kmo.mono_q8, kpa.paged_decode_q8)
+        got = mono(q, c, layer, bt, ctx, scale, rows)
+        torch.testing.assert_close(got.float(), kmo.plain_mono(q, c, layer, bt, ctx, scale, rows).float(),
+                                   **TOL[torch.bfloat16])
+        assert torch.equal(got, single(q, c, layer, bt_rows, ctx, scale)), kind

@@ -1,5 +1,5 @@
-"""The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K6a,
-K6b, K7, K8a, K8b, K9a and K9b (csrc/paged_walk.cuh) on the CPU.
+"""The page walk behind K10a-d, K11a-d and the bf16 route of K1, K2, K5,
+K6a, K6b, K7, K8a, K8b and K9a-c (csrc/paged_walk.cuh) on the CPU.
 
 - The launch plan's mirror (``walk_plan`` and ``key_cells`` in
   nano_pearl_tpu_torch/ops/cuda/paged_walk.py; the card holds it against
@@ -39,6 +39,11 @@ K6b, K7, K8a, K8b, K9a and K9b (csrc/paged_walk.cuh) on the CPU.
 - Which launch K1's, K2's, K9a's, K9b's, K6a's, K8a's and K8b's wrappers
   reach: the walk's for bf16 queries (its 1-byte export for K9a/K9b), the
   chunk template's for f32 ones, each counting its own launches.
+- The mono schedule's K5 and K9c with bf16 queries on K1/K2's and
+  K9a/K9b's walk: their plan at the throughput paths' shapes, an emulation
+  at their decode and 14-row verify shapes that matches JAX's jnp paths at
+  1e-5 (verify rows equal to decode rows bit for bit), and which launch
+  their wrappers reach.
 - Why the kernels multiply P V as hi + lo bf16 parts where the Pallas
   kernels round P once: at K10b's and K11d's chip_smoke rows (contexts
   65-2300) one bf16 P meets chip_smoke.py's bf16 tolerance against the
@@ -175,6 +180,19 @@ def test_plan_at_the_paths_shapes():
     assert (q8_d256.cell, q8_d256.rpb, q8_d256.threads, q8_d256.stages) == (128, 14, 224, 2)
     assert q8_d256.smem == 2 * 264 * 112 + 2 * 64 * 272 * 2 + 2 * 2 * 264 * 64 + 4 * 64 * 2 + 4 * 128 * 3
     assert q8_d256.smem == 198_400 <= MAX_SMEM
+    # K5 / K9c on the throughput and quant-throughput paths (the main path's
+    # heads, 32 tables of 16 pages of 256 keys): K1/K2's plan (K9a/K9b's over
+    # 1 byte), one slice of rows a (group, KV head), 32 cells of 128 keys,
+    # 32 * 2 * 32 walk blocks a launch
+    for q8 in (False, True):
+        for rows in (1, 14):
+            p = walk_plan(rows, 4, 2, 128, 256, 2, q8)
+            assert (p.cell, p.rpb, p.threads, p.stages) == (128, rows, 128, 2), rows
+            assert n_cells(16 * 256, p.cell) * 2 * 32 * -(-rows // p.rpb) == 2048
+    # ... at D 256: G 4 (chip_smoke.py's row) in one slice of 14 rows, G 16
+    # over 1 byte in two (8 + 6 rows)
+    assert walk_plan(14, 4, 2, 256, 256, 2).rpb == 14
+    assert walk_plan(14, 16, 2, 256, 256, 2, True).rpb == 8
 
 
 @pytest.mark.parametrize("cell", [128, 256])
@@ -333,8 +351,9 @@ ROWS = 3
 CTX0 = [126, 254, 1, 318, 60, 330]
 
 
-def _caches(quant):
-    """The JAX cache and the port's copy of it: bf16-valued f32 rows, or an
+def _caches(quant, hkv=HKV, d=D):
+    """The JAX cache and the port's copy of it (``hkv`` KV heads of ``d``):
+    bf16-valued f32 rows, or an
     int8 or e4m3 (``"fp8"``) cache written by JAX's ``write_kv`` (the port's
     copy; e4m3 bytes move as uint8, which ``torch.from_numpy`` takes, and
     are viewed as ``float8_e4m3fn``) and, for JAX, its values dequantized
@@ -344,15 +363,15 @@ def _caches(quant):
     rng = np.random.default_rng(11)
     n = (NB + 1) * BS
     if quant is None:
-        rows = rng.standard_normal((L, 2, NB + 1, BS, HKV * D)).astype(np.float32)
+        rows = rng.standard_normal((L, 2, NB + 1, BS, hkv * d)).astype(np.float32)
         rows = torch.from_numpy(rows).bfloat16().float().numpy()
         return jnp.asarray(rows), torch.from_numpy(rows.copy())
-    jc = jkv.make_kv_cache(L, NB, BS, HKV, D, quant=quant, dtype=jnp.float32)
+    jc = jkv.make_kv_cache(L, NB, BS, hkv, d, quant=quant, dtype=jnp.float32)
     for li in range(L):
-        k = rng.standard_normal((n, HKV, D)).astype(np.float32) * rng.uniform(0.2, 3, (n, HKV, 1))
-        v = rng.standard_normal((n, HKV, D)).astype(np.float32)
+        k = rng.standard_normal((n, hkv, d)).astype(np.float32) * rng.uniform(0.2, 3, (n, hkv, 1))
+        v = rng.standard_normal((n, hkv, d)).astype(np.float32)
         jc = jkv.write_kv(jc, jnp.asarray(k), jnp.asarray(v), jnp.arange(n, dtype=jnp.int32), jnp.int32(li))
-    stride = jc["s"].shape[-1] // HKV
+    stride = jc["s"].shape[-1] // hkv
     s = torch.from_numpy(np.asarray(jc["s"])[..., ::stride].view(np.int16).copy()).view(torch.bfloat16)
     values = np.asarray(jc["q"])
     if quant == "fp8":
@@ -360,8 +379,8 @@ def _caches(quant):
     else:
         q8 = torch.from_numpy(values.copy())
     tc = tkv.QuantKVCache(q8, s)
-    read = tkv.dequant_rows(tc.q, tc.s, D).bfloat16().float().reshape(tc.q.shape)
-    jax_read = jkv.dequant_rows(jc["q"], jc["s"], D).astype(jnp.bfloat16).astype(jnp.float32)
+    read = tkv.dequant_rows(tc.q, tc.s, d).bfloat16().float().reshape(tc.q.shape)
+    jax_read = jkv.dequant_rows(jc["q"], jc["s"], d).astype(jnp.bfloat16).astype(jnp.float32)
     np.testing.assert_array_equal(read.numpy(), np.asarray(jax_read).reshape(read.shape))
     return jnp.asarray(read.numpy()), tc
 
@@ -891,3 +910,95 @@ def test_deferred_verify_rows_are_bounded_by_the_cell(hkv):
     for fn in (kpa.paged_verify_fresh, kpa.paged_verify_fresh_split):
         with pytest.raises(ValueError, match=f"<= {cell}"):
             fn(q, cache, 1, bt, ctx, c0, f, f, 0.1, rows)
+
+
+# ---------------------------- K5 and K9c with bf16 queries (K1/K2's walk)
+
+
+def _k5_case(g, d, hkv=2, rows=14, seed=14):
+    """Groups of ``rows`` staircase rows from CTX0 (each side of the
+    128-key cells, 1, the table's end and past it) at G ``g``, D ``d``."""
+    rng = np.random.default_rng(seed + g)
+    groups = len(CTX0)
+    bt = np.stack([rng.permutation(NB)[:M] for _ in range(groups)]).astype(np.int32)
+    ctx = np.array([c + i for c in CTX0 for i in range(rows)], np.int32)
+    q = torch.from_numpy(rng.standard_normal((groups * rows, g * hkv, d)).astype(np.float32)).bfloat16()
+    return q, bt, ctx
+
+
+@pytest.mark.parametrize("g", [4, 8])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_emulated_k5_k9c_walk_matches_jax(quant, g):
+    """K5 (bf16 cache) and K9c (int8, e4m3) with bf16 queries, emulated on
+    the walk they share with K1/K2 (K9a/K9b), at Hkv 2, D 64 (Hkv * D =
+    128, the fast route's shape), G 4 and 8, R 14 (groups of staircase rows
+    across the 128-key cell boundaries, from a context of 1, at the table's
+    end and past it) and R 1 (each row its own table): the rows match JAX's
+    ``paged_attention_grouped(..., use_pallas=False)`` and
+    ``paged_attention_jnp`` at 1e-5, the table takes several cells (so the
+    combine folds), and the 14-row verify's rows equal the decode's bit for
+    bit."""
+    hkv, d = 2, 64
+    scale = d**-0.5
+    jc, tc = _caches(quant, hkv, d)
+    q, bt, ctx = _k5_case(g, d, hkv)
+    qj = jnp.asarray(q.float().numpy())
+    cell = cell_keys(hkv)
+    assert cell == 128 and any(c < cell <= c + 13 for c in CTX0) and max(ctx) > M * BS
+    assert n_cells(M * BS, cell) > 1
+    bt_rows = np.repeat(bt, 14, 0)
+    got = {}
+    for rows, tables in ((14, bt), (1, bt_rows)):
+        if rows == 14:
+            want = jatt.paged_attention_grouped(qj, jc, jnp.int32(1), jnp.asarray(bt), jnp.asarray(ctx), scale, 14,
+                                                use_pallas=False)
+        else:
+            want = jatt.paged_attention_jnp(qj, jc, jnp.int32(1), jnp.asarray(bt_rows), jnp.asarray(ctx), scale)
+        k, v = tatt._gather_kv(tc, 1, torch.from_numpy(tables), d, torch.bfloat16)
+        got[rows] = walk_emulation(q, k, v, torch.from_numpy(ctx), rows, scale, cell, exact_rows=True)
+        np.testing.assert_allclose(got[rows][0].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got[14], got[1]))
+
+
+def test_k5_k9c_route_by_query_type(monkeypatch):
+    """The wrappers of K5 and K9c on tensors that are not on the CPU (the
+    meta device, the launches replaced by recorders): bf16 queries reach
+    the page walk's launch of K1/K2's export ``npt_walk`` over a bf16 cache
+    and of K9a/K9b's ``npt_walk_q8`` with ``quant`` set over an int8 one;
+    f32 queries reach the mono template's ``npt_mono_attention`` /
+    ``npt_mono_q8``; each call counts one launch of its own kernel and none
+    of K1/K2/K9a/K9b/K10a-d's."""
+    from nano_pearl_tpu_torch.ops.cuda import mono_attention as kmo
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention as kpa
+    from nano_pearl_tpu_torch.ops.cuda import paged_attention_fallback as kfb
+
+    calls = _record_launches(monkeypatch)
+
+    def template(fn, what, q, cache, layer, tables, ctx, scale, rows, outs):
+        calls.append(("template", fn, rows))
+
+    monkeypatch.setattr(kmo, "_launch", template)
+    meta = dict(device="meta")
+    bf16_cache = torch.empty((2, 2, 9, 256, 256), dtype=torch.bfloat16, **meta)
+    q8_cache = tkv.QuantKVCache(torch.empty((2, 2, 9, 256, 256), dtype=torch.int8, **meta),
+                                torch.empty((2, 2, 9, 256, 2), dtype=torch.bfloat16, **meta))
+    bt = torch.empty((6, 4), dtype=torch.int32, **meta)
+    ctx = torch.empty(6, dtype=torch.int32, **meta)
+    counters = (kmo.mono_attention, kmo.mono_q8, kpa.paged_decode, kpa.paged_verify, kpa.paged_decode_q8,
+                kpa.paged_verify_q8, *(getattr(kfb, n) for n in ("paged_decode_fallback", "paged_verify_fallback",
+                                                                  "paged_decode_fallback_q8",
+                                                                  "paged_verify_fallback_q8")))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.empty((6, 8, 128), dtype=dtype, **meta)
+        before = [fn.launches for fn in counters]
+        assert kmo.mono_attention(q, bf16_cache.to(dtype), 1, bt, ctx, 0.1).shape == q.shape
+        assert kmo.mono_attention(q, bf16_cache.to(dtype), 1, bt[:2], ctx, 0.1, 3).shape == q.shape
+        assert kmo.mono_q8(q, q8_cache, 1, bt, ctx, 0.1).shape == q.shape
+        assert kmo.mono_q8(q, q8_cache, 1, bt[:2], ctx, 0.1, 3).shape == q.shape
+        assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 2] + [0] * 8
+        if dtype == torch.bfloat16:
+            assert calls[-4:] == [("walk", True, "npt_walk", False, 1), ("walk", True, "npt_walk", False, 3),
+                                  ("walk", True, "npt_walk_q8", True, 1), ("walk", True, "npt_walk_q8", True, 3)]
+        else:
+            assert calls[-4:] == [("template", "npt_mono_attention", 1), ("template", "npt_mono_attention", 3),
+                                  ("template", "npt_mono_q8", 1), ("template", "npt_mono_q8", 3)]

@@ -41,7 +41,9 @@ over ``--paths`` (loop ms and tok/s a PEARL round, host us a call by stage
 and wrapper, K1's and K2's among them: the same stages for both trees).
 Each turn's lines go to ``OUT/<i>_<turn>.out``. At the end, with "mono",
 the script holds every turn's K5 and K9c outputs against the first turn's
-bit for bit, and prints one JSON line with the verdict. Needs one CUDA card.
+of the same tree bit for bit (two trees may round them apart: the parent
+may run them on another route), and against the other tree's, and prints
+one JSON line with the verdicts. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -209,14 +211,22 @@ def main() -> int:
                 f.flush()
                 subprocess.run(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT, check=True,
                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
-        files.append(out / f"{i}_{label}_bits.pt")
+        files.append((label, out / f"{i}_{label}_bits.pt"))
         print(json.dumps({"turn": i, "tree": label, "log": str(log)}), flush=True)
     if "mono" not in sets:
         return 0
-    first = torch.load(files[0])
-    equal = {str(f.name): {k: bool(torch.equal(first[k], torch.load(f)[k])) for k in BITS_ROWS} for f in files[1:]}
-    print(json.dumps({"k5_k9c_bits_equal_to_first_turn": equal,
-                      "all_equal": all(all(v.values()) for v in equal.values())}), flush=True)
+    first = {}
+    for label, f in files:
+        first.setdefault(label, f)
+    bits = {f: torch.load(f) for f in set(first.values()) | {f for _, f in files}}
+    equal = {str(f.name): {k: bool(torch.equal(bits[first[label]][k], bits[f][k])) for k in BITS_ROWS}
+             for label, f in files if f != first[label]}
+    trees = sorted(first)
+    across = ({k: bool(torch.equal(bits[first[trees[0]]][k], bits[first[trees[1]]][k])) for k in BITS_ROWS}
+              if len(trees) == 2 else None)
+    print(json.dumps({"k5_k9c_bits_equal_to_the_trees_first_turn": equal,
+                      "all_equal": all(all(v.values()) for v in equal.values()),
+                      "bits_equal_across_trees": across}), flush=True)
     return 0
 
 

@@ -2,7 +2,8 @@
 """Where the time goes on the card: the PyTorch port's bench paths under
 torch.profiler.
 
-    python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,prefill]
+    python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,
+                                                 qthr,prefill]
                                         [--unprofiled] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
@@ -22,7 +23,10 @@ checkpoint_path shapes, built in memory, no checkpoint written), whose
 Hkv * D = 320 sends decode to K10a and the verify to K10b; "quant"
 chip_smoke.py's quant_path (main with an int8 KV cache and int8 weights,
 bench.py --kv-quant int8 --quant int8: decode through K9a, the verify
-through K9b). An override path runs its PEARL rounds only: its AR is the
+through K9b); "qthr" chip_smoke.py's quant_throughput_path (throughput
+with draft_noise 0.005 over an fp8 KV cache and fp8 weights, bench.py
+--kv-quant fp8 --quant fp8: the draft's decode and the target's classic
+verify through K9c). An override path runs its PEARL rounds only: its AR is the
 base path's program. Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
@@ -43,7 +47,7 @@ perf_counter around those calls in the unprofiled run: the host only
 enqueues there, so this is dispatch time. It prints the card's name and
 power limit first. Needs one CUDA card. ``--unprofiled`` runs the PEARL
 loop's unprofiled pass alone (loop ms, tok/s and host stages, K1's, K2's,
-K9a's and K9b's wrappers among them; no profiler pass, no AR loop), under a minute a path,
+K5's, K9a-c's wrappers among them; no profiler pass, no AR loop), under a minute a path,
 for turns of two trees in one call. ``--tree ROOT`` runs another tree of the
 repository (its package and chip_smoke.py) under this script, so that a
 parent tree is measured with the same stages.
@@ -172,11 +176,12 @@ PATHS = {
     "sp": ("ceiling", 0.0, None, 2),
     "fallback": ("ceiling", 0.0, None, 1),
     "quant": ("ceiling", 0.0, None, 1),
+    "qthr": ("throughput", 0.005, None, 1),
 }
 # path -> (target layers, the pair's widths) where not the bench's 36 layers
 PAIRS = {"fallback": (32, SMOLLM2_360M)}
 # path -> (KV cache quantization, weight quantization) of both models
-QUANT = {"quant": ("int8", "int8")}
+QUANT = {"quant": ("int8", "int8"), "qthr": ("fp8", "fp8")}
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
 HOST_STAGES = {
@@ -188,6 +193,8 @@ HOST_STAGES = {
     "k2_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify"),
     "k9a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_decode_q8"),
     "k9b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_q8"),
+    "k5_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_attention"),
+    "k9c_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_q8"),
     "k7_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "cache_partials"),
     "k6b_wrapper": ("nano_pearl_tpu_torch.ops.cuda.mono_attention", "mono_fresh"),
     "k6a_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention", "paged_verify_fresh"),
