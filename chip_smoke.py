@@ -90,6 +90,11 @@ script exits non-zero without its last line):
    through PearlConfig(draft_model=dir, target_model=dir): weights equal
    what was written, f32 PEARL == AR through K10a/K10b (K10c/K10d over an
    int8 cache);
+   overlap_exactness: the f32 2L/6L pair under execution_mode="overlap"
+   (draft and target on two CUDA streams): overlap PEARL == fused PEARL ==
+   AR at gamma 4, the same at gamma -1 with a draft drawn independently
+   of the target (gamma re-picked as the runs go), and a request with a
+   stop token ends where AR with that stop ends;
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
    prompt 64, greedy: 145 PEARL rounds, then AR over the first sixth of
@@ -115,19 +120,29 @@ script exits non-zero without its last line):
    (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 145
    rounds, AR over the first sixth of the window;
    sp_path: the main path with draft_sp = target_sp = 2 (the shards share
-   the one card; K3, K11a, K11c, MAT 14 asserted), 145 rounds, AR over the
+   the one card; K3, K11a, K11c, MAT 14 asserted), 73 rounds, AR over the
    first sixth of the window; sp_quant_path: the same over an int8 cache
    with int8 weights (K11b, K11d), 73 rounds, AR over a sixth (the AR
    windows and the 73-round paths keep the script inside its time limit
    on a slow host);
+   overlap_path: the main path's run under execution_mode="overlap", 73
+   rounds, speedup against the main path's AR (MAT 14 asserted, the
+   streams equal to a fused run of the same rounds on the same weights,
+   K1/K2/K3, and in a torch.profiler trace of three rounds the draft's
+   and the target's kernels on two distinct streams; prints
+   streams_concurrent_share, the share of the draft stream's kernel time
+   a target-stream kernel overlapped); gamma_auto_path: the main path's
+   pair under gamma=-1 (fused, auto_set_gamma at B=32, bench.py's adaptive
+   warm-up), 73 rounds: the seed gamma and profiled speeds, each chunk's
+   gamma, p_hat, MAT and tok/s;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
 Each path (main path, throughput path, the two quantized paths, the
-three override paths, the two checkpoint paths, the two sp paths,
-serving) sets every launch counter to 0 just before it and reads them
+three override paths, the overlap and gamma_auto paths, the two
+checkpoint paths, the two sp paths, serving) sets every launch counter to 0 just before it and reads them
 just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -1428,7 +1443,8 @@ def overrides(env: dict | None):
 
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
-                kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None, widths=None):
+                kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None, widths=None,
+                mode="auto", draft_seed=None):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
     models); ``env``: schedule overrides set around the construction;
@@ -1437,7 +1453,13 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
     (sequence parallelism, the shards sharing the one card); ``num_blocks``:
     the pools' blocks, in place of the bench's count; ``widths``: the
     layer-share pair's ModelConfig fields (as SMOLLM2_360M), in place of
-    the bench's widths."""
+    the bench's widths; ``mode``: the execution mode; ``draft_seed``: a
+    draft drawn independently of the target from that seed (partial
+    acceptance), in place of the layer-share draft. At ``gamma`` -1 the
+    window is sized for the adaptive ladder's top, 16, and auto_set_gamma
+    profiles the run's batch, as bench.py does; the pools hold twice the
+    blocks, since a fixed-step run that switches gamma reserves its whole
+    window again from where it stands (the JAX package's rule)."""
     from nano_pearl_tpu_torch import ModelConfig, PearlConfig, PearlEngine
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
@@ -1447,14 +1469,20 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
         md, mt = ((model_config(ld, dtype), model_config(lt, dtype)) if widths is None else
                   (ModelConfig(num_hidden_layers=ld, **widths), ModelConfig(num_hidden_layers=lt, **widths)))
         dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
-    max_len = max(256, 1 << (prompt_len + steps * (gamma + 1) + 64).bit_length())
+        if draft_seed is not None:
+            from nano_pearl_tpu_torch.models.transformer import init_params_numpy
+
+            dp = init_params_numpy(md, np.random.default_rng(draft_seed))
+    sizing = gamma if gamma > 0 else 16
+    max_len = max(256, 1 << (prompt_len + steps * (sizing + 1) + 64).bit_length())
     cfg = PearlConfig(
         draft_model=md, target_model=mt, max_model_len=max_len,
         max_num_batched_tokens=max(16384, batch * prompt_len), kvcache_block_size=256,
-        num_kvcache_blocks=num_blocks or batch * (max_len // 256) + 8, gamma=gamma,
+        num_kvcache_blocks=num_blocks or batch * (max_len // 256) * (2 if gamma == -1 else 1) + 8, gamma=gamma,
         max_num_seqs=max(batch, 8), seed=0, dtype=dtype, perf_profile=profile,
         draft_kv_quant=kv_quant, target_kv_quant=kv_quant, draft_quant=quant, target_quant=quant,
-        draft_sp=sp, target_sp=sp,
+        draft_sp=sp, target_sp=sp, execution_mode=mode,
+        gamma_profile_batches=(batch,) if gamma == -1 else None,
     )
     with overrides(env):
         return PearlEngine(cfg, dp, tp, device=dev)
@@ -1749,6 +1777,12 @@ def override_launch_check(phase, env, counters, before, ran) -> dict:
     return launches
 
 
+def first_divergence(a: list, b: list):
+    """(request, token) where two lists of streams first differ, or None."""
+    return next(((i, j) for i, (p, q) in enumerate(zip(a, b)) for j in range(min(len(p), len(q)) + 1)
+                 if p[:j + 1] != q[:j + 1]), None if len(a) == len(b) else (min(len(a), len(b)), 0))
+
+
 def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=(), sp=1,
                     unsharded=None, windows: int = 16, num_blocks=None) -> list:
     """f32 layer-share pair: the PEARL stream must equal the AR stream
@@ -1770,11 +1804,8 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
     ar, n_ar, _, _ = engine.AR_generate_token_ids()
     if pearl != ar:
-        first = next(
-            (i, j) for i, (p, a) in enumerate(zip(pearl, ar))
-            for j in range(min(len(p), len(a)) + 1) if p[:j + 1] != a[:j + 1]
-        )
-        raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) {first}")
+        raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) "
+                             f"{first_divergence(pearl, ar)}")
     extra = {}
     if sp > 1:
         if pearl != unsharded:
@@ -1883,7 +1914,8 @@ def mono_calls(calls: dict):
 
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
               ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
-              label: str | None = None, sp: int = 1) -> tuple[dict, dict]:
+              label: str | None = None, sp: int = 1, gamma: int = 14, mode: str = "auto", warm=None,
+              probe=None) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
@@ -1895,19 +1927,23 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     window only (AR_CUT on every path, to keep the script inside its time
     limit). ``dirs``: the (draft, target) checkpoint directories to load in
     place of the layer-share pair (``label`` its description, ``vocab`` its
-    vocabulary). ``sp``: draft_sp = target_sp. The launch counters are set
-    to 0 just before the measured runs; the mono schedule's K5/K9c calls
-    are also counted by kind (``mono_calls``). Returns (the phase's line
-    without its name, launches)."""
+    vocabulary). ``sp``: draft_sp = target_sp. ``gamma``: the window, -1
+    adaptive (the AR window sized for 16); ``mode``: the execution mode.
+    ``warm(engine, add)``, where given, runs after the warm-up (``add``
+    queues the warm-up's requests) and ``probe(engine, pearl_tokens)``
+    after the measured runs; the dicts they return join the line. The
+    launch counters are set to 0 just before the measured runs; the mono
+    schedule's K5/K9c calls are also counted by kind (``mono_calls``).
+    Returns (the phase's line without its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
     counters = kernel_counters()
-    batch, gamma, prompt_len = 32, 14, 64
-    ar_max_tokens = steps * (gamma + 1)
+    batch, prompt_len = 32, 64
+    ar_max_tokens = steps * ((gamma if gamma > 0 else 16) + 1)
     ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant, env, dirs, sp)
+                         kv_quant, quant, env, dirs, sp, mode=mode)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
@@ -1919,6 +1955,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     # warm-up, as bench.py does (cuBLAS handles, allocator), not measured
     add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens, vocab)
     engine.bench_generate(num_pearl_steps=2, reserve_steps=steps)
+    extra = warm(engine, lambda: add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens,
+                                              vocab)) if warm else {}
     if ar_of is None:
         add_requests(engine, np.random.default_rng(0), batch, prompt_len, ar_max_tokens, vocab)
         engine.AR_bench_generate(num_steps=4, reserve_steps=ar_steps)
@@ -1940,6 +1978,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
     peak = torch.cuda.max_memory_allocated(dev)
     schedule = {k: getattr(engine.target, k) for k in ("use_mono", "deferred_verify", "split", "fresh_mode")}
+    if probe:
+        extra.update(probe(engine, pearl_toks))
     del engine
     torch.cuda.empty_cache()
 
@@ -1954,7 +1994,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
             raise AssertionError("token id outside the vocabulary")
     pair = label or "bf16 layer-share 3L/36L, hidden 1024, ffn 4096, 8x128 q heads, 2 kv heads, vocab 32768"
     out = {
-        "config": f"{pair}, B=32, gamma=14, prompt 64, greedy, {profile} profile"
+        "config": f"{pair}, B=32, gamma={gamma if gamma > 0 else 'auto (-1)'}, prompt 64, greedy, {profile} profile"
+                  + (f", {mode} mode" if mode != "auto" else "")
                   + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant)
                   + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else ""),
         **({"env": env, "schedule": schedule} if env else {}),
@@ -1963,7 +2004,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
         "launches": launches, "launches_pearl_run": pearl_launches,
         "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
         **({"mono_calls_pearl_run": pearl_mono, "mono_calls_ar_run": ar_mono} if pearl_mono or ar_mono else {}),
-        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes, **shards,
+        "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes, **shards, **extra,
     }
     if ar_of is not None:
         out.update(ar_of=ar_of[0], ar_tok_s=ar_of[1], speedup=pearl_tps / ar_of[1])
@@ -2083,7 +2124,7 @@ def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 7
     return launches
 
 
-def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 145) -> dict:
+def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 73) -> dict:
     """The main path's run with draft_sp = target_sp = 2 (PearlConfig; the
     two shards of each pool share the one card): decode through K11a, the
     classic packed verify through K11c, both merged over the shards,
@@ -2098,6 +2139,209 @@ def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 145) -> dict:
     check_launches(phase, launches, *sp_kernels(kv_quant))
     if out["mat"] != 14:
         raise AssertionError(f"{phase} MAT {out['mat']} below the layer-share ceiling 14")
+    return launches
+
+
+# ------------------------------------------------------- overlap and gamma
+
+
+def overlap_exactness_phase(dev) -> None:
+    """f32, the exactness phase's 2L/6L layer-share pair (B=4, gamma=4, 16
+    windows): overlap PEARL == fused PEARL == AR (the fused AR loop, which
+    serves every mode); the same under gamma=-1 with a draft drawn independently
+    of the target (partial acceptance, gamma re-picked as it runs); and a
+    request with a stop token taken from its AR stream ends where AR with
+    that stop ends, at the stop's first hit."""
+    from nano_pearl_tpu_torch import SamplingParams
+
+    batch, prompt_len, windows, vocab = 4, 64, 16, 32768
+    out = {"phase": "overlap_exactness",
+           "config": "f32 layer-share 2L/6L full width, B=4, prompt 64; gamma 4, then gamma -1 with an "
+                     "independently drawn draft"}
+    for gamma, draft_seed in ((4, None), (-1, 7)):
+        max_tokens = 1 + windows * 4
+        streams, ar = {}, None
+        for mode in ("fused", "overlap"):
+            engine = pair_engine(2, 6, "float32", batch, gamma, windows, prompt_len, dev, mode=mode,
+                                 draft_seed=draft_seed)
+            add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
+            streams[mode], n, acc, _ = engine.generate_token_ids()
+            orch = engine.orchestrator
+            key = f"gamma_{gamma}_{mode}"
+            out[key] = {"tokens": n, "accepted_tokens": [sum(a) for a in acc]}
+            if gamma == -1:
+                out[key].update(seed_gammas=orch.gamma_list, last_gamma=orch.last_gamma, p_hat=orch._p_ewma)
+            if mode == "overlap":
+                if dev.type == "cuda" and orch.streams is None:
+                    raise AssertionError("overlap mode on the card runs on no streams")
+                add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
+                ar, _, _, _ = engine.AR_generate_token_ids()
+                if gamma == 4:  # one request with a stop token from the middle of its AR stream
+                    prompt = np.random.default_rng(1).integers(2, vocab - 1, prompt_len).tolist()
+                    stop = ar[0][len(ar[0]) // 2]
+                    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, stop_token_ids=(stop,))
+                    engine.add_request(prompt, sp)
+                    pearl_stop = engine.generate_token_ids()[0][0]
+                    engine.add_request(prompt, sp)
+                    ar_stop = engine.AR_generate_token_ids()[0][0]
+                    want = ar[0][: ar[0].index(stop) + 1]
+                    if not pearl_stop == ar_stop == want:
+                        raise AssertionError(f"overlap_exactness: a stop token's run ended at {len(pearl_stop)} "
+                                             f"(AR {len(ar_stop)}), not at its first hit {len(want)}")
+                    out["stop_token_tokens"] = len(pearl_stop)
+            del engine
+            torch.cuda.empty_cache()
+        for name, got in (("fused", streams["fused"]), ("AR", ar)):
+            where = first_divergence(streams["overlap"], got)
+            if where is not None:
+                raise AssertionError(f"overlap_exactness: gamma {gamma}: overlap PEARL != {name}: first "
+                                     f"divergence (request, token) {where}")
+    out["overlap_equals_fused_equals_ar"] = True
+    emit(out)
+
+
+def busy(intervals: list) -> list:
+    """The union of [start, end) intervals, as sorted disjoint intervals."""
+    merged = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def overlap_share(draft: list, target: list) -> float:
+    """The share of the draft stream's kernel time during which a target
+    stream kernel was in flight (both lists of [start, end) in µs)."""
+    d, t = busy(draft), busy(target)
+    both, j = 0.0, 0
+    for lo, hi in d:
+        while j < len(t) and t[j][1] <= lo:
+            j += 1
+        k = j
+        while k < len(t) and t[k][0] < hi:
+            both += min(hi, t[k][1]) - max(lo, t[k][0])
+            k += 1
+    total = sum(hi - lo for lo, hi in d)
+    return both / total if total else 0.0
+
+
+def stream_trace(orch, gamma: int, rounds: int) -> dict:
+    """``rounds`` overlap rounds of the running batch in one torch.profiler
+    session: the kernels' streams (the draft's, enqueued first, runs the
+    round's earliest kernel), kernels and device ms on each, and the share
+    of the draft stream's kernel time a target-stream kernel overlapped."""
+    for _ in range(8):  # a session now and then loses its kernel records (kernel_trace)
+        events, calls = kernel_trace(lambda: [orch.pearl_round(gamma) for _ in range(rounds)])
+        if events and len(events) >= calls:
+            break
+    events = sorted(events, key=lambda e: e["ts"])
+    by_stream = {}
+    for e in events:
+        by_stream.setdefault(e["args"]["stream"], []).append([e["ts"], e["ts"] + e["dur"]])
+    draft = events[0]["args"]["stream"]
+    target = [s for s in by_stream if s != draft]
+    if len(target) != 1:
+        raise AssertionError(f"overlap rounds ran kernels on streams {sorted(by_stream)}, not on two")
+    t = by_stream[target[0]]
+    return {"trace_rounds": rounds, "trace_streams": {"draft": draft, "target": target[0]},
+            "trace_kernels": {"draft": len(by_stream[draft]), "target": len(t)},
+            "trace_device_ms": {"draft": sum(hi - lo for lo, hi in by_stream[draft]) / 1e3,
+                                "target": sum(hi - lo for lo, hi in t) / 1e3},
+            "streams_concurrent_share": overlap_share(by_stream[draft], t)}
+
+
+def overlap_path_phase(dev, ar_of: tuple[str, float], steps: int = 73) -> dict:
+    """The main path's run under execution_mode="overlap": the draft's
+    gamma-scan on one CUDA stream and the target's verify on another, 73
+    rounds, speedup against the main path's AR (``ar_of``). Asserts MAT at
+    the ceiling, the streams equal to a fused run of the same rounds on the
+    same weights and prompts (an engine built on the overlap engine's
+    tensors), K1, K2 and K3 launched, and in a torch.profiler trace of
+    three rounds the draft's and the target's kernels on two distinct
+    streams; prints ``streams_concurrent_share``."""
+    from dataclasses import replace
+
+    from nano_pearl_tpu_torch import PearlEngine
+
+    gamma, batch, prompt_len = 14, 32, 64
+
+    def probe(engine, pearl_toks) -> dict:
+        orch = engine.orchestrator
+        add_requests(engine, np.random.default_rng(2), batch, prompt_len, steps * (gamma + 1))
+        orch.prefill_all()
+        trace = stream_trace(orch, gamma, 3)
+        engine.scheduler.clear()
+        fused = PearlEngine(replace(engine.config, execution_mode="fused"), engine.draft.params,
+                            engine.target.params, device=dev)
+        add_requests(fused, np.random.default_rng(0), batch, prompt_len, steps * (gamma + 1))
+        fused.bench_generate(num_pearl_steps=2, reserve_steps=steps)
+        add_requests(fused, np.random.default_rng(1), batch, prompt_len, steps * (gamma + 1))
+        fused_toks, _, _, fused_t = fused.bench_generate(num_pearl_steps=steps)
+        del fused
+        torch.cuda.empty_cache()
+        where = first_divergence(pearl_toks, fused_toks)
+        if where is not None:
+            raise AssertionError(f"overlap_path: overlap != fused streams: first divergence (request, token) "
+                                 f"{where}")
+        return {**trace, "equals_fused_streams": True, "fused_round_ms": fused_t / steps * 1e3}
+
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_of=ar_of, mode="overlap", probe=probe)
+    emit({"phase": "overlap_path", **out})
+    check_launches("overlap_path", launches, ("paged_decode", "paged_verify", "prefill_self"),
+                   tuple(FALLBACK_KERNELS))
+    if out["mat"] != gamma:
+        raise AssertionError(f"overlap_path MAT {out['mat']} below the layer-share ceiling {gamma}")
+    return launches
+
+
+def gamma_auto_path_phase(dev, ar_of: tuple[str, float], steps: int = 73) -> dict:
+    """The main path's pair under gamma=-1 (fused; auto_set_gamma over
+    gamma_profile_batches=(32,)), with bench.py's adaptive warm-up: bench
+    runs of 24 rounds until the picked gamma holds twice in a row (at most
+    8), then two runs at each ladder neighbour of the settled gamma, forced.
+    Then 73 timed rounds. Prints the seed gammas and measured speeds, the
+    warm-up's gammas, each timed chunk's gamma and rounds, p_hat, MAT and
+    tok/s; asserts that every round committed a token and the streams lie
+    in the vocabulary (bench_run), and K1, K2 and K3 launched."""
+    chunks = []
+
+    def warm(engine, add) -> dict:
+        orch = engine.orchestrator
+        seed = {"seed_gammas": dict(orch.gamma_list),
+                "profiled_speeds_it_s": {bs: {"draft": d, "target": t} for bs, (d, t) in orch._speeds.items()}}
+        stable, prev, seen = 0, None, []
+        for _ in range(8):
+            add()
+            engine.bench_generate(num_pearl_steps=24, reserve_steps=steps)
+            seen.append(orch.last_gamma)
+            stable = stable + 1 if orch.last_gamma == prev else 0
+            prev = orch.last_gamma
+            if stable >= 2:
+                break
+        ladder = orch._gamma_ladder
+        if prev in ladder:
+            i = ladder.index(prev)
+            for j in (i - 1, i + 1):
+                if 0 <= j < len(ladder):
+                    orch.force_gamma = ladder[j]
+                    for _ in range(2):
+                        add()
+                        engine.bench_generate(num_pearl_steps=24, reserve_steps=steps)
+            orch.force_gamma = None
+        run = orch.fused.run_pearl
+        orch.fused.run_pearl = lambda state, g, n, *a: chunks.append({"gamma": g, "rounds": n}) or run(state, g, n, *a)
+        return {**seed, "warmup_gammas": seen, "settled_gamma": prev}
+
+    def probe(engine, pearl_toks) -> dict:
+        orch = engine.orchestrator
+        return {"timed_chunks": list(chunks), "p_hat": orch._p_ewma, "last_gamma": orch.last_gamma}
+
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_of=ar_of, gamma=-1, warm=warm, probe=probe)
+    emit({"phase": "gamma_auto_path", **out})
+    check_launches("gamma_auto_path", launches, ("paged_decode", "paged_verify", "prefill_self"),
+                   tuple(FALLBACK_KERNELS))
     return launches
 
 
@@ -2556,6 +2800,7 @@ def main() -> int:
                     ran=("paged_verify_fresh",))
     throughput_exactness_phase(dev, phase="fresh_kernel_exactness", env=OVERRIDE_PATHS["fresh_kernel_path"][2],
                                ran=("mono_fresh",))
+    overlap_exactness_phase(dev)
     checkpoints = tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_")
     checkpoint_exactness_phase(dev, checkpoints.name)
     by_path = {}
@@ -2566,12 +2811,14 @@ def main() -> int:
     for path, ar_of in (("split_path", ("main_path", main)), ("deferred_db_path", ("main_path", main)),
                         ("fresh_kernel_path", ("throughput_path", thr))):
         by_path[path] = override_path_phase(dev, path, (ar_of[0], ar_of[1]["ar_tok_s"]))
+    by_path["overlap_path"] = overlap_path_phase(dev, ("main_path", main["ar_tok_s"]))
+    by_path["gamma_auto_path"] = gamma_auto_path_phase(dev, ("main_path", main["ar_tok_s"]))
     dirs, write_s = write_smollm2_pair(checkpoints.name)
     by_path["checkpoint_path"] = checkpoint_path_phase(dev, dirs, write_s)
     by_path["checkpoint_quant_path"] = checkpoint_path_phase(dev, dirs, write_s, kv_quant="int8")
     checkpoints.cleanup()
     by_path["sp_path"] = sp_path_phase(dev)
-    by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8", steps=73)
+    by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8")
     serving_exactness_phase(dev)
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

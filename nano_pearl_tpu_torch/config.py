@@ -253,13 +253,14 @@ class PearlConfig:
     # (engine/pearl.py _adapt_gamma). Batch sizes profiled at engine
     # build for the speed-ratio seed gamma; None = the reference's
     # (1, 2, 4, 8, 16, 32) ladder. Pass a smaller tuple (e.g. just the
-    # serving batch size) to bound profiling time. Not ported yet.
+    # serving batch size) to bound profiling time.
     gamma_profile_batches: tuple | None = None
     seed: int = 0
     dtype: str = "bfloat16"
     # "overlap": per-round host loop, draft/target programs dispatched
     #   concurrently on disjoint sub-meshes (the reference's two-process
-    #   concurrency, single-controller style).
+    #   concurrency, single-controller style); in the port, on two CUDA
+    #   streams of the one device.
     # "fused": the whole multi-round loop compiled into one program with
     #   an on-device state machine — zero host syncs per round. Requires
     #   both groups on the same device set (single chip or union

@@ -156,9 +156,12 @@ class BlockManager:
             self._release(block_id)
         del view.block_table[after:]
 
+    def blocks_needed(self, view: SeqView, extra_tokens: int) -> int:
+        """Free blocks ``ensure_capacity(view, extra_tokens)`` would take."""
+        return max(0, -(-(len(view) + extra_tokens) // self.block_size) - len(view.block_table))
+
     def can_ensure(self, view: SeqView, extra_tokens: int) -> bool:
-        need = -(-(len(view) + extra_tokens) // self.block_size) - len(view.block_table)
-        return self.num_free_blocks >= max(0, need)
+        return self.num_free_blocks >= self.blocks_needed(view, extra_tokens)
 
     def ensure_capacity(self, view: SeqView, extra_tokens: int):
         """Grow the table to hold ``extra_tokens`` beyond the current

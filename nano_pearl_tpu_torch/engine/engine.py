@@ -32,11 +32,16 @@ verify take the fallbacks K10a/K10b (K10c/K10d), as the JAX package does.
 engine loads them (``utils/loader.py``); weights handed in take
 precedence, and random ones are drawn only when neither is given.
 
-The port runs the fused path on one device: draft and target share it,
-and with ``num_kvcache_blocks=-1`` their KV pools are sized together
-from one budget. Its entry points run on CUDA unless the caller asks
-for the CPU; with no CUDA device and no explicit ``device="cpu"`` the
-engine raises.
+Draft and target share one device, and with ``num_kvcache_blocks=-1``
+their KV pools are sized together from one budget. ``execution_mode``
+"auto" or "fused" (the default) runs the fused round loop
+(engine/fused.py); "overlap" the per-round host loop, with the draft on
+one CUDA stream and the target on another (engine/pearl.py). ``gamma=-1``
+profiles both models' decode speed at build (``auto_set_gamma`` over
+``gamma_profile_batches``) and then adapts gamma to the observed
+acceptance. The entry points run on CUDA unless the caller asks for the
+CPU; with no CUDA device and no explicit ``device="cpu"`` the engine
+raises.
 
 ``draft_sp`` / ``target_sp`` > 1 shard a group's KV cache over the
 blocks (sequence parallelism, ``parallel/sp.py``): decode and verify run
@@ -77,7 +82,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_config(config: PearlConfig) -> None:
-    """Raise on engine features the port does not run yet."""
+    """Raise on a gamma that is neither a window nor -1 (adaptive), and on
+    engine features the port does not run yet."""
+    if config.gamma == 0 or config.gamma < -1:
+        raise ValueError(f"gamma must be a draft window >= 1, or -1 (adaptive); got {config.gamma}")
     unsupported = {
         "tensor/pipeline/expert parallel groups": any(
             x != 1 for x in (
@@ -85,8 +93,6 @@ def _check_config(config: PearlConfig) -> None:
                 config.draft_ep, config.target_ep,
             )
         ),
-        "execution_mode='overlap'": config.execution_mode == "overlap",
-        "acceptance-adaptive gamma (gamma=-1)": config.gamma <= 0,
         "an explicit device list": config.devices is not None,
     }
     missing = [k for k, v in unsupported.items() if v]
@@ -129,6 +135,9 @@ class PearlEngine:
         self._completed_tokens = 0
         self._completed_rounds = 0
         self._lat = deque(maxlen=512)  # recent completions' (ttft, tpot, e2e)
+        if config.gamma == -1:
+            batches = config.gamma_profile_batches
+            self.orchestrator.auto_set_gamma(**({"batch_sizes": tuple(batches)} if batches else {}))
         if config.warmup:
             self.warmup(batches=config.warmup if isinstance(config.warmup, tuple) else (1,))
         logger.info(f"PearlEngine ready on {self.device}.", color="green")
@@ -212,14 +221,17 @@ class PearlEngine:
     def warmup(self, batches=(1,), prompt_len: int = 16, rounds: int = 2) -> None:
         """Drive dummy requests through real serve rounds at each batch size
         in ``batches`` (cuBLAS handles, kernel libraries, the allocator's
-        pools), then discard every trace of them, prefix cache included."""
+        pools), then discard every trace of them, prefix cache included.
+        Each request runs ``rounds`` windows of the configured gamma, at
+        ``gamma=-1`` of the adaptive ladder's top."""
         t0 = time.perf_counter()
+        gamma = self.config.gamma if self.config.gamma > 0 else max(self.orchestrator._gamma_ladder)
         for b in batches:
             for i in range(min(b, self.config.max_num_seqs)):
                 self.add_request(
                     [2 + (i % 7)] * prompt_len,
                     SamplingParams(
-                        temperature=0.0, max_tokens=rounds * max(self.config.gamma, 1) + 2,
+                        temperature=0.0, max_tokens=rounds * gamma + 2,
                         ignore_eos=True,
                     ),
                 )
@@ -243,11 +255,12 @@ class PearlEngine:
 
         With ``with_deltas`` returns ``(done, deltas)``, deltas being
         (seq_id, new_token_ids, finished). Only the rollback-proof prefix
-        is streamed: after an accepted round the last gamma committed
-        tokens are unverified (the next verdict may cut them and put a
-        revise token in their place), so the stable frontier is
-        len(target) - gamma; after a rejected round (pre-verify) the whole
-        stream is verified. A consumer never sees a token taken back."""
+        is streamed: after an accepted round the last ``window`` committed
+        tokens (the gamma of the request's last round) are not all verified
+        (the next verdict may cut them and put a revise token in their
+        place), so the stable frontier is len(target) - window; after a
+        rejected round (pre-verify) the whole stream is verified. A
+        consumer never sees a token taken back."""
         self.orchestrator.serve_round(fused_rounds)
         done, deltas = [], []
         now = time.perf_counter()
@@ -269,9 +282,8 @@ class PearlEngine:
         self.scheduler.finished.clear()
         if not with_deltas:
             return done
-        g = self.orchestrator.last_gamma
         for seq in self.scheduler.running:
-            stable = len(seq.target) - (0 if seq.pre_verify else g)
+            stable = len(seq.target) - (0 if seq.pre_verify else seq.window)
             new = seq.target.token_ids[seq.num_prompt_tokens + seq.num_streamed : stable]
             if new:
                 deltas.append((seq.seq_id, new, False))

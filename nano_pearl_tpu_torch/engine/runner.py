@@ -133,6 +133,7 @@ from nano_pearl_tpu_torch.ops.kv_cache import (
 )
 from nano_pearl_tpu_torch.ops.quant import is_quantized
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
+from nano_pearl_tpu_torch.ops.verify import VerifyResult, verify_verdict
 from nano_pearl_tpu_torch.parallel.mesh import GroupPlacement
 from nano_pearl_tpu_torch.parallel.sp import (
     shard_tables,
@@ -524,6 +525,98 @@ class GroupRunner:
     def fresh_schedule(self) -> dict:
         """The deferred verify's kernel choice (``paged_attention_grouped_fresh``)."""
         return dict(mono=self.use_mono, split=self.split, fresh_mode=self.fresh_mode)
+
+    # ------------------------------------------- per-view entry points
+    # The overlap loop (engine/pearl.py pearl_round) and the per-step AR
+    # build each call's inputs from the host's SeqViews, as the JAX
+    # package's runner does (its runner.py:963-1055). Every tensor is made
+    # on the caller's current stream, the one that reads it.
+
+    def _decode_arrays(self, views: list[SeqView], b_pad: int, m_pad: int, with_slots: bool):
+        """(tokens, positions, context_lens, block_tables, slots) of one
+        decode step at each view's last token; padded rows sit at position
+        0 with context 1 in the garbage block."""
+        bs = self.block_size
+        tokens = np.zeros((b_pad,), np.int32)
+        positions = np.zeros((b_pad,), np.int32)
+        context_lens = np.ones((b_pad,), np.int32)
+        block_tables = np.full((b_pad, m_pad), self.garbage_block, np.int32)
+        slots = np.full((b_pad,), self.garbage_block * bs, np.int32)
+        for i, v in enumerate(views):
+            n = len(v)
+            tokens[i] = v.last_token
+            positions[i] = n - 1
+            context_lens[i] = n
+            block_tables[i, : len(v.block_table)] = v.block_table
+            if with_slots:
+                slots[i] = v.token_to_slot(n - 1)
+        return tokens, positions, context_lens, block_tables, slots
+
+    def decode(self, views: list[SeqView], b_pad: int, m_pad: int) -> torch.Tensor:
+        """One AR decode step over ``views``; returns logits [b_pad, V]."""
+        tokens, positions, ctx, bt, slots = map(self._tensor, self._decode_arrays(views, b_pad, m_pad, True))
+        return self.decode_step(tokens, positions, slots, bt, ctx)
+
+    def gamma_scan(self, views: list[SeqView], gamma: int, b_pad: int, m_pad: int, is_pre: np.ndarray,
+                   scan) -> torch.Tensor:
+        """The draft's round over ``views``: ``scan`` is the fused loop's
+        gamma-scan (``FusedPearl._draft_gamma``), so decode calls, their
+        rows and the split schedule's step-0 boundary ``b1 = len -
+        num_input`` are the fused loop's. Block tables must already cover
+        len + gamma tokens. Returns the draft tokens [b_pad, gamma]."""
+        tokens, positions, ctx, bt, _ = self._decode_arrays(views, b_pad, m_pad, False)
+        b1 = np.zeros((b_pad,), np.int32)
+        for i, v in enumerate(views):
+            b1[i] = len(v) - (1 if is_pre[i] else gamma)
+        return scan(*map(self._tensor, (tokens, positions, bt, ctx)), gamma, b1=self._tensor(b1))
+
+    def verify_forward(self, views: list[SeqView], is_pre: np.ndarray, gamma: int, b_pad: int,
+                       m_pad: int) -> torch.Tensor:
+        """The target's packed verify over each view's last ``num_input``
+        tokens (1 before verify, else gamma); returns logits [b_pad, gamma,
+        V], row j of sequence i after token len - num_input + j. Padded rows
+        take distinct slots of the garbage block, as the fused loop's."""
+        bs = self.block_size
+        tokens = np.zeros((b_pad, gamma), np.int32)
+        positions = np.zeros((b_pad, gamma), np.int32)
+        context_lens = np.ones((b_pad, gamma), np.int32)
+        slots = np.tile(self.garbage_block * bs + np.arange(gamma, dtype=np.int32) % bs, (b_pad, 1))
+        block_tables = np.full((b_pad, m_pad), self.garbage_block, np.int32)
+        for i, v in enumerate(views):
+            num_input = 1 if is_pre[i] else gamma
+            n = len(v)
+            tokens[i, :num_input] = v.token_ids[n - num_input :]
+            pos = np.arange(n - num_input, n)
+            positions[i, :num_input] = pos
+            context_lens[i, :num_input] = pos + 1
+            slots[i, :num_input] = [v.token_to_slot(p) for p in pos]
+            block_tables[i, : len(v.block_table)] = v.block_table
+        flat = lambda a: self._tensor(a.reshape(-1))  # noqa: E731
+        logits = self.packed_verify_forward(
+            flat(tokens), flat(positions), flat(slots), self._tensor(block_tables), flat(context_lens), gamma
+        )
+        return logits.reshape(b_pad, gamma, -1)
+
+    def verdict(self, logits, tbv, is_pre, temps, num_completion, max_tokens, ignore_eos, gamma: int,
+                generator: torch.Generator | None, top_ks=None, top_ps=None, stops=None,
+                r=None, gumbel=None) -> VerifyResult:
+        """The verdict of one round on ``logits`` [b_pad, gamma, V] (host
+        arrays for the rest). ``top_ks``/``top_ps`` None: no row filters;
+        ``stops``: the per-request [B, S] stop matrix (EOS plus the
+        request's stop tokens, -1 padded), None: the global EOS list.
+        ``r``/``gumbel`` replace the drawn noise (tests)."""
+        greedy_only = bool(np.all(np.asarray(temps) == 0.0))
+        t = self._tensor(temps, torch.float32)
+        if top_ks is not None and not greedy_only:
+            logits = apply_top_k_top_p(
+                logits, self._tensor(top_ks)[:, None], self._tensor(top_ps, torch.float32)[:, None], t[:, None]
+            )
+        eos = stops if stops is not None else self.cfg.eos_ids
+        return verify_verdict(
+            logits, self._tensor(tbv), self._tensor(is_pre, torch.bool), t, self._tensor(num_completion),
+            self._tensor(max_tokens), self._tensor(ignore_eos, torch.bool), self._tensor(eos), gamma,
+            greedy=greedy_only, generator=generator, r=r, gumbel=gumbel,
+        )
 
     def sample_tokens(
         self, logits, temps: np.ndarray, generator: torch.Generator | None,

@@ -147,7 +147,23 @@ class Scheduler:
             assert scheduled, "decode scheduled nothing (all sequences preempted)"
         return scheduled
 
+    def drop_unverified(self, seq: Sequence):
+        """Return a request whose last round accepted to the pre-verify
+        state: roll its window's unverified tail (``window - 1`` tokens,
+        no target KV behind them) back in both views. The last token left
+        is verified and becomes the next round's one-token verify input.
+        A round at another window checks other positions, and a re-prefill
+        after preemption reads the whole stream: either would commit the
+        tail unverified."""
+        if seq.pre_verify:
+            return
+        if seq.window > 1:
+            self.draft_bm.rollback(seq.draft, seq.window - 1)
+            self.target_bm.rollback(seq.target, seq.window - 1)
+        seq.pre_verify = True
+
     def preempt(self, seq: Sequence):
+        self.drop_unverified(seq)
         seq.status = SequenceStatus.WAITING
         self.draft_bm.deallocate(seq.draft)
         self.target_bm.deallocate(seq.target)

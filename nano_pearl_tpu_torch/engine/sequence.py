@@ -87,6 +87,10 @@ class Sequence:
         self.stop_token_ids = tuple(sampling_params.stop_token_ids)
         # PEARL state (reference: sequence.py:30-32)
         self.pre_verify = True
+        # draft window (gamma) of the request's last PEARL round: after an
+        # accept its last window - 1 tokens are unverified
+        # (Scheduler.drop_unverified)
+        self.window = 0
         self.num_acc_tokens: list[int] = []
         self.cur_acc_tokens = 0
         self.num_rounds = 0  # PEARL rounds this request took part in (engine MAT)

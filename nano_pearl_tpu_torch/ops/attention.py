@@ -439,7 +439,12 @@ def paged_attention_grouped(
     q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group
 ):
     """Packed-verify attention: the kernel ``attention_kernel`` picks (K2,
-    K9b, K10b or K10d) on the card, its plain version on the CPU."""
+    K9b, K10b or K10d) on the card, its plain version on the CPU. A group
+    of one row (a verify at gamma 1, on the adaptive ladder) is a decode
+    row of its table: the decode kernel takes it (K2 and K9b take two rows
+    a group or more; their rows equal the decode kernel's bit for bit)."""
+    if rows_per_group == 1:
+        return paged_attention(q, cache, layer_idx, group_tables, context_lens, scale)
     fn = attention_kernel("verify", cache)
     return fn(q, cache, layer_idx, group_tables, context_lens, scale, rows_per_group)
 

@@ -3,8 +3,8 @@
 torch.profiler.
 
     python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,
-                                                 qthr,prefill]
-                                        [--unprofiled] [--tree ROOT]
+                                                 qthr,overlap,prefill]
+                                        [--unprofiled] [--pearl-only] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
 gamma=14 (as chip_smoke.py does) and drives chip_smoke.py's window of
@@ -26,8 +26,12 @@ bench.py --kv-quant int8 --quant int8: decode through K9a, the verify
 through K9b); "qthr" chip_smoke.py's quant_throughput_path (throughput
 with draft_noise 0.005 over an fp8 KV cache and fp8 weights, bench.py
 --kv-quant fp8 --quant fp8: the draft's decode and the target's classic
-verify through K9c). An override path runs its PEARL rounds only: its AR is the
-base path's program. Each loop runs twice:
+verify through K9c); "overlap" chip_smoke.py's overlap_path (main under
+execution_mode="overlap": the per-round loop, the draft's gamma-scan on
+one CUDA stream and the target's verify and verdict on another). An
+override path and the overlap path run their PEARL rounds only: the
+override's AR is the base path's program, and AR runs the fused AR loop
+in every mode. Each loop runs twice:
 
 - unprofiled: CUDA events before the first round (step) and after each
   give the loop's time as the device sees it, its prefill left out;
@@ -39,7 +43,10 @@ For each path and loop it prints one JSON line: loop ms per round, PEARL (AR)
 tok/s (committed tokens over the loop's host seconds, as chip_smoke.py
 counts them), sampled device
 kernel ms per round, the device's idle share (1 - kernel time / loop
-time; the kernels run on one stream), launches per round, the kernels
+time; on the overlap path the kernel time is the union of both streams'
+kernel intervals in the window's trace, ``device_busy_ms_per_round``, and
+``streams_concurrent_share`` the share of the draft stream's kernel time
+a target-stream kernel overlapped), launches per round, the kernels
 with the most device time, and, for PEARL rounds, the host's time per
 round inside each stage of the round (draft gamma-scan, target verify
 and its attention, writeback and LM head, verdict), taken with
@@ -48,7 +55,9 @@ enqueues there, so this is dispatch time. It prints the card's name and
 power limit first. Needs one CUDA card. ``--unprofiled`` runs the PEARL
 loop's unprofiled pass alone (loop ms, tok/s and host stages, K1's, K2's,
 K5's, K9a-c's wrappers among them; no profiler pass, no AR loop), under a minute a path,
-for turns of two trees in one call. ``--tree ROOT`` runs another tree of the
+for turns of two trees in one call. ``--pearl-only`` leaves every AR loop out
+(a fused path's round beside the overlap path's in one short call).
+``--tree ROOT`` runs another tree of the
 repository (its package and chip_smoke.py) under this script, so that a
 parent tree is measured with the same stages.
 
@@ -66,7 +75,9 @@ import argparse
 import functools
 import importlib
 import json
+import os
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -93,7 +104,9 @@ from chip_smoke import (  # noqa: E402
     PREFIX_ROWS,
     SMOLLM2_360M,
     add_requests,
+    busy,
     nvidia_smi,
+    overlap_share,
     pair_engine,
     prefill_inputs,
     prefix_inputs,
@@ -146,13 +159,35 @@ class PerRound:
 
 
 class Windows:
-    """on_trace_ready handler: sums the device work of each recorded window."""
+    """on_trace_ready handler: sums the device work of each recorded window;
+    with ``streams``, also the union of the kernels' intervals over all
+    streams and the draft stream's (the window's earliest kernel's) share
+    overlapped by another stream's kernels, from the window's trace."""
 
-    def __init__(self):
+    def __init__(self, streams: bool = False):
         self.n, self.us, self.launches = 0, 0.0, 0
         self.us_by_name, self.count_by_name = Counter(), Counter()
+        self.streams, self.busy_us, self.shares = streams, 0.0, []
+
+    def _stream_intervals(self, prof) -> None:
+        with tempfile.TemporaryDirectory(prefix="profile_torch_port_") as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                kernels = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"),
+                                 key=lambda e: e["ts"])
+        by_stream = {}
+        for e in kernels:
+            by_stream.setdefault(e["args"]["stream"], []).append([e["ts"], e["ts"] + e["dur"]])
+        self.busy_us += sum(hi - lo for lo, hi in busy([iv for ivs in by_stream.values() for iv in ivs]))
+        if kernels:
+            draft = kernels[0]["args"]["stream"]
+            others = [iv for s, ivs in by_stream.items() if s != draft for iv in ivs]
+            self.shares.append(overlap_share(by_stream[draft], others))
 
     def __call__(self, prof) -> None:
+        if self.streams:
+            self._stream_intervals(prof)
         for e in prof.key_averages():
             # the profiler's own "ProfilerStep#n" annotation shows up as a
             # device event spanning the whole window: not a kernel
@@ -174,6 +209,7 @@ PATHS = {
     "deferred_db": OVERRIDE_PATHS["deferred_db_path"][:3] + (1,),
     "fresh_kernel": OVERRIDE_PATHS["fresh_kernel_path"][:3] + (1,),
     "sp": ("ceiling", 0.0, None, 2),
+    "overlap": ("ceiling", 0.0, None, 1),
     "fallback": ("ceiling", 0.0, None, 1),
     "quant": ("ceiling", 0.0, None, 1),
     "qthr": ("throughput", 0.005, None, 1),
@@ -182,6 +218,8 @@ PATHS = {
 PAIRS = {"fallback": (32, SMOLLM2_360M)}
 # path -> (KV cache quantization, weight quantization) of both models
 QUANT = {"quant": ("int8", "int8"), "qthr": ("fp8", "fp8")}
+# paths run under execution_mode="overlap" (PEARL rounds only)
+OVERLAP = {"overlap"}
 # (module, attribute) called once or more per PEARL round: the host time
 # spent inside each is summed; a stage the path does not run reads 0
 HOST_STAGES = {
@@ -214,6 +252,10 @@ HOST_STAGES = {
     "sp_write_rows": ("nano_pearl_tpu_torch.parallel.sp", "store_rows"),
     "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
     "verdict": ("nano_pearl_tpu_torch.engine.fused", "verify_verdict"),
+    "overlap_verify_forward": ("nano_pearl_tpu_torch.engine.runner", "GroupRunner.verify_forward"),
+    "overlap_verdict": ("nano_pearl_tpu_torch.engine.runner", "GroupRunner.verdict"),
+    # host reads of the draft tokens and the verdict: these wait on the device
+    "overlap_host_reads": ("nano_pearl_tpu_torch.engine.pearl", "PearlOrchestrator._fetch"),
 }
 
 
@@ -250,7 +292,8 @@ class HostStages:
             setattr(owner, name, orig)
 
 
-def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive, profiled: bool = True) -> dict:
+def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive, profiled: bool = True,
+            streams: bool = False) -> dict:
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     with PerRound(owner, name) as timed, HostStages() as host:
         _, num_tokens, _, elapsed = drive()
@@ -266,7 +309,7 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
         return {"phase": label, unit + "s": n, "loop_ms_per_" + unit: loop_ms / n, "tok_s": tok_s,
                 "host_stages": host_stages}
 
-    windows = Windows()
+    windows = Windows(streams)
     add_requests(engine, np.random.default_rng(1), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -279,8 +322,9 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
     if windows.n == 0:
         raise RuntimeError(f"{label}: the profiler recorded no window")
     kernel_ms = windows.us / 1e3 / windows.n
-    if not 0 < kernel_ms <= loop_ms / n:
-        raise RuntimeError(f"{label}: {kernel_ms} device ms per {unit} against a loop of {loop_ms / n} ms")
+    busy_ms = windows.busy_us / 1e3 / windows.n if streams else kernel_ms
+    if not 0 < busy_ms <= loop_ms / n:
+        raise RuntimeError(f"{label}: {busy_ms} device ms per {unit} against a loop of {loop_ms / n} ms")
     top = windows.us_by_name.most_common(12)
     return {
         "phase": label,
@@ -289,7 +333,9 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
         "loop_ms_per_" + unit: loop_ms / n,
         "tok_s": tok_s,
         "device_kernel_ms_per_" + unit: kernel_ms,
-        "device_idle_share": 1.0 - kernel_ms / (loop_ms / n),
+        **({"device_busy_ms_per_" + unit: busy_ms,
+            "streams_concurrent_share": float(np.mean(windows.shares))} if streams else {}),
+        "device_idle_share": 1.0 - busy_ms / (loop_ms / n),
         "device_launches_per_" + unit: windows.launches / windows.n,
         "profiled_run_s": profiled_s,
         "host_stages": host_stages,
@@ -301,28 +347,32 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
     }
 
 
-def profile_path(dev, path: str, profiled: bool = True) -> None:
+def profile_path(dev, path: str, profiled: bool = True, pearl_only: bool = False) -> None:
     profile, noise, env, sp = PATHS[path]
     layers, widths = PAIRS.get(path, (36, None))
     kv_quant, quant = QUANT.get(path, (None, None))
+    mode = "overlap" if path in OVERLAP else "auto"
     engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, kv_quant=kv_quant,
-                         quant=quant, env=env, sp=sp, widths=widths)
+                         quant=quant, env=env, sp=sp, widths=widths, mode=mode)
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
     engine.bench_generate(num_pearl_steps=2, reserve_steps=ROUNDS)
-    if env is None:
+    pearl_only = pearl_only or env is not None or path in OVERLAP
+    if not pearl_only:
         add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
         engine.AR_bench_generate(num_steps=4, reserve_steps=AR_STEPS)
 
     head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
             **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {}),
             **({"target_layers": layers, "widths": "SmolLM2-360M"} if widths else {}),
-            **({"kv_quant": kv_quant, "quant": quant} if kv_quant else {})}
-    out = measure(engine, "pearl", "round", fused, "_pearl_round", PEARL_SAMPLE,
-                  lambda: engine.bench_generate(num_pearl_steps=ROUNDS), profiled)
+            **({"kv_quant": kv_quant, "quant": quant} if kv_quant else {}),
+            **({"execution_mode": mode} if mode != "auto" else {})}
+    owner, name = (engine.orchestrator, "pearl_round") if path in OVERLAP else (fused, "_pearl_round")
+    out = measure(engine, "pearl", "round", owner, name, PEARL_SAMPLE,
+                  lambda: engine.bench_generate(num_pearl_steps=ROUNDS), profiled, streams=path in OVERLAP)
     print(json.dumps({**head, **out}), flush=True)
-    if env is None and profiled:
+    if not pearl_only and profiled:
         out = measure(engine, "ar", "step", fused.target, "decode_step", AR_SAMPLE,
                       lambda: engine.AR_bench_generate(num_steps=AR_STEPS))
         print(json.dumps({**head, **out}), flush=True)
@@ -368,6 +418,7 @@ def main() -> int:
                     help="comma-separated: " + ", ".join([*PATHS, "prefill"]))
     ap.add_argument("--unprofiled", action="store_true",
                     help="the PEARL loop's unprofiled pass alone: loop ms, tok/s and host stages")
+    ap.add_argument("--pearl-only", action="store_true", help="profile the PEARL rounds alone, no AR loop")
     ap.add_argument("--tree", help="profile this other tree of the repository (its package and chip_smoke.py)")
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -383,7 +434,7 @@ def main() -> int:
         if path == "prefill":
             profile_prefill(dev)
         else:
-            profile_path(dev, path, not args.unprofiled)
+            profile_path(dev, path, not args.unprofiled, args.pearl_only)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
