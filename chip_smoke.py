@@ -85,8 +85,8 @@ script exits non-zero without its last line):
    sequences over 9-block pools so that contexts span both shards: PEARL
    == AR and == the unsharded stream, over a bf16 and an int8 cache, with
    only K3 and K11a/K11c (K11b/K11d) launched;
-   checkpoint_exactness: tiny llama, tied llama, qwen2 and qwen3 HF
-   checkpoint directories (head dim 16) written by this script, loaded
+   checkpoint_exactness: tiny llama, tied llama, qwen2, qwen3, Qwen3-MoE and
+   Mixtral HF checkpoint directories (head dim 16) written by this script, loaded
    through PearlConfig(draft_model=dir, target_model=dir): weights equal
    what was written, f32 PEARL == AR through K10a/K10b (K10c/K10d over an
    int8 cache);
@@ -95,16 +95,23 @@ script exits non-zero without its last line):
    AR at gamma 4, the same at gamma -1 with a draft drawn independently
    of the target (gamma re-picked as the runs go), and a request with a
    stop token ends where AR with that stop ends;
+   moe_exactness, moe_throughput_exactness, moe_quant_exactness: the f32
+   2L/6L pair at bench.py --moe's widths (8 experts of width 1024, top-2):
+   PEARL == AR at the ceiling, under the throughput profile at B=8,
+   gamma=16 (its 128-row verify through the sorted dispatch, asserted) and
+   with int8 weights; fuse_proj_exactness: the main widths with fused
+   projections, PEARL == AR and the stream equal to the unfused one;
 6. main path: the bench's bf16 3L/36L layer-share pair (hidden 1024, ffn
    4096, 8x128 query heads, 2 KV heads, vocab 32768), B=32, gamma=14,
    prompt 64, greedy: 145 PEARL rounds, then AR over the first sixth of
    the same window;
-   throughput_path: the same run with draft_noise 0.005 under the
+   throughput_path: the same run (73 rounds) with draft_noise 0.005 under the
    throughput profile (bench.py --draft-noise 0.005); quant_path: the
    main path with bench.py --kv-quant int8 --quant int8 (MAT 14 asserted,
    decode through K9a, verify through K9b, no K10c/K10d launch, the KV
-   pools' bytes per block against the bf16 run's); quant_throughput_path:
-   the throughput path with --kv-quant fp8 --quant fp8 (K9c), 73 rounds
+   pools' bytes per block against the bf16 run's), 37 rounds;
+   quant_throughput_path:
+   the throughput path with --kv-quant fp8 --quant fp8 (K9c), 37 rounds
    (each path's K5/K9c calls counted by kind, decode or verify);
    each with its AR over the first sixth of its window;
    split_path, deferred_db_path (the main path's run under
@@ -117,14 +124,16 @@ script exits non-zero without its last line):
    SmolLM2-360M's published widths (3L draft, 32L target, Hkv*D 320,
    seeded random weights) written as bf16 HF checkpoint directories and
    loaded by the engine, the bench's run over a bf16 and an int8 cache
-   (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 145
-   rounds, AR over the first sixth of the window;
+   (K3, K10a/K10b or K10c/K10d, never K1/K2/K9; MAT 14 asserted), 73
+   rounds, AR over the first sixth of the window (145 rounds before the
+   MoE phases took the script past 1,000 s on a slow host, as the
+   throughput path; the quant paths 145 and 73);
    sp_path: the main path with draft_sp = target_sp = 2 (the shards share
-   the one card; K3, K11a, K11c, MAT 14 asserted), 73 rounds, AR over the
+   the one card; K3, K11a, K11c, MAT 14 asserted), 37 rounds, AR over the
    first sixth of the window; sp_quant_path: the same over an int8 cache
-   with int8 weights (K11b, K11d), 73 rounds, AR over a sixth (the AR
-   windows and the 73-round paths keep the script inside its time limit
-   on a slow host);
+   with int8 weights (K11b, K11d), 37 rounds, AR over a sixth (73 each
+   before the MoE phases; the AR windows and the shorter paths keep the
+   script inside its time limit on a slow host);
    overlap_path: the main path's run under execution_mode="overlap", 73
    rounds, speedup against the main path's AR (MAT 14 asserted, the
    streams equal to a fused run of the same rounds on the same weights,
@@ -135,14 +144,20 @@ script exits non-zero without its last line):
    pair under gamma=-1 (fused, auto_set_gamma at B=32, bench.py's adaptive
    warm-up), 73 rounds: the seed gamma and profiled speeds, each chunk's
    gamma, p_hat, MAT and tok/s;
+   moe_path: bench.py --moe's layer-share pair (the main widths, 8 experts
+   of width 1024, top-2), the main path's run, 37 rounds, AR over a sixth
+   (MAT 14 asserted, K1/K2/K3; the sorted dispatch's calls, each a host
+   read, by rows: prefill only); fuse_proj_path: the main path's run with
+   fused projections, 16 rounds, no AR (MAT 14 asserted);
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
    with prefix hits and chunked passes must equal AR;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
 Each path (main path, throughput path, the two quantized paths, the
-three override paths, the overlap and gamma_auto paths, the two
-checkpoint paths, the two sp paths, serving) sets every launch counter to 0 just before it and reads them
+three override paths, the overlap and gamma_auto paths, the MoE and
+fused-projection paths, the two checkpoint paths, the two sp paths,
+serving) sets every launch counter to 0 just before it and reads them
 just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -1415,14 +1430,21 @@ def prefix_kernel_rows(gen, dev, flush) -> list[dict]:
 # ------------------------------------------------------------- engine runs
 
 
+MAIN_WIDTHS = dict(  # bench.py's defaults (bench.py:110-249)
+    architecture="LlamaForCausalLM", hidden_size=1024, intermediate_size=4096, num_attention_heads=8,
+    num_key_value_heads=2, vocab_size=32768, eos_token_id=1, dtype="bfloat16", max_position_embeddings=2048,
+)
+# bench.py --moe (bench.py:148-155, :288-311): 8 experts of width ffn // 4, top-2, Qwen3-MoE routing
+MOE_WIDTHS = dict(MAIN_WIDTHS, architecture="Qwen3MoeForCausalLM", num_experts=8, num_experts_per_tok=2,
+                  moe_intermediate_size=1024)
+FUSED_WIDTHS = dict(MAIN_WIDTHS, fuse_proj=True)  # bench.py --fuse-proj
+MOE_LABEL = "MoE (bench.py --moe: 8 experts of width 1024, top-2)"
+
+
 def model_config(layers: int, dtype: str):
     from nano_pearl_tpu_torch import ModelConfig
 
-    return ModelConfig(
-        architecture="LlamaForCausalLM", hidden_size=1024, intermediate_size=4096,
-        num_hidden_layers=layers, num_attention_heads=8, num_key_value_heads=2,
-        vocab_size=32768, eos_token_id=1, dtype=dtype, max_position_embeddings=2048,
-    )
+    return ModelConfig(num_hidden_layers=layers, **dict(MAIN_WIDTHS, dtype=dtype))
 
 
 @contextlib.contextmanager
@@ -1440,6 +1462,23 @@ def overrides(env: dict | None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# (draft config, target config, draft noise) -> the layer-share pair drawn for it: a run builds
+# the same pair for many phases, and drawing the 36-layer pair's weights takes most of an
+# engine's build. The engines only read the arrays.
+_LAYER_SHARE_PAIRS: dict = {}
+
+
+def layer_share_pair(md, mt, draft_noise: float):
+    """``build_layer_share_pair(md, mt, seed=0, draft_noise)``, drawn once a
+    run for each configuration."""
+    from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
+
+    key = (repr(md), repr(mt), draft_noise)
+    if key not in _LAYER_SHARE_PAIRS:
+        _LAYER_SHARE_PAIRS[key] = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
+    return _LAYER_SHARE_PAIRS[key]
 
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
@@ -1461,14 +1500,13 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
     blocks, since a fixed-step run that switches gamma reserves its whole
     window again from where it stands (the JAX package's rule)."""
     from nano_pearl_tpu_torch import ModelConfig, PearlConfig, PearlEngine
-    from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
     if dirs:
         (md, mt), dp, tp = dirs, None, None
     else:
         md, mt = ((model_config(ld, dtype), model_config(lt, dtype)) if widths is None else
                   (ModelConfig(num_hidden_layers=ld, **widths), ModelConfig(num_hidden_layers=lt, **widths)))
-        dp, tp = build_layer_share_pair(md, mt, seed=0, draft_noise=draft_noise)
+        dp, tp = layer_share_pair(md, mt, draft_noise)
         if draft_seed is not None:
             from nano_pearl_tpu_torch.models.transformer import init_params_numpy
 
@@ -1784,19 +1822,21 @@ def first_divergence(a: list, b: list):
 
 
 def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=(), sp=1,
-                    unsharded=None, windows: int = 16, num_blocks=None) -> list:
+                    unsharded=None, windows: int = 16, num_blocks=None, widths=None, label="") -> list:
     """f32 layer-share pair: the PEARL stream must equal the AR stream
     (``kv_quant`` / ``quant``: over a quantized cache / weights; ``env``:
     under schedule overrides, whose kernels ``ran`` must have launched;
     ``windows`` accepted windows per request; ``num_blocks``: the pools'
-    blocks). With ``sp`` > 1 (draft_sp = target_sp, the shards on the one
+    blocks; ``widths``: the pair's ModelConfig fields in place of the
+    main widths, ``label`` their description). With ``sp`` > 1 (draft_sp = target_sp, the shards on the one
     card) the stream must also equal ``unsharded``, the same run's stream
     without sp, and exactly the sp kernels (``sp_kernels``) must have
     launched. Returns the PEARL stream."""
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + windows * gamma  # a whole number of accepted windows
     engine = pair_engine(2, 6, "float32", batch, gamma, windows, prompt_len, dev, kv_quant=kv_quant,
-                         quant=quant, env=env, sp=sp, num_blocks=num_blocks)
+                         quant=quant, env=env, sp=sp, num_blocks=num_blocks,
+                         widths=widths and dict(widths, dtype="float32"))
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -1822,7 +1862,7 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
           "accepted_tokens": [sum(a) for a in acc], **extra,
           **({"env": env, "launches": ov} if env else {}),
           "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)
-                    + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "")})
+                    + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "") + label})
     del engine
     torch.cuda.empty_cache()
     return pearl
@@ -1848,19 +1888,23 @@ def sp_kernels(kv_quant=None) -> tuple[tuple, tuple]:
 
 
 def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, quant=None,
-                               phase="throughput_exactness", env=None, ran=()) -> None:
+                               phase="throughput_exactness", env=None, ran=(), widths=None, label="",
+                               batch: int = 4, gamma: int = 4, windows: int = 16) -> None:
     """The throughput profile on the f32 2L/6L pair at full width with a
-    noisy draft (B=4, gamma=4): rounds reject and roll back over deferred
-    writes, and every PEARL token the target verified must equal AR's at
-    its position. A request that finishes on an accepted round ends with
+    noisy draft (B=4, gamma=4; ``widths``, ``label`` as ``exactness_phase``'s,
+    ``batch`` and ``gamma`` in place of 4, ``windows`` draft windows a
+    request in place of 16): rounds reject and roll back over
+    deferred writes, and every PEARL token the target verified must equal
+    AR's at its position. A request that finishes on an accepted round ends with
     its last draft window unverified (the finish rule of the JAX package
     and the reference), so those gamma tokens are left out; AR runs
     2 * gamma tokens further so that it covers every PEARL stream. Over a
     quantized cache the verify is the classic write-then-read one (K9c)."""
-    batch, gamma, prompt_len = 4, 4, 64
-    max_tokens = 1 + 16 * gamma
-    engine = pair_engine(2, 6, "float32", batch, gamma, 16, prompt_len, dev, profile="throughput",
-                         draft_noise=draft_noise, kv_quant=kv_quant, quant=quant, env=env)
+    prompt_len = 64
+    max_tokens = 1 + windows * gamma
+    engine = pair_engine(2, 6, "float32", batch, gamma, windows, prompt_len, dev, profile="throughput",
+                         draft_noise=draft_noise, kv_quant=kv_quant, quant=quant, env=env,
+                         widths=widths and dict(widths, dtype="float32"))
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -1879,8 +1923,8 @@ def throughput_exactness_phase(dev, draft_noise: float = 0.005, kv_quant=None, q
           "verified_tokens_compared": verified, "rounds_with_a_rejection": rejections,
           "accepted_tokens": [sum(a) for a in acc],
           **({"k9_launches": q8} if kv_quant else {}), **({"env": env, "launches": ov} if env else {}),
-          "config": f"f32 layer-share 2L/6L full width, draft_noise {draft_noise}, B=4, gamma=4, "
-                    "throughput profile" + quant_label(kv_quant, quant)})
+          "config": f"f32 layer-share 2L/6L full width, draft_noise {draft_noise}, B={batch}, gamma={gamma}, "
+                    "throughput profile" + quant_label(kv_quant, quant) + label})
     if rejections < 1:
         raise AssertionError("no round rejected: the noisy draft did not exercise rollback")
     del engine
@@ -1912,10 +1956,35 @@ def mono_calls(calls: dict):
         runner.paged_attention_mono = orig
 
 
+@contextlib.contextmanager
+def moe_sorted_calls(rows: list):
+    """Append to ``rows`` the row count of every call of the MoE block's
+    sorted dispatch (``ops/moe._moe_mlp_sorted``): each is one host read
+    of its segment sizes."""
+    from nano_pearl_tpu_torch.ops import moe
+
+    orig = moe._moe_mlp_sorted
+
+    def counted(x, *args):
+        rows.append(x.shape[0])
+        return orig(x, *args)
+
+    moe._moe_mlp_sorted = counted
+    try:
+        yield rows
+    finally:
+        moe._moe_mlp_sorted = orig
+
+
+def by_rows(rows: list) -> dict:
+    """Sorted-dispatch calls by their row count."""
+    return {str(r): rows.count(r) for r in sorted(set(rows))}
+
+
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
               ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
               label: str | None = None, sp: int = 1, gamma: int = 14, mode: str = "auto", warm=None,
-              probe=None) -> tuple[dict, dict]:
+              probe=None, widths=None) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
@@ -1927,13 +1996,16 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     window only (AR_CUT on every path, to keep the script inside its time
     limit). ``dirs``: the (draft, target) checkpoint directories to load in
     place of the layer-share pair (``label`` its description, ``vocab`` its
-    vocabulary). ``sp``: draft_sp = target_sp. ``gamma``: the window, -1
+    vocabulary); ``widths``: the layer-share pair's ModelConfig fields in
+    place of the bench's (``label`` their description). ``sp``: draft_sp =
+    target_sp. ``gamma``: the window, -1
     adaptive (the AR window sized for 16); ``mode``: the execution mode.
     ``warm(engine, add)``, where given, runs after the warm-up (``add``
     queues the warm-up's requests) and ``probe(engine, pearl_tokens)``
     after the measured runs; the dicts they return join the line. The
     launch counters are set to 0 just before the measured runs; the mono
-    schedule's K5/K9c calls are also counted by kind (``mono_calls``).
+    schedule's K5/K9c calls are also counted by kind (``mono_calls``), and
+    an MoE pair's sorted-dispatch calls by rows (``moe_sorted_calls``).
     Returns (the phase's line without its name, launches)."""
     from nano_pearl_tpu_torch.ops.kv_cache import cache_nbytes
 
@@ -1943,7 +2015,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant, env, dirs, sp, mode=mode)
+                         kv_quant, quant, env, dirs, sp, mode=mode, widths=widths)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
@@ -1966,13 +2038,13 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     torch.cuda.reset_peak_memory_stats(dev)
     # both runs decode the same prompts, so their streams can be compared
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
-    with mono_calls({}) as pearl_mono:
+    with mono_calls({}) as pearl_mono, moe_sorted_calls([]) as pearl_sorted:
         pearl_toks, num_tokens, _, pearl_t = engine.bench_generate(num_pearl_steps=steps)
     pearl_launches = {k: fn.launches for k, fn in counters.items()}
-    ar_toks, ar_mono = [], {}
+    ar_toks, ar_mono, ar_sorted = [], {}, []
     if ar_of is None:
         add_requests(engine, np.random.default_rng(1), batch, prompt_len, ar_max_tokens, vocab)
-        with mono_calls(ar_mono):
+        with mono_calls(ar_mono), moe_sorted_calls(ar_sorted):
             ar_toks, ar_tokens, _, ar_t = engine.AR_bench_generate(num_steps=ar_steps)
     launches = {k: fn.launches for k, fn in counters.items()}
     ar_launches = {k: launches[k] - pearl_launches[k] for k in counters}
@@ -2004,6 +2076,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
         "launches": launches, "launches_pearl_run": pearl_launches,
         "launches_per_pearl_round": {k: n / steps for k, n in pearl_launches.items() if n},
         **({"mono_calls_pearl_run": pearl_mono, "mono_calls_ar_run": ar_mono} if pearl_mono or ar_mono else {}),
+        **({"moe_sorted_calls_pearl_run": by_rows(pearl_sorted), "moe_sorted_calls_ar_run": by_rows(ar_sorted)}
+           if pearl_sorted or ar_sorted else {}),
         "cuda_peak_memory_gib": peak / 2**30, "kv_pool_bytes_per_block": kv_bytes, **shards, **extra,
     }
     if ar_of is not None:
@@ -2042,7 +2116,7 @@ def check_launches(phase: str, launches: dict, ran: tuple, not_ran: tuple) -> No
         raise AssertionError(f"{phase} must launch {ran} and none of {not_ran}: {launches}")
 
 
-def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
+def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 37) -> dict:
     """``bench.py --kv-quant int8 --quant int8`` on the port: the main path's
     run over an int8 cache with int8 weights, decode through K9a and the
     packed verify through K9b; MAT must stay at the ceiling (the 1-byte
@@ -2063,7 +2137,7 @@ def quant_path_phase(dev, bf16_block_bytes: float, steps: int = 145) -> dict:
     return launches
 
 
-def quant_throughput_path_phase(dev, steps: int = 73, draft_noise: float = 0.005) -> dict:
+def quant_throughput_path_phase(dev, steps: int = 37, draft_noise: float = 0.005) -> dict:
     """``bench.py --draft-noise 0.005 --kv-quant fp8 --quant fp8`` on the
     port: the throughput profile over an fp8 cache with fp8 weights, decode
     and the classic write-then-read verify through K9c (the deferred verify
@@ -2078,7 +2152,7 @@ def quant_throughput_path_phase(dev, steps: int = 73, draft_noise: float = 0.005
     return launches
 
 
-def throughput_path_phase(dev, steps: int = 145, draft_noise: float = 0.005) -> tuple[dict, dict]:
+def throughput_path_phase(dev, steps: int = 73, draft_noise: float = 0.005) -> tuple[dict, dict]:
     """``bench.py --draft-noise 0.005`` on the port: the throughput profile
     (bench.py picks it for noisy drafts), decode through K5, the deferred
     verify through K7 and one K12 writeback per round, prefill through
@@ -2124,7 +2198,7 @@ def override_path_phase(dev, path: str, ar_of: tuple[str, float], steps: int = 7
     return launches
 
 
-def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 73) -> dict:
+def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 37) -> dict:
     """The main path's run with draft_sp = target_sp = 2 (PearlConfig; the
     two shards of each pool share the one card): decode through K11a, the
     classic packed verify through K11c, both merged over the shards,
@@ -2347,6 +2421,65 @@ def gamma_auto_path_phase(dev, ar_of: tuple[str, float], steps: int = 73) -> dic
 
 # ------------------------------------------------------------ checkpoints
 
+def moe_exactness_phase(dev, plain: list) -> None:
+    """f32 PEARL == AR on the 2L/6L layer-share pair at bench.py --moe's
+    widths (8 experts of width 1024, top-2): at the ceiling (decode and
+    verify dense, prefill sorted); under the throughput profile with a noisy
+    draft at B=8, gamma=16 (6 windows a request), whose 128-row verify must
+    take the sorted dispatch; with int8 weights (int8 expert stacks stay dense). Then the
+    main widths with fused projections: PEARL == AR, and the stream equal to
+    ``plain``, the unfused pair's in ``exactness_phase``."""
+    exactness_phase(dev, phase="moe_exactness", widths=MOE_WIDTHS, label=", " + MOE_LABEL)
+    with moe_sorted_calls([]) as rows:
+        throughput_exactness_phase(dev, phase="moe_throughput_exactness", widths=MOE_WIDTHS, batch=8, gamma=16,
+                                   windows=6, label=", " + MOE_LABEL)
+    emit({"phase": "moe_throughput_exactness_dispatch", "sorted_calls_by_rows": by_rows(rows)})
+    if 8 * 16 not in rows:
+        raise AssertionError(f"the throughput profile's 128-row MoE verify never took the sorted dispatch: {rows}")
+    exactness_phase(dev, quant="int8", phase="moe_quant_exactness", widths=MOE_WIDTHS, label=", " + MOE_LABEL)
+    fused = exactness_phase(dev, phase="fuse_proj_exactness", widths=FUSED_WIDTHS, label=", fused projections")
+    if fused != plain:
+        raise AssertionError(f"fused projections changed the stream: first divergence {first_divergence(fused, plain)}")
+    emit({"phase": "fuse_proj_stream", "equals_unfused_stream": True})
+
+
+def moe_path_phase(dev, steps: int = 37) -> dict:
+    """bench.py --moe's layer-share pair at the main path's widths (8
+    experts of width 1024, top-2, Qwen3-MoE routing; ≈ 1.0 B target
+    parameters), the main path's run: 37 rounds (cut from 73 to keep the
+    script inside its time), AR over the first sixth of the window. MAT must stay at the ceiling (decode and verify run the
+    dense dispatch at one verify chunk's rows); the sorted dispatch runs in
+    prefill alone, so no round reads the host."""
+    gamma = 14
+    label = ("bf16 MoE layer-share 3L/36L (bench.py --moe), hidden 1024, 8 experts of width 1024, top-2, "
+             "8x128 q heads, 2 kv heads, vocab 32768")
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_cut=AR_CUT, widths=MOE_WIDTHS, label=label)
+    chunk_rows = 16 * gamma  # the verify chunk's rows, which the gamma-scan's decode pads to
+    sorted_rows = out.get("moe_sorted_calls_pearl_run", {})
+    out["moe_host_reads_per_pearl_round"] = sum(n for r, n in sorted_rows.items() if int(r) <= chunk_rows) / steps
+    emit({"phase": "moe_path", **out})
+    check_launches("moe_path", launches, ("paged_decode", "paged_verify", "prefill_self"), tuple(FALLBACK_KERNELS))
+    if out["mat"] != gamma:
+        raise AssertionError(f"moe_path MAT {out['mat']} below the layer-share ceiling {gamma}")
+    if out["moe_host_reads_per_pearl_round"] or not sorted_rows:
+        raise AssertionError(f"moe_path: the sorted dispatch must run in prefill alone: {sorted_rows}")
+    return launches
+
+
+def fuse_proj_path_phase(dev, ar_of: tuple[str, float], steps: int = 16) -> dict:
+    """The main path's run with fused projections (bench.py --fuse-proj:
+    one qkv and one gate|up product a layer), 16 rounds, no AR (speedup
+    against the main path's AR of this call); MAT must stay at the ceiling."""
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_of=ar_of, widths=FUSED_WIDTHS,
+                              label="bf16 layer-share 3L/36L at the main widths, fused projections")
+    emit({"phase": "fuse_proj_path", **out})
+    check_launches("fuse_proj_path", launches, ("paged_decode", "paged_verify", "prefill_self"),
+                   tuple(FALLBACK_KERNELS))
+    if out["mat"] != 14:
+        raise AssertionError(f"fuse_proj_path MAT {out['mat']} below the layer-share ceiling 14")
+    return launches
+
+
 HF_LAYER_NAMES = {  # pytree key -> (HF tensor name under model.layers.{i}, stored [out, in])
     "input_ln": ("input_layernorm.weight", False), "wq": ("self_attn.q_proj.weight", True),
     "wk": ("self_attn.k_proj.weight", True), "wv": ("self_attn.v_proj.weight", True),
@@ -2355,6 +2488,20 @@ HF_LAYER_NAMES = {  # pytree key -> (HF tensor name under model.layers.{i}, stor
     "q_norm": ("self_attn.q_norm.weight", False), "k_norm": ("self_attn.k_norm.weight", False),
     "post_ln": ("post_attention_layernorm.weight", False), "wgate": ("mlp.gate_proj.weight", True),
     "wup": ("mlp.up_proj.weight", True), "wdown": ("mlp.down_proj.weight", True),
+}
+# an MoE checkpoint's names under model.layers.{i}, stored [out, in]: the router, and the
+# experts' {j} (Qwen3-MoE: mlp.experts.{j}.gate_proj / up_proj / down_proj; Mixtral:
+# block_sparse_moe.experts.{j}.w1 / w3 / w2)
+HF_MOE_NAMES = {
+    "Qwen3MoeForCausalLM": {"router": "mlp.gate.weight", "wgate": "mlp.experts.{j}.gate_proj.weight",
+                            "wup": "mlp.experts.{j}.up_proj.weight", "wdown": "mlp.experts.{j}.down_proj.weight"},
+    "MixtralForCausalLM": {"router": "block_sparse_moe.gate.weight", "wgate": "block_sparse_moe.experts.{j}.w1.weight",
+                           "wup": "block_sparse_moe.experts.{j}.w3.weight",
+                           "wdown": "block_sparse_moe.experts.{j}.w2.weight"},
+}
+HF_MODEL_TYPES = {  # config.json's model_type, which HF reads to pick the model class
+    "LlamaForCausalLM": "llama", "Qwen2ForCausalLM": "qwen2", "Qwen3ForCausalLM": "qwen3",
+    "Qwen3MoeForCausalLM": "qwen3_moe", "MixtralForCausalLM": "mixtral",
 }
 ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16"}
 
@@ -2384,7 +2531,9 @@ def write_checkpoint(directory: str, cfg, tree: dict, dtype: torch.dtype) -> Non
     """An HF checkpoint directory of ``cfg``'s architecture: ``config.json``
     and ``model.safetensors`` holding ``tree`` (the JAX package's pytree of
     f32 numpy arrays, unpadded) under HF's tensor names and [out, in]
-    layout, in ``dtype``; no lm_head where the embeddings are tied."""
+    layout, in ``dtype``; no lm_head where the embeddings are tied. An MoE
+    config's router and experts go under Qwen3-MoE's or Mixtral's names
+    (``HF_MOE_NAMES``), with their config fields."""
     os.makedirs(directory, exist_ok=True)
 
     def conv(a):
@@ -2393,13 +2542,21 @@ def write_checkpoint(directory: str, cfg, tree: dict, dtype: torch.dtype) -> Non
     tensors = {"model.embed_tokens.weight": conv(tree["embed"]), "model.norm.weight": conv(tree["final_ln"])}
     if not cfg.tie_word_embeddings:
         tensors["lm_head.weight"] = conv(tree["lm_head"])
+    moe_names = HF_MOE_NAMES.get(cfg.architecture, {}) if cfg.is_moe else {}
     for key, stacked in tree["layers"].items():
-        name, transpose = HF_LAYER_NAMES[key]
         for i, a in enumerate(stacked):
-            tensors[f"model.layers.{i}.{name}"] = conv(a.T if transpose else a)
+            if key in moe_names and key != "router":  # [E, in, out] -> one [out, in] tensor an expert
+                for j, w in enumerate(a):
+                    tensors[f"model.layers.{i}.{moe_names[key].format(j=j)}"] = conv(w.T)
+            elif key == "router":
+                tensors[f"model.layers.{i}.{moe_names[key]}"] = conv(a.T)
+            else:
+                name, transpose = HF_LAYER_NAMES[key]
+                tensors[f"model.layers.{i}.{name}"] = conv(a.T if transpose else a)
     write_safetensors(os.path.join(directory, "model.safetensors"), tensors)
     config = {
-        "architectures": [cfg.architecture], "hidden_size": cfg.hidden_size,
+        "architectures": [cfg.architecture], "model_type": HF_MODEL_TYPES[cfg.architecture],
+        "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_hidden_layers,
         "num_attention_heads": cfg.num_attention_heads, "num_key_value_heads": cfg.num_key_value_heads,
         "head_dim": cfg.head_dim, "vocab_size": cfg.vocab_size, "rms_norm_eps": cfg.rms_norm_eps,
@@ -2407,6 +2564,12 @@ def write_checkpoint(directory: str, cfg, tree: dict, dtype: torch.dtype) -> Non
         "tie_word_embeddings": cfg.tie_word_embeddings, "eos_token_id": cfg.eos_token_id,
         "torch_dtype": str(dtype).removeprefix("torch."),
     }
+    if cfg.architecture == "MixtralForCausalLM":  # intermediate_size is the expert width
+        config.update(num_local_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok)
+    elif cfg.is_moe:
+        config.update(num_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok,
+                      moe_intermediate_size=cfg.moe_intermediate_size, norm_topk_prob=cfg.norm_topk_prob,
+                      decoder_sparse_step=1, mlp_only_layers=[])
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(config, f, indent=1)
 
@@ -2416,13 +2579,19 @@ TINY_ARCHS = {  # tests/test_model_parity.py's tiny HF models: hidden 64, 4 head
     "llama_tied": dict(architecture="LlamaForCausalLM", tie_word_embeddings=True),
     "qwen2": dict(architecture="Qwen2ForCausalLM", qkv_bias=True),
     "qwen3": dict(architecture="Qwen3ForCausalLM", qk_norm=True),
+    # tests/test_moe.py's tiny MoE models: 4 experts, top-2
+    "qwen3moe": dict(architecture="Qwen3MoeForCausalLM", qk_norm=True, num_experts=4, num_experts_per_tok=2,
+                     moe_intermediate_size=96),
+    "mixtral": dict(architecture="MixtralForCausalLM", num_experts=4, num_experts_per_tok=2,
+                    moe_intermediate_size=112),
 }
 
 
 def checkpoint_exactness_phase(dev, root: str) -> None:
     """The four tiny architectures of tests/test_model_parity.py (3 layers,
     hidden 64, 4 query heads of 16 over 2 KV heads: Hkv*D 32, vocab 211,
-    f32) written as HF checkpoint directories with seeded random weights and
+    f32) and the two tiny MoE ones of tests/test_moe.py (Qwen3-MoE and
+    Mixtral, 4 experts, top-2) written as HF checkpoint directories with seeded random weights and
     loaded through ``PearlConfig(draft_model=dir, target_model=dir)``: the
     engine's weights must equal what was written, f32 PEARL == AR (B=4,
     gamma=4, 16-key blocks), and decode and verify must have run K10a and
@@ -2472,7 +2641,8 @@ def checkpoint_exactness_phase(dev, root: str) -> None:
     torch.cuda.empty_cache()
     emit({"phase": "checkpoint_exactness", "cases": results, "weights_equal_written": True,
           "config": "tiny HF-layout checkpoints (3L, hidden 64, ffn 112, 4x16 q heads, 2 kv heads, vocab 211, "
-                    "f32, seeded random weights), draft = target directory, B=4, gamma=4, prompt 64, block 16"})
+                    "f32, seeded random weights; the MoE ones 4 experts of 96 (Qwen3-MoE) or 112 (Mixtral), "
+                    "top-2), draft = target directory, B=4, gamma=4, prompt 64, block 16"})
 
 
 SMOLLM2_360M = dict(  # HuggingFaceTB/SmolLM2-360M config.json (public): llama architecture
@@ -2499,13 +2669,13 @@ def write_smollm2_pair(root: str) -> tuple[tuple[str, str], float]:
     return dirs, time.perf_counter() - t0
 
 
-def checkpoint_path_phase(dev, dirs, write_s: float, kv_quant=None, steps: int = 145) -> dict:
+def checkpoint_path_phase(dev, dirs, write_s: float, kv_quant=None, steps: int = 73) -> dict:
     """The bench's run (B=32, gamma=14, prompt 64, greedy, ceiling) on the
     SmolLM2-360M-width checkpoint pair loaded from ``dirs`` through the
     engine's normal entry: Hkv*D = 320 sends decode to K10a and the verify
     to K10b (over an int8 cache, ``checkpoint_quant_path``: K10c / K10d),
     prefill to K3; K1/K2 (K9a/K9b) must not run. MAT must stay at the
-    layer-share ceiling (K10b rows == K10a's). 145 rounds, AR over the first
+    layer-share ceiling (K10b rows == K10a's). 73 rounds, AR over the first
     sixth of the window."""
     phase = "checkpoint_quant_path" if kv_quant else "checkpoint_path"
     label = ("bf16 SmolLM2-360M-width layer-share pair from HF checkpoint directories (3L/32L, hidden 960, "
@@ -2787,7 +2957,7 @@ def main() -> int:
     decode_verify_bitwise_phase(dev)
     decode_verify_overrides_phase(dev)
     decode_verify_throughput_phase(dev)
-    exactness_phase(dev)
+    plain = exactness_phase(dev)
     throughput_exactness_phase(dev)
     exactness_phase(dev, kv_quant="int8", quant="int8", phase="quant_exactness")
     sp_bitwise_phase(dev)
@@ -2801,6 +2971,7 @@ def main() -> int:
     throughput_exactness_phase(dev, phase="fresh_kernel_exactness", env=OVERRIDE_PATHS["fresh_kernel_path"][2],
                                ran=("mono_fresh",))
     overlap_exactness_phase(dev)
+    moe_exactness_phase(dev, plain)
     checkpoints = tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_")
     checkpoint_exactness_phase(dev, checkpoints.name)
     by_path = {}
@@ -2813,6 +2984,8 @@ def main() -> int:
         by_path[path] = override_path_phase(dev, path, (ar_of[0], ar_of[1]["ar_tok_s"]))
     by_path["overlap_path"] = overlap_path_phase(dev, ("main_path", main["ar_tok_s"]))
     by_path["gamma_auto_path"] = gamma_auto_path_phase(dev, ("main_path", main["ar_tok_s"]))
+    by_path["moe_path"] = moe_path_phase(dev)
+    by_path["fuse_proj_path"] = fuse_proj_path_phase(dev, ("main_path", main["ar_tok_s"]))
     dirs, write_s = write_smollm2_pair(checkpoints.name)
     by_path["checkpoint_path"] = checkpoint_path_phase(dev, dirs, write_s)
     by_path["checkpoint_quant_path"] = checkpoint_path_phase(dev, dirs, write_s, kv_quant="int8")

@@ -69,6 +69,16 @@ verify is the classic write-then-read one, through K9b under "ceiling"
 and K9c under "throughput"; decode goes through K9a or K9c; a prefix hit
 prefills through torch ops (the JAX package's jnp path).
 
+MoE models (``ModelConfig.is_moe``) run ``ops/moe.moe_mlp`` in place of
+the dense MLP. Every prefill flavour lets it take the sorted dispatch (at
+128 rows or more, unquantized experts), as the draft and the target
+prefill the same rows; decode never does, nor the ceiling profile's
+verify, so that the draft's decode and the target's verify round alike
+(the throughput profile's verify does: its acceptance is set by the
+models, not by rounding), as in the JAX package. ``ModelConfig.fuse_proj``
+fuses a dense model's projections (``fuse_projections``) once its
+weights are on the device and quantized.
+
 Decode and verify attention go through the route
 ``ops/attention.attention_kernel``, by the JAX package's gates: at a folded
 head axis ``Hkv * D`` that is not a multiple of 128 (over a 1-byte cache
@@ -109,6 +119,7 @@ from nano_pearl_tpu_torch.models.transformer import (
     check_supported,
     compute_logits,
     forward,
+    fuse_projections,
     init_params_numpy,
     make_rope_table,
     params_from_numpy,
@@ -226,6 +237,8 @@ class GroupRunner:
             params = params_from_numpy(params, mcfg, device)
         elif mcfg.quant and not is_quantized(params["layers"]["wq"]):
             params = quantize_params(params, mcfg)
+        if mcfg.fuse_proj and not mcfg.is_moe:
+            params = dict(params, layers=fuse_projections(params["layers"]))
         self.params = params
         self.rope_table = make_rope_table(mcfg, device)
         self.kv = None
@@ -253,6 +266,9 @@ class GroupRunner:
         if self.verify_rowwise:
             self.deferred_verify = False
         self.fresh_mode = env.get("NANO_PEARL_FRESH_MODE", "merge")
+        # the packed verify's MoE dispatch (module doc): sorted only where
+        # acceptance does not rest on decode and verify rounding alike
+        self.moe_ragged_verify = throughput
         dropped = [name for name, requested, on in (
             ("NANO_PEARL_SPLIT", split_requested, self.split),
             ("NANO_PEARL_DEFERRED_VERIFY", deferred == "1", self.deferred_verify),
@@ -372,7 +388,7 @@ class GroupRunner:
         hidden = forward(
             self.cfg, self.params, self.kv, self._tensor(tokens.reshape(-1)),
             self._tensor(positions.reshape(-1)), self._tensor(slots.reshape(-1)),
-            self.rope_table, attn_fn, attn_args, kv_write_fn=self._kv_write,
+            self.rope_table, attn_fn, attn_args, kv_write_fn=self._kv_write, moe_ragged=True,
         )
         return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
 
@@ -491,7 +507,7 @@ class GroupRunner:
             args = (block_tables, context_lens, self.scale, gamma)
         return forward(
             self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
-            kv_write_fn=self._kv_write,
+            kv_write_fn=self._kv_write, moe_ragged=self.moe_ragged_verify,
         )
 
     def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
@@ -516,7 +532,7 @@ class GroupRunner:
         hidden = forward(
             cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
             _deferred_attn, (block_tables, context_lens, ctx0, self.scale, gamma, self.fresh_schedule),
-            kv_write_fn=collect,
+            kv_write_fn=collect, moe_ragged=self.moe_ragged_verify,
         )
         write_fresh(self.kv, fresh, slots)
         return hidden

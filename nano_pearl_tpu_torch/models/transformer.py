@@ -14,10 +14,22 @@ stacked over layers:
     layers.bq/bk/bv: [L, Hq*D]/[L, Hkv*D] (qwen2)
     layers.q_norm/k_norm: [L, D] (qwen3)
 
-With ``ModelConfig.quant`` ("int8" or "fp8") the seven projections and
-an untied LM head are weight-only quantized dicts ``{"q", "s"}``
-(ops/quant.py) and every product goes through ``mm`` / ``mm_t``, which
-are ``x @ w`` / ``x @ w.T`` on plain weights.
+An MoE model (Qwen3-MoE, Mixtral: ``ModelConfig.is_moe``) holds a router
+and stacked experts in place of the dense MLP (ops/moe.py):
+
+    layers.router: [L, H, E]
+    layers.wgate/wup: [L, E, H, Fm]   layers.wdown: [L, E, Fm, H]
+
+With ``ModelConfig.fuse_proj`` (dense models) ``fuse_projections`` joins
+wq|wk|wv into ``wqkv`` [L, H, Hq*D + 2*Hkv*D] (with ``bqkv``) and
+wgate|wup into ``wgu`` [L, H, 2F], one product each in place of three and
+two.
+
+With ``ModelConfig.quant`` ("int8" or "fp8") the seven projections (the
+expert stacks among them; the router stays plain) and an untied LM head
+are weight-only quantized dicts ``{"q", "s"}`` (ops/quant.py) and every
+product goes through ``mm`` / ``mm_t``, which are ``x @ w`` / ``x @ w.T``
+on plain weights.
 
 Every phase (prefill, decode, packed verify) runs the same ``forward``
 over N flat token rows; the attention flavour is a callable handed in.
@@ -36,6 +48,7 @@ import torch.nn.functional as F
 from nano_pearl_tpu_torch.config import ModelConfig
 from nano_pearl_tpu_torch.ops.attention import check_head_dim
 from nano_pearl_tpu_torch.ops.kv_cache import write_kv
+from nano_pearl_tpu_torch.ops.moe import moe_mlp
 from nano_pearl_tpu_torch.ops.quant import (
     QUANTIZED_LAYER_KEYS,
     is_quantized,
@@ -57,13 +70,9 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
-    """Raise on model features the port does not run yet, and on a CUDA
+    """Raise on a model dtype the port does not run, and on a CUDA
     ``device`` on a head dim the kernels do not take (``check_head_dim``:
     multiples of 16 from 16 to 256; the CPU's plain versions take any)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not ported yet")
-    if cfg.fuse_proj:
-        raise NotImplementedError("fused projections are not ported yet")
     torch_dtype(cfg)
     if device is not None and torch.device(device).type == "cuda":
         check_head_dim(cfg.head_dim)
@@ -80,7 +89,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, out_dtype=None) 
 def init_layers_numpy(
     cfg: ModelConfig, rng: np.random.Generator, num_layers: int, scale: float = 0.02
 ) -> dict:
-    """``num_layers`` random f32 decoder layers, stacked, as numpy arrays."""
+    """``num_layers`` random f32 decoder layers, stacked, as numpy arrays;
+    an MoE config draws a router and expert stacks in place of the dense
+    MLP, as the JAX package's ``init_params``."""
     h, f, nl = cfg.hidden_size, cfg.intermediate_size, num_layers
     d = cfg.head_dim
     hq, hkv = cfg.num_attention_heads * d, cfg.num_key_value_heads * d
@@ -95,10 +106,15 @@ def init_layers_numpy(
         "wv": rnd(nl, h, hkv),
         "wo": rnd(nl, hq, h),
         "post_ln": np.ones((nl, h), np.float32),
-        "wgate": rnd(nl, h, f),
-        "wup": rnd(nl, h, f),
-        "wdown": rnd(nl, f, h),
     }
+    if cfg.is_moe:
+        e, fm = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update({
+            "router": rnd(nl, h, e), "wgate": rnd(nl, e, h, fm), "wup": rnd(nl, e, h, fm),
+            "wdown": rnd(nl, e, fm, h),
+        })
+    else:
+        layers.update({"wgate": rnd(nl, h, f), "wup": rnd(nl, h, f), "wdown": rnd(nl, f, h)})
     if cfg.qkv_bias:
         layers.update({"bq": rnd(nl, hq), "bk": rnd(nl, hkv), "bv": rnd(nl, hkv)})
     if cfg.qk_norm:
@@ -135,6 +151,26 @@ def quantize_params(params: dict, cfg: ModelConfig) -> dict:
     out = dict(params, layers=layers)
     if not cfg.tie_word_embeddings and not is_quantized(params["lm_head"]):
         out["lm_head"] = quantize_weight(params["lm_head"], cfg.quant, contract_axis=-1)
+    return out
+
+
+def fuse_projections(layers: dict) -> dict:
+    """wq|wk|wv -> ``wqkv`` and wgate|wup -> ``wgu``, joined on the out axis
+    (plain or quantized leaves: ``q`` and ``s`` each), and bq|bk|bv ->
+    ``bqkv``, as the JAX package's ``fuse_projections``. Dense models only:
+    the experts batch their products on E already."""
+
+    def cat(keys):
+        vals = [layers[k] for k in keys]
+        if is_quantized(vals[0]):
+            return {part: torch.cat([v[part] for v in vals], dim=-1) for part in ("q", "s")}
+        return torch.cat(vals, dim=-1)
+
+    out = {k: v for k, v in layers.items() if k not in ("wq", "wk", "wv", "wgate", "wup", "bq", "bk", "bv")}
+    out["wqkv"] = cat(["wq", "wk", "wv"])
+    out["wgu"] = cat(["wgate", "wup"])
+    if "bq" in layers:
+        out["bqkv"] = cat(["bq", "bk", "bv"])
     return out
 
 
@@ -192,6 +228,7 @@ def run_layers(
     attn_fn,
     attn_args: tuple,
     kv_write_fn=write_kv,
+    moe_ragged: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The decoder layers; returns (x, res). ``attn_fn`` marked
     ``wants_fresh_kv`` is called as ``attn_fn(q, k, v, *attn_args)`` (the
@@ -201,7 +238,15 @@ def run_layers(
     *attn_args)``. Every layer hands its post-rope K/V to
     ``kv_write_fn(cache, k, v, slots, layer)`` before its attention runs:
     ``write_kv`` stores them in the cache; the deferred verify's hook
-    (engine/runner.py) collects them and leaves the cache alone."""
+    (engine/runner.py) collects them and leaves the cache alone.
+
+    An MoE layer's MLP is ``ops/moe.moe_mlp``; ``moe_ragged`` lets a call of
+    enough rows take its sorted dispatch. The runner passes it on prefill
+    and on the throughput profile's verify, never on decode nor on the
+    ceiling profile's verify: the draft's decode and the target's verify
+    must run one dispatch, whose products round alike, or near-tied
+    argmaxes flip between them (the JAX package measured MAT 11.25 in
+    place of 14.0 with a sorted verify beside a dense decode)."""
     d = cfg.head_dim
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     eps = cfg.rms_norm_eps
@@ -211,13 +256,20 @@ def run_layers(
         lp = {key: layer_weight(val, li) for key, val in layers.items()}  # views
         res2 = x.float() + res  # f32, exact
         h1 = rms_norm(res2, lp["input_ln"], eps, out_dtype=x.dtype)
-        q = mm(h1, lp["wq"])
-        k = mm(h1, lp["wk"])
-        v = mm(h1, lp["wv"])
-        if cfg.qkv_bias:
-            q = q + lp["bq"]
-            k = k + lp["bk"]
-            v = v + lp["bv"]
+        if "wqkv" in lp:
+            qkv = mm(h1, lp["wqkv"])
+            if cfg.qkv_bias:
+                qkv = qkv + lp["bqkv"]
+            q, k, v = qkv.split([n_q * d, n_kv * d, n_kv * d], dim=-1)
+            v = v.contiguous()  # the kernels take V as it is; the rope writes q and k anew
+        else:
+            q = mm(h1, lp["wq"])
+            k = mm(h1, lp["wk"])
+            v = mm(h1, lp["wv"])
+            if cfg.qkv_bias:
+                q = q + lp["bq"]
+                k = k + lp["bk"]
+                v = v + lp["bv"]
         q = q.reshape(-1, n_q, d)
         k = k.reshape(-1, n_kv, d)
         v = v.reshape(-1, n_kv, d)
@@ -236,8 +288,17 @@ def run_layers(
         attn_out = mm(o.reshape(-1, n_q * d), lp["wo"])
         res3 = attn_out.float() + res2  # f32 residual carry
         h2 = rms_norm(res3, lp["post_ln"], eps, out_dtype=x.dtype)
-        act = F.silu(mm(h2, lp["wgate"]).float()).to(x.dtype) * mm(h2, lp["wup"])
-        x = mm(act, lp["wdown"])
+        if cfg.is_moe:
+            x = moe_mlp(
+                h2, lp["router"], lp["wgate"], lp["wup"], lp["wdown"], cfg.num_experts_per_tok,
+                cfg.norm_topk_prob, cfg.valid_num_experts, allow_ragged=moe_ragged,
+            )
+        else:
+            if "wgu" in lp:
+                gate, up = mm(h2, lp["wgu"]).chunk(2, dim=-1)
+            else:
+                gate, up = mm(h2, lp["wgate"]), mm(h2, lp["wup"])
+            x = mm(F.silu(gate.float()).to(x.dtype) * up, lp["wdown"])
         res = res3
     return x, res
 
@@ -253,16 +314,17 @@ def forward(
     attn_fn,
     attn_args: tuple,
     kv_write_fn=write_kv,
+    moe_ragged: bool = False,
 ) -> torch.Tensor:
     """Run the decoder stack; returns the final-normed hidden [N, H]
-    (``kv_write_fn``: see ``run_layers``)."""
+    (``kv_write_fn``, ``moe_ragged``: see ``run_layers``)."""
     x = params["embed"][tokens.long()]
     # positions past the table reuse its last row, as JAX's gather clamps
     # out-of-range indices (the bench's 2239-token window on a 2048-row table)
     rope_rows = rope_table[torch.clamp(positions.long(), max=rope_table.shape[0] - 1)]
     x, res = run_layers(
         cfg, params["layers"], kv_cache, x, torch.zeros(x.shape, dtype=torch.float32, device=x.device),
-        rope_rows, slots, attn_fn, attn_args, kv_write_fn,
+        rope_rows, slots, attn_fn, attn_args, kv_write_fn, moe_ragged,
     )
     final = x.float() + res
     return rms_norm(final, params["final_ln"], cfg.rms_norm_eps, out_dtype=x.dtype)

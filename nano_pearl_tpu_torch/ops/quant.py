@@ -5,7 +5,8 @@ Scheme, as in the JAX package: symmetric, per output channel, 1-byte
 storage. A quantized weight is a dict ``{"q": int8 | float8_e4m3fn, "s":
 float32}`` whose scale ``s`` keeps the weight's shape with the
 contraction axis reduced to 1 (``[L, 1, out]`` for stacked ``[L, in,
-out]`` weights, ``[V, 1]`` for the ``[out, in]`` LM head), and every
+out]`` weights, ``[L, E, 1, out]`` for stacked MoE experts ``[L, E, in,
+out]``, ``[V, 1]`` for the ``[out, in]`` LM head), and every
 product goes through ``mm`` / ``mm_t``: ``(x @ q.to(x.dtype)) * s``, the
 reference's order of operations (not ``x @ (q * s)``). The product is a
 plain matrix product of the 1-byte weight cast to ``x``'s type, as the
@@ -16,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-# keys quantized when ModelConfig.quant is set; their output channel is
-# the LAST axis (weights stored [in, out])
+# keys quantized when ModelConfig.quant is set (an MoE model's expert
+# stacks under the MLP's keys; its router stays plain); their output
+# channel is the LAST axis (weights stored [in, out])
 QUANTIZED_LAYER_KEYS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
 
 FP8_DTYPE = torch.float8_e4m3fn

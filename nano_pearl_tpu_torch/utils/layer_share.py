@@ -5,7 +5,9 @@ The draft has ``Ld`` random layers. The target holds the draft's
 embedding, head and layers, followed by ``Lt - Ld`` layers whose output
 projections (``wo``, ``wdown``) are zero, so they pass the residual
 stream through unchanged. At T=0 the two models then propose the same
-tokens, which puts PEARL at its acceptance ceiling.
+tokens, which puts PEARL at its acceptance ceiling. An MoE pair (bench.py
+``--moe``) is built the same way: its expert stacks live under the same
+keys, so the extra layers' ``wdown`` stacks are zero too.
 """
 
 from __future__ import annotations

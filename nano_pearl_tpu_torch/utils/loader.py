@@ -18,8 +18,12 @@ moves to the device (quantizing under ``ModelConfig.quant``). The module
 reads files with numpy alone: it needs neither the ``safetensors`` nor the
 ``transformers`` package. BF16 tensors are carried as their uint16 bit
 patterns and F8_E4M3 ones as uint8 until they are widened to the output
-type. MoE expert tensors are not read: ``check_supported`` refuses MoE
-models before any load.
+type. An MoE checkpoint's routers (Qwen3-MoE ``mlp.gate``, Mixtral
+``block_sparse_moe.gate``) load as ``router`` [L, H, E]; its experts
+(``mlp.experts.{j}.gate_proj|up_proj|down_proj``, Mixtral's
+``block_sparse_moe.experts.{j}.w1|w3|w2``) are each transposed and stacked
+on the E axis of ``wgate`` / ``wup`` / ``wdown``, zero-padded to the padded
+expert count and ``moe_intermediate_size``.
 """
 
 from __future__ import annotations
@@ -57,7 +61,14 @@ _LAYER_MAP = {
     "mlp.gate_proj.weight": ("wgate", True),
     "mlp.up_proj.weight": ("wup", True),
     "mlp.down_proj.weight": ("wdown", True),
+    # MoE routers (Qwen3-MoE / Mixtral): HF stores [E, H]
+    "mlp.gate.weight": ("router", True),
+    "block_sparse_moe.gate.weight": ("router", True),
 }
+# MoE expert tensors: Qwen3-MoE's mlp.experts.{j}.*_proj, Mixtral's
+# block_sparse_moe.experts.{j}.w1 (gate) / w3 (up) / w2 (down)
+_EXPERT_RE = re.compile(r"^(?:mlp|block_sparse_moe)\.experts\.(\d+)\.(gate_proj|up_proj|down_proj|w1|w2|w3)\.weight$")
+_EXPERT_KEY = {"gate_proj": "wgate", "w1": "wgate", "up_proj": "wup", "w3": "wup", "down_proj": "wdown", "w2": "wdown"}
 _TOP_MAP = {
     "model.embed_tokens.weight": "embed",
     "model.norm.weight": "final_ln",
@@ -122,9 +133,14 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     hq, hkv = cfg.num_attention_heads * d, cfg.num_key_value_heads * d
     layers = {
         "input_ln": (nl, h), "wq": (nl, h, hq), "wk": (nl, h, hkv), "wv": (nl, h, hkv),
-        "wo": (nl, hq, h), "post_ln": (nl, h), "wgate": (nl, h, f), "wup": (nl, h, f),
-        "wdown": (nl, f, h),
+        "wo": (nl, hq, h), "post_ln": (nl, h),
     }
+    if cfg.is_moe:
+        e, fm = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update({"router": (nl, h, e), "wgate": (nl, e, h, fm), "wup": (nl, e, h, fm),
+                       "wdown": (nl, e, fm, h)})
+    else:
+        layers.update({"wgate": (nl, h, f), "wup": (nl, h, f), "wdown": (nl, f, h)})
     if cfg.qkv_bias:
         layers.update({"bq": (nl, hq), "bk": (nl, hkv), "bv": (nl, hkv)})
     if cfg.qk_norm:
@@ -138,8 +154,6 @@ def load_params(cfg: ModelConfig, path: str, dtype=np.float32) -> dict:
     pytree of numpy ``dtype`` arrays (float32 by default, which holds every
     stored bf16/f16 value exactly). ``cfg`` is the (``pad_for_tp``-padded)
     config the arrays are shaped for."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints are not ported yet")
     files = sorted(glob(os.path.join(path, "*.safetensors")))
     if not files:
         raise FileNotFoundError(f"no *.safetensors under {path}")
@@ -161,25 +175,38 @@ def load_params(cfg: ModelConfig, path: str, dtype=np.float32) -> dict:
         params["lm_head"] = params["embed"]
 
     per_layer: dict[str, dict[int, str]] = {}
+    per_expert: dict[str, dict[int, dict[int, str]]] = {}  # key -> layer -> expert -> name
     for name in index:
         m = _LAYER_RE.match(name)
         if not m:
             continue
         li, rest = int(m.group(1)), m.group(2)
+        em = _EXPERT_RE.match(rest)
+        if em:
+            per_expert.setdefault(_EXPERT_KEY[em.group(2)], {}).setdefault(li, {})[int(em.group(1))] = name
+            continue
         if rest not in _LAYER_MAP:
             logger.warning(f"ignoring unknown layer tensor {name}")
             continue
         per_layer.setdefault(_LAYER_MAP[rest][0], {})[li] = name
     transposed = {key for key, t in _LAYER_MAP.values() if t}
     for key, shape in shapes["layers"].items():
-        names = per_layer.get(key, {})
+        experts = cfg.is_moe and key in ("wgate", "wup", "wdown")
+        names = (per_expert if experts else per_layer).get(key, {})
         if sorted(names) != list(range(cfg.num_hidden_layers)):
             raise KeyError(f"checkpoint has layers {sorted(names)} of {key!r}, "
                            f"want 0..{cfg.num_hidden_layers - 1}")
         slices = []
         for i in range(cfg.num_hidden_layers):
-            a = _widen(index[names[i]], dtype)
-            slices.append(_pad_to(a.T if key in transposed else a, shape[1:]))
+            if experts:  # the layer's experts, each [out, in] -> [in, out], on E
+                if sorted(names[i]) != list(range(cfg.valid_num_experts)):
+                    raise KeyError(f"checkpoint layer {i} has experts {sorted(names[i])} of {key!r}, "
+                                   f"want 0..{cfg.valid_num_experts - 1}")
+                a = np.stack([_widen(index[names[i][j]], dtype).T for j in range(cfg.valid_num_experts)])
+            else:
+                a = _widen(index[names[i]], dtype)
+                a = a.T if key in transposed else a
+            slices.append(_pad_to(a, shape[1:]))
         params["layers"][key] = np.stack(slices)
     logger.info(f"loaded checkpoint from {path} ({len(index)} tensors)", color="green")
     return params

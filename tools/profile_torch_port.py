@@ -3,7 +3,7 @@
 torch.profiler.
 
     python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,
-                                                 qthr,overlap,prefill]
+                                                 qthr,overlap,moe,moe_thr,fused,prefill]
                                         [--unprofiled] [--pearl-only] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
@@ -28,7 +28,15 @@ with draft_noise 0.005 over an fp8 KV cache and fp8 weights, bench.py
 --kv-quant fp8 --quant fp8: the draft's decode and the target's classic
 verify through K9c); "overlap" chip_smoke.py's overlap_path (main under
 execution_mode="overlap": the per-round loop, the draft's gamma-scan on
-one CUDA stream and the target's verify and verdict on another). An
+one CUDA stream and the target's verify and verdict on another); "moe" chip_smoke.py's moe_path (bench.py
+--moe's layer-share pair: the main widths with 8 experts of width 1024,
+top-2, whose decode and verify run the dense MoE dispatch), "moe_thr" the
+same pair under the throughput profile with draft_noise 0.005 (its packed
+verify of 32 x 14 rows takes the sorted dispatch, one host read of its
+segment sizes per MoE layer: the ``moe_sorted_dispatch`` stage's calls per
+round); "fused" chip_smoke.py's fuse_proj_path (the main path's pair with
+fused projections, bench.py --fuse-proj: one qkv and one gate|up product a
+layer). An
 override path and the overlap path run their PEARL rounds only: the
 override's AR is the base path's program, and AR runs the fused AR loop
 in every mode. Each loop runs twice:
@@ -100,6 +108,8 @@ def _tree() -> Path:
 sys.path.insert(0, str(_tree()))
 
 from chip_smoke import (  # noqa: E402
+    FUSED_WIDTHS,
+    MOE_WIDTHS,
     OVERRIDE_PATHS,
     PREFIX_ROWS,
     SMOLLM2_360M,
@@ -213,9 +223,13 @@ PATHS = {
     "fallback": ("ceiling", 0.0, None, 1),
     "quant": ("ceiling", 0.0, None, 1),
     "qthr": ("throughput", 0.005, None, 1),
+    "moe": ("ceiling", 0.0, None, 1),
+    "moe_thr": ("throughput", 0.005, None, 1),
+    "fused": ("ceiling", 0.0, None, 1),
 }
-# path -> (target layers, the pair's widths) where not the bench's 36 layers
-PAIRS = {"fallback": (32, SMOLLM2_360M)}
+# path -> (target layers, the pair's widths, their name) where not the bench's pair
+PAIRS = {"fallback": (32, SMOLLM2_360M, "SmolLM2-360M"), "moe": (36, MOE_WIDTHS, "bench.py --moe"),
+         "moe_thr": (36, MOE_WIDTHS, "bench.py --moe"), "fused": (36, FUSED_WIDTHS, "fused projections")}
 # path -> (KV cache quantization, weight quantization) of both models
 QUANT = {"quant": ("int8", "int8"), "qthr": ("fp8", "fp8")}
 # paths run under execution_mode="overlap" (PEARL rounds only)
@@ -251,6 +265,9 @@ HOST_STAGES = {
     "k11c_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_partials", "paged_verify_partials"),
     "sp_write_rows": ("nano_pearl_tpu_torch.parallel.sp", "store_rows"),
     "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
+    "moe_block": ("nano_pearl_tpu_torch.models.transformer", "moe_mlp"),
+    # one host read of the segment sizes a call
+    "moe_sorted_dispatch": ("nano_pearl_tpu_torch.ops.moe", "_moe_mlp_sorted"),
     "verdict": ("nano_pearl_tpu_torch.engine.fused", "verify_verdict"),
     "overlap_verify_forward": ("nano_pearl_tpu_torch.engine.runner", "GroupRunner.verify_forward"),
     "overlap_verdict": ("nano_pearl_tpu_torch.engine.runner", "GroupRunner.verdict"),
@@ -349,7 +366,7 @@ def measure(engine, label: str, unit: str, owner, name: str, sample: int, drive,
 
 def profile_path(dev, path: str, profiled: bool = True, pearl_only: bool = False) -> None:
     profile, noise, env, sp = PATHS[path]
-    layers, widths = PAIRS.get(path, (36, None))
+    layers, widths, pair = PAIRS.get(path, (36, None, None))
     kv_quant, quant = QUANT.get(path, (None, None))
     mode = "overlap" if path in OVERLAP else "auto"
     engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, kv_quant=kv_quant,
@@ -365,7 +382,7 @@ def profile_path(dev, path: str, profiled: bool = True, pearl_only: bool = False
 
     head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
             **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {}),
-            **({"target_layers": layers, "widths": "SmolLM2-360M"} if widths else {}),
+            **({"target_layers": layers, "widths": pair} if widths else {}),
             **({"kv_quant": kv_quant, "quant": quant} if kv_quant else {}),
             **({"execution_mode": mode} if mode != "auto" else {})}
     owner, name = (engine.orchestrator, "pearl_round") if path in OVERLAP else (fused, "_pearl_round")
