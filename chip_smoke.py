@@ -12,7 +12,8 @@ script exits non-zero without its last line):
    for sm_90a, one process per source, all at once;
 3. kernels: K1 (paged decode), K2 (packed verify) and K3 (causal prefill)
    at the main path's shapes (8x128 heads; K2 also at pre-round contexts
-   of 1-50) and at the serving path's (16x64 heads: 128 decode rows,
+   of 1-50; K1 and K2 also at one tensor-parallel rank's, 4x128 heads
+   over 1 KV head) and at the serving path's (16x64 heads: 128 decode rows,
    verify chunks of 16 groups x 8 rows, 8 prompts in a 128-row bucket;
    bf16 K1/K2 run on the page walk, each K1 row against K2 over pairs of
    its copies and each K2 row against K1 bit for bit: ``k2_row_equal``),
@@ -95,6 +96,12 @@ script exits non-zero without its last line):
    AR at gamma 4, the same at gamma -1 with a draft drawn independently
    of the target (gamma re-picked as the runs go), and a request with a
    stop token ends where AR with that stop ends;
+   tp_exactness: the f32 pair with draft_tp = target_tp = 2 in union
+   placement, both ranks of a group on the one card: PEARL == AR and ==
+   the exactness phase's unsharded stream (where it forks, the first
+   divergence and the unsharded target's top-2 logit margin there); the
+   same over an int8 KV cache against its own unsharded run, and at tp 3
+   (heads, ffn and vocab padded);
    moe_exactness, moe_throughput_exactness, moe_quant_exactness: the f32
    2L/6L pair at bench.py --moe's widths (8 experts of width 1024, top-2):
    PEARL == AR at the ceiling, under the throughput profile at B=8,
@@ -149,16 +156,26 @@ script exits non-zero without its last line):
    (MAT 14 asserted, K1/K2/K3; the sorted dispatch's calls, each a host
    read, by rows: prefill only); fuse_proj_path: the main path's run with
    fused projections, 16 rounds, no AR (MAT 14 asserted);
+   tp_path: the main path's run with draft_tp = target_tp = 2 in union
+   placement on the one card (each rank's K1/K2/K3 over one KV head, the
+   ranks' partial products summed on the host), 37 rounds, AR over a sixth,
+   MAT 14 asserted, K1/K2 launches a round twice the main path's;
+   dp_path: DataParallelEngine(dp=2), both replicas on the one card: the
+   f32 2L/6L pair's completions equal a single engine's, then the bf16
+   3L/36L pair's 32 requests all answered, tok/s against one engine's;
 7. serving_exactness: the f32 2L/6L serve pair served through serve_step
-   with prefix hits and chunked passes must equal AR;
+   with prefix hits and chunked passes must equal AR; native_serving: the
+   same with native_block_manager=True (the C++ block manager), its prefix
+   hits, chunked passes and free blocks after every step equal to the
+   Python manager's;
 8. serving: the bf16 3L/36L serve pair (16x64 query heads) behind the
    port's HTTP server, 65 requests of bench_serve.py's traffic.
 
 Each path (main path, throughput path, the two quantized paths, the
 three override paths, the overlap and gamma_auto paths, the MoE and
-fused-projection paths, the two checkpoint paths, the two sp paths,
-serving) sets every launch counter to 0 just before it and reads them
-just after. Then one
+fused-projection paths, the two checkpoint paths, the two sp paths, the
+tp and dp paths, native serving, serving) sets every launch counter to 0
+just before it and reads them just after. Then one
 {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -900,6 +917,9 @@ def kernel_phase(dev, flush) -> list[dict]:
         verify_row(gen, dev, flush, "paged_verify", spread(16, 2300, 1), 14, hq=8, d=128),
         # K2 right after short prompts: pre-round contexts of 1-50 (rows 1-63)
         verify_row(gen, dev, flush, "paged_verify_short", short(16, 1), 14, hq=8, d=128),
+        # tp_path: one rank of tp 2 on the bench pair, 4 query heads over its one KV head
+        decode_row(gen, dev, flush, "paged_decode_tp2", spread(32, 2300, 0), hq=4, d=128, hkv=1),
+        verify_row(gen, dev, flush, "paged_verify_tp2", spread(16, 2300, 1), 14, hq=4, d=128, hkv=1),
         prefill_row(gen, dev, flush, "prefill_self", 32, 128, 64, hq=8, d=128),
         # serving path: the gamma-scan's 128-row decode calls, a verify
         # chunk of 16 groups x 8 rows, contexts up to the 3,000-token
@@ -1483,7 +1503,7 @@ def layer_share_pair(md, mt, draft_noise: float):
 
 def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ceiling", draft_noise=0.0,
                 kv_quant=None, quant=None, env=None, dirs=None, sp=1, num_blocks=None, widths=None,
-                mode="auto", draft_seed=None):
+                mode="auto", draft_seed=None, tp=1):
     """The bench's engine set-up (bench.py run()) on the port; ``kv_quant``
     and ``quant`` as bench.py's ``--kv-quant`` and ``--quant`` (both
     models); ``env``: schedule overrides set around the construction;
@@ -1502,15 +1522,15 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
     from nano_pearl_tpu_torch import ModelConfig, PearlConfig, PearlEngine
 
     if dirs:
-        (md, mt), dp, tp = dirs, None, None
+        (md, mt), dparams, tparams = dirs, None, None
     else:
         md, mt = ((model_config(ld, dtype), model_config(lt, dtype)) if widths is None else
                   (ModelConfig(num_hidden_layers=ld, **widths), ModelConfig(num_hidden_layers=lt, **widths)))
-        dp, tp = layer_share_pair(md, mt, draft_noise)
+        dparams, tparams = layer_share_pair(md, mt, draft_noise)
         if draft_seed is not None:
             from nano_pearl_tpu_torch.models.transformer import init_params_numpy
 
-            dp = init_params_numpy(md, np.random.default_rng(draft_seed))
+            dparams = init_params_numpy(md, np.random.default_rng(draft_seed))
     sizing = gamma if gamma > 0 else 16
     max_len = max(256, 1 << (prompt_len + steps * (sizing + 1) + 64).bit_length())
     cfg = PearlConfig(
@@ -1521,9 +1541,10 @@ def pair_engine(ld, lt, dtype, batch, gamma, steps, prompt_len, dev, profile="ce
         draft_kv_quant=kv_quant, target_kv_quant=kv_quant, draft_quant=quant, target_quant=quant,
         draft_sp=sp, target_sp=sp, execution_mode=mode,
         gamma_profile_batches=(batch,) if gamma == -1 else None,
+        **(dict(draft_tp=tp, target_tp=tp, placement="union", devices=[dev]) if tp > 1 else {}),
     )
     with overrides(env):
-        return PearlEngine(cfg, dp, tp, device=dev)
+        return PearlEngine(cfg, dparams, tparams, device=dev)
 
 
 def add_requests(engine, rng, batch, prompt_len, max_tokens, vocab=32768):
@@ -1822,7 +1843,7 @@ def first_divergence(a: list, b: list):
 
 
 def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None, ran=(), sp=1,
-                    unsharded=None, windows: int = 16, num_blocks=None, widths=None, label="") -> list:
+                    unsharded=None, windows: int = 16, num_blocks=None, widths=None, label="", tp=1) -> list:
     """f32 layer-share pair: the PEARL stream must equal the AR stream
     (``kv_quant`` / ``quant``: over a quantized cache / weights; ``env``:
     under schedule overrides, whose kernels ``ran`` must have launched;
@@ -1831,12 +1852,16 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
     main widths, ``label`` their description). With ``sp`` > 1 (draft_sp = target_sp, the shards on the one
     card) the stream must also equal ``unsharded``, the same run's stream
     without sp, and exactly the sp kernels (``sp_kernels``) must have
-    launched. Returns the PEARL stream."""
+    launched. With ``tp`` > 1 (draft_tp = target_tp in union placement, the
+    ranks on the one card) the stream must equal ``unsharded`` too; where it
+    does not, the line names the first divergence and the unsharded
+    target's top-2 logit margin there before the phase fails. Returns the
+    PEARL stream."""
     batch, gamma, prompt_len = 4, 4, 64
     max_tokens = 1 + windows * gamma  # a whole number of accepted windows
     engine = pair_engine(2, 6, "float32", batch, gamma, windows, prompt_len, dev, kv_quant=kv_quant,
                          quant=quant, env=env, sp=sp, num_blocks=num_blocks,
-                         widths=widths and dict(widths, dtype="float32"))
+                         widths=widths and dict(widths, dtype="float32"), tp=tp)
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
     add_requests(engine, np.random.default_rng(1), batch, prompt_len, max_tokens)
@@ -1847,7 +1872,22 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
         raise AssertionError(f"{phase}: f32 PEARL != AR: first divergence (request, token) "
                              f"{first_divergence(pearl, ar)}")
     extra = {}
-    if sp > 1:
+    if tp > 1:
+        if pearl != unsharded:
+            at = first_divergence(pearl, unsharded)
+            margin = divergence_margin(dev, kv_quant, quant, at, unsharded)
+            emit({"phase": phase, "tp_equals_unsharded": False, "first_divergence": at,
+                  "unsharded_top2_margin_there": margin})
+            raise AssertionError(f"{phase}: the tp stream differs from the unsharded stream at {at} "
+                                 f"(unsharded top-2 logit margin there {margin})")
+        launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+        ran_tp = ("prefill_self", "paged_decode_q8" if kv_quant else "paged_decode",
+                  "paged_verify_q8" if kv_quant else "paged_verify")
+        check_launches(phase, launches, ran_tp, tuple(PARTIALS_KERNELS))
+        extra = {"equals_unsharded_stream": True, "launches": {k: n for k, n in launches.items() if n},
+                 "tp_ranks": tp,
+                 "target_kv_heads_a_rank": engine.target.kv.ranks[0].shape[-1] // engine.target.cfg.head_dim}
+    elif sp > 1:
         if pearl != unsharded:
             raise AssertionError(f"{phase}: the sp stream differs from the unsharded stream")
         launches = {k: fn.launches - before[k] for k, fn in counters.items()}
@@ -1862,7 +1902,10 @@ def exactness_phase(dev, kv_quant=None, quant=None, phase="exactness", env=None,
           "accepted_tokens": [sum(a) for a in acc], **extra,
           **({"env": env, "launches": ov} if env else {}),
           "config": "f32 layer-share 2L/6L full width, B=4, gamma=4" + quant_label(kv_quant, quant)
-                    + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "") + label})
+                    + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "")
+                    + (f", draft_tp = target_tp = {tp} in union placement on one card"
+                       + (" (heads, ffn and vocab padded)" if MAIN_WIDTHS["num_key_value_heads"] % tp else "")
+                       if tp > 1 else "") + label})
     del engine
     torch.cuda.empty_cache()
     return pearl
@@ -1984,7 +2027,7 @@ def by_rows(rows: list) -> dict:
 def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, quant=None, env=None,
               ar_of: tuple[str, float] | None = None, ar_cut: int = 1, dirs=None, vocab: int = 32768,
               label: str | None = None, sp: int = 1, gamma: int = 14, mode: str = "auto", warm=None,
-              probe=None, widths=None) -> tuple[dict, dict]:
+              probe=None, widths=None, tp: int = 1) -> tuple[dict, dict]:
     """bench.py's run on the port: the bf16 3L/36L layer-share pair, B=32,
     gamma=14, prompt 64, greedy, ``steps`` PEARL rounds, then AR over the
     same window on the same prompts (``kv_quant``, ``quant``: bench.py's
@@ -1998,7 +2041,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     place of the layer-share pair (``label`` its description, ``vocab`` its
     vocabulary); ``widths``: the layer-share pair's ModelConfig fields in
     place of the bench's (``label`` their description). ``sp``: draft_sp =
-    target_sp. ``gamma``: the window, -1
+    target_sp; ``tp``: draft_tp = target_tp, union placement on the one
+    card. ``gamma``: the window, -1
     adaptive (the AR window sized for 16); ``mode``: the execution mode.
     ``warm(engine, add)``, where given, runs after the warm-up (``add``
     queues the warm-up's requests) and ``probe(engine, pearl_tokens)``
@@ -2015,7 +2059,7 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
     ar_steps = (ar_max_tokens - 1) // ar_cut  # prefill commits one token per sequence
     t0 = time.perf_counter()
     engine = pair_engine(3, 36, "bfloat16", batch, gamma, steps, prompt_len, dev, profile, draft_noise,
-                         kv_quant, quant, env, dirs, sp, mode=mode, widths=widths)
+                         kv_quant, quant, env, dirs, sp, mode=mode, widths=widths, tp=tp)
     build_s = time.perf_counter() - t0
     # bytes of both KV pools per block, from the allocated tensors
     kv_bytes = (cache_nbytes(engine.draft.kv) + cache_nbytes(engine.target.kv)) / (engine.target.num_blocks + 1)
@@ -2069,7 +2113,8 @@ def bench_run(dev, steps: int, profile: str, draft_noise: float, kv_quant=None, 
         "config": f"{pair}, B=32, gamma={gamma if gamma > 0 else 'auto (-1)'}, prompt 64, greedy, {profile} profile"
                   + (f", {mode} mode" if mode != "auto" else "")
                   + (f", draft_noise {draft_noise}" if draft_noise else "") + quant_label(kv_quant, quant)
-                  + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else ""),
+                  + (f", draft_sp = target_sp = {sp} on one card" if sp > 1 else "")
+                  + (f", draft_tp = target_tp = {tp} in union placement on one card" if tp > 1 else ""),
         **({"env": env, "schedule": schedule} if env else {}),
         "pearl_rounds": steps, "pearl_tok_s": pearl_tps, "mat": mat, "pearl_s": pearl_t,
         "round_ms": pearl_t / steps * 1e3, "engine_build_s": build_s,
@@ -2213,6 +2258,129 @@ def sp_path_phase(dev, kv_quant=None, quant=None, steps: int = 37) -> dict:
     check_launches(phase, launches, *sp_kernels(kv_quant))
     if out["mat"] != 14:
         raise AssertionError(f"{phase} MAT {out['mat']} below the layer-share ceiling 14")
+    return launches
+
+
+# ------------------------------------------- tensor and data parallelism
+
+
+def divergence_margin(dev, kv_quant, quant, at, streams) -> float | None:
+    """The unsharded f32 2L/6L target's top-2 logit margin after the tokens
+    of request ``at[0]`` up to ``at[1]`` (the prompt of ``exactness_phase``
+    and the stream before the divergence): how near a tie the fork was."""
+    from nano_pearl_tpu_torch.engine.sequence import SeqView
+
+    if at is None:
+        return None
+    i, j = at
+    engine = pair_engine(2, 6, "float32", 4, 4, 16, 64, dev, kv_quant=kv_quant, quant=quant)
+    rng = np.random.default_rng(1)  # exactness_phase's prompts
+    prompts = [rng.integers(2, 32767, 64).tolist() for _ in range(4)]
+    view = SeqView(prompts[i] + streams[i][:j], engine.config.kvcache_block_size)
+    engine.scheduler.target_bm.allocate(view)
+    logits = engine.target.prefill([view], engine.config.bucket_tokens(len(view)), 1)[0]
+    top = logits.float().topk(2).values
+    del engine
+    torch.cuda.empty_cache()
+    return float(top[0] - top[1])
+
+
+def tp_exactness_phase(dev, plain: list) -> None:
+    """f32 PEARL == AR with draft_tp = target_tp = 2 in union placement, both
+    ranks of each group on the one card, and the stream equal to the
+    unsharded run's (``plain``, the exactness phase's); then over an int8 KV
+    cache against its own unsharded run, and at tp 3, whose padded heads
+    (2 KV heads to 3, 8 query heads to 12), ffn and vocab carry zeros."""
+    exactness_phase(dev, phase="tp_exactness", tp=2, unsharded=plain)
+    unsharded = exactness_phase(dev, kv_quant="int8", phase="tp_exactness_unsharded_int8")
+    exactness_phase(dev, kv_quant="int8", phase="tp_exactness_int8", tp=2, unsharded=unsharded)
+    exactness_phase(dev, phase="tp_exactness_tp3", tp=3, unsharded=plain)
+
+
+def tp_path_phase(dev, main: dict, steps: int = 37) -> dict:
+    """The main path's run with draft_tp = target_tp = 2 in union placement
+    on the one card: each rank launches K1/K2/K3 over its one KV head (4
+    query heads of 128), the host sums the ranks' wo and wdown products;
+    MAT at the layer-share ceiling, AR over the first sixth of the window.
+    K1 and K2 launch twice a round what they launch on ``main``, the main
+    path's line of this call."""
+    out, launches = bench_run(dev, steps, "ceiling", 0.0, ar_cut=AR_CUT, tp=2)
+    ratio = {k: out["launches_per_pearl_round"].get(k, 0) / main["launches_per_pearl_round"][k]
+             for k in ("paged_decode", "paged_verify")}
+    out.update(launches_per_round_vs_main_path=ratio, round_ms_vs_main_path=out["round_ms"] / main["round_ms"])
+    emit({"phase": "tp_path", **out})
+    check_launches("tp_path", launches, ("paged_decode", "paged_verify", "prefill_self"),
+                   (*FALLBACK_KERNELS, *PARTIALS_KERNELS))
+    if out["mat"] != 14:
+        raise AssertionError(f"tp_path MAT {out['mat']} below the layer-share ceiling 14")
+    if any(abs(r - 2) > 1e-9 for r in ratio.values()):
+        raise AssertionError(f"tp_path: K1/K2 launches a round are not twice the main path's: {ratio}")
+    return launches
+
+
+def dp_generate(dev, dtype: str, layers: tuple, batch: int, max_tokens: int, dp: int | None):
+    """The layer-share pair of ``layers`` in ``dtype``, ``batch`` greedy
+    requests of 64 prompt tokens through a single engine (``dp`` None) or a
+    DataParallelEngine of ``dp`` replicas on ``[dev]``; returns (streams,
+    seconds, the replicas' request counts)."""
+    from nano_pearl_tpu_torch import PearlConfig, PearlEngine, SamplingParams
+    from nano_pearl_tpu_torch.engine.dp import DataParallelEngine
+
+    md, mt = model_config(layers[0], dtype), model_config(layers[1], dtype)
+    dparams, tparams = layer_share_pair(md, mt, 0.0)
+    cfg = PearlConfig(
+        draft_model=md, target_model=mt, max_model_len=1024, max_num_batched_tokens=16384, kvcache_block_size=256,
+        num_kvcache_blocks=4 * batch + 8, gamma=14 if dtype == "bfloat16" else 4, max_num_seqs=max(batch, 8),
+        seed=0, dtype=dtype, devices=[dev],
+    )
+    engine = (PearlEngine(cfg, dparams, tparams, device=dev) if dp is None
+              else DataParallelEngine(cfg, dp, dparams, tparams, device=dev))
+    rng = np.random.default_rng(1)
+    for _ in range(batch):
+        engine.add_request(rng.integers(2, 32767, 64).tolist(),
+                           SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
+    routed = [len(r.scheduler.waiting) for r in engine.replicas] if dp else [batch]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams, _, _, _ = engine.generate_token_ids()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    return streams, elapsed, routed
+
+
+def dp_path_phase(dev) -> dict:
+    """DataParallelEngine(dp=2) with both replicas on the one card: the f32
+    2L/6L pair's completions of 8 requests equal a single engine's at T=0
+    (streams compared in f32 only: dp changes the batch shapes, and bf16
+    GEMMs then round apart); then the bf16 3L/36L pair, 32 requests of 64
+    prompt tokens and 225 new tokens each, every one answered, the replicas'
+    committed tok/s against a single engine's on the same requests. Returns
+    the launches of the dp runs."""
+    counters = kernel_counters()
+    single, _, _ = dp_generate(dev, "float32", (2, 6), 8, 1 + 16 * 4, None)
+    for fn in counters.values():
+        fn.launches = 0
+    got, _, routed_f32 = dp_generate(dev, "float32", (2, 6), 8, 1 + 16 * 4, 2)
+    if got != single:
+        raise AssertionError(f"dp_path: the f32 dp completions differ from the single engine's at "
+                             f"{first_divergence(got, single)}")
+    streams, dp_s, routed = dp_generate(dev, "bfloat16", (3, 36), 32, 225, 2)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if len(streams) != 32 or any(len(t) < 225 for t in streams):
+        raise AssertionError(f"dp_path: {len(streams)} of 32 requests answered, lengths {[len(t) for t in streams]}")
+    one, one_s, _ = dp_generate(dev, "bfloat16", (3, 36), 32, 225, None)
+    tokens = sum(len(t) for t in streams)
+    emit({"phase": "dp_path", "f32_equals_single_engine": True, "f32_requests_by_replica": routed_f32,
+          "requests_answered": len(streams), "requests_by_replica": routed,
+          "dp_tok_s": tokens / dp_s, "dp_s": dp_s,
+          "single_engine_tok_s": sum(len(t) for t in one) / one_s, "single_engine_s": one_s,
+          "launches": {k: n for k, n in launches.items() if n},
+          "config": "DataParallelEngine(dp=2) on one card (replicas run in turn); f32 layer-share 2L/6L, 8 "
+                    "requests, gamma 4, against one engine; bf16 layer-share 3L/36L full width, 32 requests "
+                    "of 64 + 225 tokens, gamma 14, ceiling profile"})
+    check_launches("dp_path", launches, ("paged_decode", "paged_verify", "prefill_self"), tuple(FALLBACK_KERNELS))
     return launches
 
 
@@ -2718,41 +2886,56 @@ def serve_args(*extra: str):
     return serve.parse_args(["--layer-share", "--gamma", "8", "--fused-rounds", "4", *extra])
 
 
-def serving_exactness_phase(dev) -> None:
+def serving_exactness_phase(dev, native: bool = False, python: dict | None = None) -> dict:
     """f32 cut of the serve pair (2L/6L, 16x64 heads, full width) served
     through serve_step: 8 requests in two waves, half behind one shared
     512-token prefix, and one 1,500-token prompt under a 512-token prefill
     budget (chunked passes). Every served completion must equal the AR
-    output of the same prompt; K4 must have run and the prefix cache hit."""
+    output of the same prompt; K4 must have run and the prefix cache hit.
+    With ``native`` (``native_serving``) both pools run the C++ block
+    manager, and its prefix hits, chunked passes and free blocks after
+    every serve step must equal ``python``, the Python manager's run of
+    the same requests. Returns those counts and the launches."""
     import dataclasses
 
     from nano_pearl_tpu_torch import PearlConfig, PearlEngine, SamplingParams, serve
+    from nano_pearl_tpu_torch.engine.native import NativeBlockManager
     from nano_pearl_tpu_torch.utils.layer_share import build_layer_share_pair
 
+    phase = "native_serving" if native else "serving_exactness"
     args = serve_args("--draft-layers", "2", "--target-layers", "6")
     md, mt = (dataclasses.replace(m, dtype="float32") for m in serve.layer_share_models(args))
     dp, tp = build_layer_share_pair(md, mt, seed=0)
     cfg = PearlConfig(
         draft_model=md, target_model=mt, max_model_len=args.max_model_len, gamma=args.gamma,
         max_num_batched_tokens=512, num_kvcache_blocks=96, max_num_seqs=32, dtype="float32",
+        native_block_manager=native,
     )
     engine = PearlEngine(cfg, dp, tp, device=dev)
+    if native != isinstance(engine.scheduler.target_bm, NativeBlockManager):
+        raise AssertionError(f"{phase}: native_block_manager={native} runs {type(engine.scheduler.target_bm)}")
     rng = np.random.default_rng(5)
     system = rng.integers(2, 32767, 512).tolist()
     prompts = [(system if i % 2 == 0 else []) + rng.integers(2, 32767, 64).tolist() for i in range(8)]
     prompts.append(rng.integers(2, 32767, 1500).tolist())
     params = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
-    k4 = kernel_counters()["prefill_prefix"]
-    k4_before = k4.launches
-    ids, served = [], {}
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ids, served, free = [], {}, []
+
+    def step():
+        served.update({sid: toks for sid, toks, _ in engine.serve_step(4)})
+        free.append((engine.scheduler.draft_bm.num_free_blocks, engine.scheduler.target_bm.num_free_blocks))
+
     for wave in (prompts[:4], prompts[4:]):
         ids += [engine.submit(p, params) for p in wave]
         for _ in range(2):  # the second wave joins a running batch
-            served.update({sid: toks for sid, toks, _ in engine.serve_step(4)})
+            step()
     while engine.has_work:
-        served.update({sid: toks for sid, toks, _ in engine.serve_step(4)})
+        step()
     stats = engine.stats()
-    k4_launches = k4.launches - k4_before
+    launches = {k: fn.launches for k, fn in counters.items()}
     for p in prompts:
         engine.add_request(p, params)
     ar, _, _, _ = engine.AR_generate_token_ids()
@@ -2761,17 +2944,27 @@ def serving_exactness_phase(dev) -> None:
     bad = [i for i, sid in enumerate(ids)
            if len(ar[i]) != params.max_tokens or served[sid][: len(ar[i])] != ar[i]]
     if bad:
-        raise AssertionError(f"served != AR for requests {bad}")
+        raise AssertionError(f"{phase}: served != AR for requests {bad}")
+    k4_launches = launches["prefill_prefix"]
     if not (k4_launches > 0 and stats["prefix_hit_tokens"] > 0 and stats["chunked_prefill_passes"] > 0):
-        raise AssertionError(f"K4 {k4_launches}, stats {stats}: no prefix hit or chunked pass")
-    emit({"phase": "serving_exactness", "served_equals_ar": True, "requests": len(ids),
+        raise AssertionError(f"{phase}: K4 {k4_launches}, stats {stats}: no prefix hit or chunked pass")
+    counts = {"prefix_hit_tokens": stats["prefix_hit_tokens"],
+              "chunked_prefill_passes": stats["chunked_prefill_passes"], "free_blocks_by_step": free}
+    if native and counts != python:
+        raise AssertionError(f"{phase}: the native block manager's counts differ from the Python one's: "
+                             f"{counts} against {python}")
+    emit({"phase": phase, "served_equals_ar": True, "requests": len(ids),
           "tokens_each": 32, "prefill_prefix_launches": k4_launches,
+          **({"equals_python_block_manager": True, "serve_steps": len(free)} if native else {}),
           "prefix_hit_tokens": stats["prefix_hit_tokens"],
           "chunked_prefill_passes": stats["chunked_prefill_passes"],
+          "launches": {k: n for k, n in launches.items() if n},
           "config": "f32 serve pair 2L/6L, 16x64 q heads, 2 kv heads, gamma=8, "
-                    "max_num_batched_tokens=512, two waves through serve_step"})
+                    "max_num_batched_tokens=512, two waves through serve_step"
+                    + (", native_block_manager=True" if native else "")})
     del engine
     torch.cuda.empty_cache()
+    return dict(counts, launches=launches)
 
 
 def _post(port: int, path: str, payload: dict, timeout: float = 600):
@@ -2963,6 +3156,7 @@ def main() -> int:
     sp_bitwise_phase(dev)
     sp_exactness_phase(dev)
     sp_exactness_phase(dev, kv_quant="int8", quant="int8")
+    tp_exactness_phase(dev, plain)
     throughput_exactness_phase(dev, kv_quant="fp8", quant="fp8", phase="quant_exactness")
     exactness_phase(dev, phase="split_exactness", env=OVERRIDE_PATHS["split_path"][2],
                     ran=("paged_decode_split", "paged_verify_fresh_split"))
@@ -2992,7 +3186,11 @@ def main() -> int:
     checkpoints.cleanup()
     by_path["sp_path"] = sp_path_phase(dev)
     by_path["sp_quant_path"] = sp_path_phase(dev, kv_quant="int8", quant="int8")
-    serving_exactness_phase(dev)
+    by_path["tp_path"] = tp_path_phase(dev, main)
+    by_path["dp_path"] = dp_path_phase(dev)
+    python_bm = serving_exactness_phase(dev)
+    native = serving_exactness_phase(dev, native=True, python={k: v for k, v in python_bm.items() if k != "launches"})
+    by_path["native_serving"] = native["launches"]
     by_path["serving"] = serving_phase(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",

@@ -32,8 +32,8 @@ verify take the fallbacks K10a/K10b (K10c/K10d), as the JAX package does.
 engine loads them (``utils/loader.py``); weights handed in take
 precedence, and random ones are drawn only when neither is given.
 
-Draft and target share one device, and with ``num_kvcache_blocks=-1``
-their KV pools are sized together from one budget. ``execution_mode``
+With ``num_kvcache_blocks=-1`` both models' KV pools are sized together
+from one budget per device. ``execution_mode``
 "auto" or "fused" (the default) runs the fused round loop
 (engine/fused.py); "overlap" the per-round host loop, with the draft on
 one CUDA stream and the target on another (engine/pearl.py). ``gamma=-1``
@@ -46,9 +46,19 @@ raises.
 ``draft_sp`` / ``target_sp`` > 1 shard a group's KV cache over the
 blocks (sequence parallelism, ``parallel/sp.py``): decode and verify run
 the per-shard partials kernels K11a/K11c (K11b/K11d over a quantized
-cache) and merge them. The shards of both groups share the engine's one
-device (``parallel/mesh.build_group_placements``), so the KV budget is
-taken once per distinct device and shared by every shard on it.
+cache) and merge them. ``draft_tp`` / ``target_tp`` > 1 shard a group's
+weights and KV heads over tensor-parallel ranks (``parallel/sharding.py``,
+``parallel/tp_attn.py``): each rank launches its own products and
+kernels, and the host sums the ranks' partial products. The groups sit on
+``config.devices`` (torch devices or strings; default: the engine's one
+device) by ``config.placement`` (``parallel/mesh.build_group_placements``:
+"disjoint" slices, shared round-robin where they run short, or "union");
+the engine's device, where the round loop's state lives, is ``device``,
+else the first of ``config.devices``; a group of one rank and one shard
+runs there, whatever device its placement names. The KV budget is taken once per
+distinct device and shared by every shard and rank on it. Still refused,
+each by name: pipeline and expert parallelism, tp with sp > 1, tp over an
+MoE model, tp under the overlap mode.
 """
 
 from __future__ import annotations
@@ -83,21 +93,37 @@ def resolve_device(device=None) -> torch.device:
 
 def _check_config(config: PearlConfig) -> None:
     """Raise on a gamma that is neither a window nor -1 (adaptive), and on
-    engine features the port does not run yet."""
+    the parallel layouts the port does not run yet, each by name."""
     if config.gamma == 0 or config.gamma < -1:
         raise ValueError(f"gamma must be a draft window >= 1, or -1 (adaptive); got {config.gamma}")
+    tp = max(config.draft_tp, config.target_tp) > 1
     unsupported = {
-        "tensor/pipeline/expert parallel groups": any(
-            x != 1 for x in (
-                config.draft_tp, config.target_tp, config.draft_pp, config.target_pp,
-                config.draft_ep, config.target_ep,
-            )
+        "pipeline parallelism (draft_pp / target_pp > 1)": max(config.draft_pp, config.target_pp) > 1,
+        "expert parallelism (draft_ep / target_ep > 1)": max(config.draft_ep, config.target_ep) > 1,
+        "tensor parallelism with sequence parallelism (tp > 1 with sp > 1)":
+            tp and max(config.draft_sp, config.target_sp) > 1,
+        "tensor parallelism over an MoE model": tp and (
+            config.draft_config.is_moe or config.target_config.is_moe
         ),
-        "an explicit device list": config.devices is not None,
+        'tensor parallelism under execution_mode="overlap"': tp and config.execution_mode == "overlap",
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
+
+
+def resolve_devices(config: PearlConfig, device) -> tuple[torch.device, list[torch.device]]:
+    """(the engine's device, the devices its groups are placed over):
+    ``config.devices`` (torch devices or strings) where given, the engine's
+    device then the first of them unless ``device`` names it; else the one
+    device ``resolve_device(device)``."""
+    if config.devices is None:
+        dev = resolve_device(device)
+        return dev, [dev]
+    devices = [torch.device(d) for d in config.devices]
+    if not devices:
+        raise ValueError("config.devices is empty")
+    return (resolve_device(device) if device is not None else devices[0]), devices
 
 
 class PearlEngine:
@@ -114,8 +140,10 @@ class PearlEngine:
         random weights from ``config.seed``."""
         _check_config(config)
         self.config = config
-        self.device = resolve_device(device)
-        draft_at, target_at = build_group_placements([self.device], config.draft_sp, config.target_sp)
+        self.device, devices = resolve_devices(config, device)
+        draft_at, target_at = build_group_placements(
+            devices, config.draft_tp, config.target_tp, config.placement, config.draft_sp, config.target_sp
+        )
         self.draft = GroupRunner(
             config, config.draft_config, self.device, name="draft",
             params=draft_params, seed=config.seed, placement=draft_at,
@@ -145,15 +173,17 @@ class PearlEngine:
     def _allocate_kv(self) -> None:
         """Both caches from one budget per distinct device, measured with
         both models' weights on the devices: every pool and every sp shard
-        on a device shares its budget (the JAX package multiplies by sp
-        because its shards sit on distinct chips). A device takes, per
-        global block of a pool, that pool's block bytes times its share of
-        the pool's shards; the count is the least any device affords."""
+        or tp rank on a device shares its budget (the JAX package multiplies
+        by sp and tp because its shards sit on distinct chips). A device
+        takes, per global block of a pool, that pool's block bytes (every
+        rank's and shard's) times its share of the pool's devices; the count
+        is the least any device affords."""
         share: dict[torch.device, list[int]] = {}
         for r in (self.draft, self.target):
+            n = len(r.placement.devices)
             for dev in r.placement.distinct_devices:
                 on_dev = r.placement.devices.count(dev)
-                share.setdefault(dev, []).append(-(-r.block_bytes * on_dev // r.sp_size))
+                share.setdefault(dev, []).append(-(-r.block_bytes * on_dev // n))
         num = min(
             runner_mod.kv_num_blocks(
                 self.config, block_bytes, runner_mod.device_kv_budget(dev, self.config.hbm_utilization)

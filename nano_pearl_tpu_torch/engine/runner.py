@@ -101,6 +101,19 @@ schedule, the deferred verify (so the throughput profile verifies with the
 classic write-then-read verify) and the mono schedule (attention under sp
 takes the partials kernels only) off, each logged where it was asked for.
 
+Tensor parallelism (``PearlConfig.draft_tp`` / ``target_tp`` > 1, a
+placement of ``tp`` devices, ``parallel/mesh.py``): the runner pads numpy
+weights to the ``pad_for_tp`` shapes, quantizes and fuses them as above,
+then keeps one weight shard (``parallel/sharding.shard_params``), one rope
+table and one cache shard of its ``Hkv / tp`` KV heads (a ``TPKVCache``)
+on each rank's device, and runs ``forward_tp``: each rank launches its
+own products and attention kernel, the host sums the ranks' wo and wdown
+products in rank order and joins the logits over the vocab shards.
+Every phase takes its inputs on the runner's ``device`` (the engine's) and
+returns its logits there, wherever the ranks sit. As in the JAX package,
+tp turns the split schedule off (logged), and the other gates read the
+rank's folded head axis ``Hkv / tp * D``.
+
 The KV cache is allocated after both models' weights are on the device
 (``allocate_kv``), so that ``kv_num_blocks`` can size both pools of a
 shared card from one budget.
@@ -118,7 +131,9 @@ from nano_pearl_tpu_torch.engine.sequence import SeqView
 from nano_pearl_tpu_torch.models.transformer import (
     check_supported,
     compute_logits,
+    compute_logits_tp,
     forward,
+    forward_tp,
     fuse_projections,
     init_params_numpy,
     make_rope_table,
@@ -136,6 +151,7 @@ from nano_pearl_tpu_torch.ops.attention import (
     prefill_self_attention,
 )
 from nano_pearl_tpu_torch.ops.kv_cache import (
+    TPKVCache,
     cache_nbytes,
     make_kv_cache,
     make_sharded_kv_cache,
@@ -146,6 +162,7 @@ from nano_pearl_tpu_torch.ops.quant import is_quantized
 from nano_pearl_tpu_torch.ops.sampling import apply_top_k_top_p, greedy, sample
 from nano_pearl_tpu_torch.ops.verify import VerifyResult, verify_verdict
 from nano_pearl_tpu_torch.parallel.mesh import GroupPlacement
+from nano_pearl_tpu_torch.parallel.sharding import TPRank, shard_params
 from nano_pearl_tpu_torch.parallel.sp import (
     shard_tables,
     sp_paged_attention,
@@ -153,7 +170,7 @@ from nano_pearl_tpu_torch.parallel.sp import (
     sp_prefill_attention,
     sp_write_kv,
 )
-from nano_pearl_tpu_torch.utils.loader import load_params
+from nano_pearl_tpu_torch.utils.loader import load_params, pad_params
 from nano_pearl_tpu_torch.utils.logging import logger
 
 _DEFAULT_CPU_BLOCKS = 512
@@ -224,6 +241,7 @@ class GroupRunner:
         self.name = name
         self.placement = placement or GroupPlacement((device,))
         self.sp_size = self.placement.sp_size
+        self.tp_size = self.placement.tp_size
         self._kv_write = sp_write_kv if self.sp_size > 1 else write_kv
         self.block_size = pcfg.kvcache_block_size
         self.scale = mcfg.head_dim**-0.5
@@ -234,12 +252,22 @@ class GroupRunner:
             logger.warning(f"[{name}] no weights given and no checkpoint path; random-initializing")
             params = init_params_numpy(mcfg, np.random.default_rng(seed))
         if _is_numpy_tree(params):
+            if self.tp_size > 1:  # the ranks' split axes must divide tp
+                params = pad_params(params, mcfg)
             params = params_from_numpy(params, mcfg, device)
         elif mcfg.quant and not is_quantized(params["layers"]["wq"]):
             params = quantize_params(params, mcfg)
         if mcfg.fuse_proj and not mcfg.is_moe:
             params = dict(params, layers=fuse_projections(params["layers"]))
-        self.params = params
+        self.ranks = None
+        if self.tp_size > 1:  # one weight shard and rope table per rank, on its device
+            devs = self.placement.devices
+            self.ranks = [
+                TPRank(dev, shard, make_rope_table(mcfg, dev))
+                for dev, shard in zip(devs, shard_params(params, mcfg, self.tp_size, devs))
+            ]
+            params = None
+        self.params = params  # the whole tree (tp 1); under tp the ranks hold the shards
         self.rope_table = make_rope_table(mcfg, device)
         self.kv = None
         self.num_blocks = 0
@@ -257,10 +285,10 @@ class GroupRunner:
         deferred_requested = deferred == "1" if deferred is not None else throughput
         cap = env.get("NANO_PEARL_VERIFY_GROUP_CAP")
         self.verify_group_cap = int(cap) if cap is not None else pcfg.verify_group_cap
-        aligned = mcfg.num_key_value_heads * mcfg.head_dim % 128 == 0
+        aligned = mcfg.num_key_value_heads // self.tp_size * mcfg.head_dim % 128 == 0  # a rank's heads
         plain_cache = mcfg.kv_quant is None
         split_requested = env.get("NANO_PEARL_SPLIT") == "1"
-        self.split = split_requested and not self.use_mono and plain_cache and aligned
+        self.split = split_requested and not self.use_mono and plain_cache and aligned and self.tp_size == 1
         self.deferred_verify = (deferred_requested or self.split) and aligned and plain_cache
         self.verify_rowwise = env.get("NANO_PEARL_VERIFY_ROWWISE", "0") == "1"
         if self.verify_rowwise:
@@ -276,8 +304,8 @@ class GroupRunner:
         if dropped:
             logger.info(
                 f"[{self.name}] {', '.join(dropped)} off: the split schedule needs the db schedule "
-                "(not mono), both an unquantized cache and Hkv*D % 128 == 0, and the deferred "
-                "verify no NANO_PEARL_VERIFY_ROWWISE"
+                "(not mono) and tp 1, both an unquantized cache and Hkv/tp*D % 128 == 0, and the "
+                "deferred verify no NANO_PEARL_VERIFY_ROWWISE"
             )
         if self.sp_size > 1:
             sp_dropped = [name for name, on in (
@@ -315,10 +343,17 @@ class GroupRunner:
                 *dims, self.sp_size, dtype=torch_dtype(mcfg), device=list(self.placement.devices),
                 quant=mcfg.kv_quant,
             )
+        elif self.tp_size > 1:  # each rank's KV heads on its device
+            local = (*dims[:3], mcfg.num_key_value_heads // self.tp_size, mcfg.head_dim)
+            self.kv = TPKVCache(tuple(
+                make_kv_cache(*local, dtype=torch_dtype(mcfg), device=r.device, quant=mcfg.kv_quant)
+                for r in self.ranks
+            ))
         else:
             self.kv = make_kv_cache(*dims, dtype=torch_dtype(mcfg), device=self.device, quant=mcfg.kv_quant)
         self.garbage_block = num_blocks  # the extra block of make_kv_cache
         shards = f", {self.sp_size} shards" if self.sp_size > 1 else ""
+        shards += f", {self.tp_size} tp ranks" if self.tp_size > 1 else ""
         logger.info(
             f"[{self.name}] kv cache: {num_blocks} blocks x {self.block_size} tokens "
             f"({cache_nbytes(self.kv) / 2**30:.2f} GiB{', ' + mcfg.kv_quant if mcfg.kv_quant else ''}"
@@ -328,6 +363,28 @@ class GroupRunner:
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _forward(self, tokens, positions, slots, attn_fn, attn_args, kv_write_fns=None, moe_ragged=False):
+        """The decoder stack over the group: ``forward`` on one device, or
+        ``forward_tp`` over the tensor-parallel ranks. ``kv_write_fns``: one
+        K/V hook per rank (one without tp); default: the runner's cache
+        write. Returns the final hidden, under tp {device: hidden}."""
+        fns = kv_write_fns or [self._kv_write] * self.tp_size
+        if self.tp_size > 1:
+            return forward_tp(self.cfg, self.ranks, self.kv.ranks, tokens, positions, slots, attn_fn, attn_args, fns)
+        return forward(
+            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn_fn, attn_args,
+            kv_write_fn=fns[0], moe_ragged=moe_ragged,
+        )
+
+    def _logits(self, hidden, rows: torch.Tensor | None = None) -> torch.Tensor:
+        """Logits of ``hidden`` (``_forward``'s output; ``rows``: only those
+        rows) on the runner's device, the padded vocab masked."""
+        if self.tp_size > 1:
+            if rows is not None:
+                hidden = {dev: h[rows.to(dev)] for dev, h in hidden.items()}
+            return compute_logits_tp(self.cfg, self.ranks, hidden, self.device)
+        return compute_logits(self.cfg, self.params, hidden if rows is None else hidden[rows])
 
     # ------------------------------------------------------------- phases
 
@@ -385,12 +442,11 @@ class GroupRunner:
                 self._tensor(block_tables), self._tensor(num_cached), self._tensor(n_new),
                 self.scale,
             )
-        hidden = forward(
-            self.cfg, self.params, self.kv, self._tensor(tokens.reshape(-1)),
-            self._tensor(positions.reshape(-1)), self._tensor(slots.reshape(-1)),
-            self.rope_table, attn_fn, attn_args, kv_write_fn=self._kv_write, moe_ragged=True,
+        hidden = self._forward(
+            self._tensor(tokens.reshape(-1)), self._tensor(positions.reshape(-1)), self._tensor(slots.reshape(-1)),
+            attn_fn, attn_args, moe_ragged=True,
         )
-        return compute_logits(self.cfg, self.params, hidden[self._tensor(sel_rows, torch.long)])
+        return self._logits(hidden, self._tensor(sel_rows, torch.long))
 
     def decode_step(self, tokens, positions, slots, block_tables, context_lens, b1=None) -> torch.Tensor:
         """One decode step over B rows (device tensors); returns logits [B, V].
@@ -406,11 +462,7 @@ class GroupRunner:
         else:
             attn = paged_attention_mono if self.use_mono else paged_attention
             args = (block_tables, context_lens, self.scale)
-        hidden = forward(
-            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
-            kv_write_fn=self._kv_write,
-        )
-        return compute_logits(self.cfg, self.params, hidden)
+        return self._logits(self._forward(tokens, positions, slots, attn, args))
 
     def _verify_chunking(self, b: int, gamma: int) -> tuple[int, int]:
         """(chunks, sequence groups per chunk) of the packed verify of b
@@ -475,7 +527,7 @@ class GroupRunner:
         the throughput profile, the classic write-then-read one otherwise."""
         fwd = self._deferred_forward if self.deferred_verify else self._classic_forward
         logits = [
-            compute_logits(self.cfg, self.params, fwd(*chunk, gamma))
+            self._logits(fwd(*chunk, gamma))
             for chunk in self.verify_chunks(
                 tokens, positions, slots, block_tables, context_lens, gamma
             )
@@ -505,10 +557,7 @@ class GroupRunner:
         else:
             attn = paged_attention_mono if self.use_mono else paged_attention_grouped
             args = (block_tables, context_lens, self.scale, gamma)
-        return forward(
-            self.cfg, self.params, self.kv, tokens, positions, slots, self.rope_table, attn, args,
-            kv_write_fn=self._kv_write, moe_ragged=self.moe_ragged_verify,
-        )
+        return self._forward(tokens, positions, slots, attn, args, moe_ragged=self.moe_ragged_verify)
 
     def _deferred_forward(self, tokens, positions, slots, block_tables, context_lens, gamma):
         """Deferred-write packed verify of one chunk (``_deferred_forward``
@@ -523,18 +572,25 @@ class GroupRunner:
         # pre-round context per group: row 0 is always a real row whose
         # context holds exactly itself of the fresh window
         ctx0 = context_lens.reshape(b, gamma)[:, 0] - 1
-        hd = cfg.num_key_value_heads * cfg.head_dim
-        fresh = torch.empty((cfg.num_hidden_layers, 2, n, hd), dtype=self.kv.dtype, device=self.device)
+        caches = self.kv.ranks if self.tp_size > 1 else (self.kv,)
+        hd = cfg.num_key_value_heads // self.tp_size * cfg.head_dim
+        fresh = [
+            torch.empty((cfg.num_hidden_layers, 2, n, hd), dtype=c.dtype, device=c.device) for c in caches
+        ]  # one buffer per rank (one without tp)
 
-        def collect(cache, k, v, slots, li):
-            torch.stack((k.reshape(n, hd), v.reshape(n, hd)), out=fresh[li])
+        def collector(buf):
+            def collect(cache, k, v, slots, li):
+                torch.stack((k.reshape(n, hd), v.reshape(n, hd)), out=buf[li])
 
-        hidden = forward(
-            cfg, self.params, self.kv, tokens, positions, slots, self.rope_table,
-            _deferred_attn, (block_tables, context_lens, ctx0, self.scale, gamma, self.fresh_schedule),
-            kv_write_fn=collect, moe_ragged=self.moe_ragged_verify,
+            return collect
+
+        hidden = self._forward(
+            tokens, positions, slots, _deferred_attn,
+            (block_tables, context_lens, ctx0, self.scale, gamma, self.fresh_schedule),
+            kv_write_fns=[collector(buf) for buf in fresh], moe_ragged=self.moe_ragged_verify,
         )
-        write_fresh(self.kv, fresh, slots)
+        for cache, buf in zip(caches, fresh):
+            write_fresh(cache, buf, slots.to(buf.device))
         return hidden
 
     @property

@@ -7,6 +7,10 @@ managers, so admission decisions are consistent by construction. A
 sequence is admitted only when BOTH groups can allocate its prompt
 blocks (the reference implicitly assumes this because each replica
 checks its own pool and they must agree).
+
+``PearlConfig.native_block_manager`` swaps both pools' Python
+``BlockManager`` for the C++ one (engine/native.py), which takes the same
+decisions; a failed build of it raises.
 """
 
 from __future__ import annotations
@@ -29,12 +33,12 @@ class Scheduler:
         self.max_num_batched_tokens = config.max_num_batched_tokens
         self.eos = config.eos
         self.block_size = config.kvcache_block_size
-        if getattr(config, "native_block_manager", False):
-            raise NotImplementedError(
-                "the port has only the Python block manager so far"
-            )
-        self.draft_bm = BlockManager(draft_blocks, self.block_size, config.draft_sp)
-        self.target_bm = BlockManager(target_blocks, self.block_size, config.target_sp)
+        manager = BlockManager
+        if config.native_block_manager:
+            # the C++ manager or an error: no fallback to the Python one
+            from nano_pearl_tpu_torch.engine.native import NativeBlockManager as manager
+        self.draft_bm = manager(draft_blocks, self.block_size, config.draft_sp)
+        self.target_bm = manager(target_blocks, self.block_size, config.target_sp)
         self.waiting: deque[Sequence] = deque()
         self.running: deque[Sequence] = deque()
         self.finished: list[Sequence] = []

@@ -37,6 +37,13 @@ The residual stream is carried in f32 across layers (a model-dtype
 carry rounds once per layer and makes the logits depend on the layer
 count even through pass-through layers, which breaks draft/target
 agreement at the layer-share ceiling).
+
+A tensor-parallel group (``parallel/sharding.py``: one weight shard and
+one KV cache shard per rank) runs ``forward_tp`` and ``compute_logits_tp``:
+each rank launches its own products and attention kernel on its heads and
+columns, and the host sums the ranks' partial products of wo and wdown in
+rank order (the JAX package's GSPMD reduce), looks the embedding up per
+vocab shard and concatenates the logits over the vocab shards.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from nano_pearl_tpu_torch.ops.quant import (
 )
 from nano_pearl_tpu_torch.ops.rope import apply_rope, build_rope_table
 from nano_pearl_tpu_torch.ops.sampling import mask_invalid_logits
+from nano_pearl_tpu_torch.parallel.sharding import rank_sum, to_devices
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -217,6 +225,53 @@ def make_rope_table(cfg: ModelConfig, device=None) -> torch.Tensor:
     )
 
 
+def _qkv(cfg: ModelConfig, lp: dict, h1: torch.Tensor, rope_rows: torch.Tensor, n_q: int, n_kv: int):
+    """A layer's post-rope q [N, n_q, D], k and v [N, n_kv, D] (``n_q`` /
+    ``n_kv`` the heads the weights ``lp`` hold: all of them, or one
+    tensor-parallel rank's)."""
+    d = cfg.head_dim
+    if "wqkv" in lp:
+        qkv = mm(h1, lp["wqkv"])
+        if cfg.qkv_bias:
+            qkv = qkv + lp["bqkv"]
+        q, k, v = qkv.split([n_q * d, n_kv * d, n_kv * d], dim=-1)
+        v = v.contiguous()  # the kernels take V as it is; the rope writes q and k anew
+    else:
+        q = mm(h1, lp["wq"])
+        k = mm(h1, lp["wk"])
+        v = mm(h1, lp["wv"])
+        if cfg.qkv_bias:
+            q = q + lp["bq"]
+            k = k + lp["bk"]
+            v = v + lp["bv"]
+    q = q.reshape(-1, n_q, d)
+    k = k.reshape(-1, n_kv, d)
+    v = v.reshape(-1, n_kv, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    return apply_rope(q, rope_rows), apply_rope(k, rope_rows), v
+
+
+def _attend(attn_fn, q, k, v, kv_cache, li: int, attn_args: tuple) -> torch.Tensor:
+    """``attn_fn`` called as its marks ask (``run_layers``)."""
+    if getattr(attn_fn, "wants_fresh_kv", False):
+        return attn_fn(q, k, v, *attn_args)
+    if getattr(attn_fn, "wants_fresh_and_cache", False):
+        return attn_fn(q, k, v, kv_cache, li, *attn_args)
+    return attn_fn(q, kv_cache, li, *attn_args)
+
+
+def _dense_mlp(lp: dict, h2: torch.Tensor) -> torch.Tensor:
+    """The dense MLP's output (under tensor parallelism a rank's partial
+    product, its share of the ffn columns)."""
+    if "wgu" in lp:
+        gate, up = mm(h2, lp["wgu"]).chunk(2, dim=-1)
+    else:
+        gate, up = mm(h2, lp["wgate"]), mm(h2, lp["wup"])
+    return mm(F.silu(gate.float()).to(h2.dtype) * up, lp["wdown"])
+
+
 def run_layers(
     cfg: ModelConfig,
     layers: dict,  # stacked layer params, leading dim L
@@ -247,45 +302,16 @@ def run_layers(
     must run one dispatch, whose products round alike, or near-tied
     argmaxes flip between them (the JAX package measured MAT 11.25 in
     place of 14.0 with a sorted verify beside a dense decode)."""
-    d = cfg.head_dim
     n_q, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     eps = cfg.rms_norm_eps
-    fresh = getattr(attn_fn, "wants_fresh_kv", False)
-    fresh_and_cache = getattr(attn_fn, "wants_fresh_and_cache", False)
     for li in range(layers["input_ln"].shape[0]):
         lp = {key: layer_weight(val, li) for key, val in layers.items()}  # views
         res2 = x.float() + res  # f32, exact
         h1 = rms_norm(res2, lp["input_ln"], eps, out_dtype=x.dtype)
-        if "wqkv" in lp:
-            qkv = mm(h1, lp["wqkv"])
-            if cfg.qkv_bias:
-                qkv = qkv + lp["bqkv"]
-            q, k, v = qkv.split([n_q * d, n_kv * d, n_kv * d], dim=-1)
-            v = v.contiguous()  # the kernels take V as it is; the rope writes q and k anew
-        else:
-            q = mm(h1, lp["wq"])
-            k = mm(h1, lp["wk"])
-            v = mm(h1, lp["wv"])
-            if cfg.qkv_bias:
-                q = q + lp["bq"]
-                k = k + lp["bk"]
-                v = v + lp["bv"]
-        q = q.reshape(-1, n_q, d)
-        k = k.reshape(-1, n_kv, d)
-        v = v.reshape(-1, n_kv, d)
-        if cfg.qk_norm:
-            q = rms_norm(q, lp["q_norm"], eps)
-            k = rms_norm(k, lp["k_norm"], eps)
-        q = apply_rope(q, rope_rows)
-        k = apply_rope(k, rope_rows)
+        q, k, v = _qkv(cfg, lp, h1, rope_rows, n_q, n_kv)
         kv_write_fn(kv_cache, k, v, slots, li)
-        if fresh:
-            o = attn_fn(q, k, v, *attn_args)
-        elif fresh_and_cache:
-            o = attn_fn(q, k, v, kv_cache, li, *attn_args)
-        else:
-            o = attn_fn(q, kv_cache, li, *attn_args)
-        attn_out = mm(o.reshape(-1, n_q * d), lp["wo"])
+        o = _attend(attn_fn, q, k, v, kv_cache, li, attn_args)
+        attn_out = mm(o.reshape(-1, n_q * cfg.head_dim), lp["wo"])
         res3 = attn_out.float() + res2  # f32 residual carry
         h2 = rms_norm(res3, lp["post_ln"], eps, out_dtype=x.dtype)
         if cfg.is_moe:
@@ -294,11 +320,7 @@ def run_layers(
                 cfg.norm_topk_prob, cfg.valid_num_experts, allow_ragged=moe_ragged,
             )
         else:
-            if "wgu" in lp:
-                gate, up = mm(h2, lp["wgu"]).chunk(2, dim=-1)
-            else:
-                gate, up = mm(h2, lp["wgate"]), mm(h2, lp["wup"])
-            x = mm(F.silu(gate.float()).to(x.dtype) * up, lp["wdown"])
+            x = _dense_mlp(lp, h2)
         res = res3
     return x, res
 
@@ -334,3 +356,88 @@ def compute_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torc
     """LM head in the model dtype, then f32 with the padded vocab masked."""
     logits = mm_t(hidden, params["lm_head"])
     return mask_invalid_logits(logits.float(), cfg.valid_vocab_size)
+
+
+# ------------------------------------------------------ tensor parallelism
+
+
+def _embed_tp(ranks, tokens: dict, devices: list) -> dict:
+    """The embedding as a masked lookup per vocab shard, summed over the
+    ranks ({device: [N, H]}; exactly the unsharded lookup: each token has
+    one nonzero term)."""
+    parts, off = [], 0
+    for rank in ranks:
+        emb = rank.params["embed"]
+        v = emb.shape[0]
+        local = tokens[rank.device].long() - off
+        hit = (local >= 0) & (local < v)
+        parts.append(torch.where(hit[:, None], emb[local.clamp(0, v - 1)], 0.0))
+        off += v
+    return rank_sum(parts, devices)
+
+
+def run_layers_tp(
+    cfg: ModelConfig, ranks, kv_caches, x: dict, res: dict, rope_rows: dict, slots: dict, attn_fn,
+    attn_args: dict, kv_write_fns,
+) -> tuple[dict, dict]:
+    """``run_layers`` over a tensor-parallel group of ranks
+    (``parallel/sharding.TPRank``), each with its cache in ``kv_caches``
+    and its K/V hook in ``kv_write_fns``. The replicated activations (x,
+    res, the rope rows, the slots, ``attn_args``) are {device: tensor}
+    dicts, computed once per device that holds a rank. Each rank runs its
+    q/k/v columns, its KV heads' cache write and attention kernel and its
+    rows of wo; the ranks' wo products are summed in rank order
+    (``rank_sum``), and likewise their shares of the MLP's wdown product.
+    Dense models only."""
+    tp = len(ranks)
+    n_q, n_kv = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
+    eps = cfg.rms_norm_eps
+    devices = [rank.device for rank in ranks]
+    first = {dev: devices.index(dev) for dev in x}  # a rank whose replicated weights each device reads
+    for li in range(ranks[0].params["layers"]["input_ln"].shape[0]):
+        lps = [{key: layer_weight(val, li) for key, val in rank.params["layers"].items()} for rank in ranks]
+        res2 = {dev: x[dev].float() + res[dev] for dev in x}
+        h1 = {dev: rms_norm(res2[dev], lps[first[dev]]["input_ln"], eps, out_dtype=x[dev].dtype) for dev in x}
+        parts = []
+        for r, rank in enumerate(ranks):
+            dev = rank.device
+            q, k, v = _qkv(cfg, lps[r], h1[dev], rope_rows[dev], n_q, n_kv)
+            kv_write_fns[r](kv_caches[r], k, v, slots[dev], li)
+            o = _attend(attn_fn, q, k, v, kv_caches[r], li, attn_args[dev])
+            parts.append(mm(o.reshape(-1, n_q * cfg.head_dim), lps[r]["wo"]))
+        attn_out = rank_sum(parts, devices)
+        res = {dev: attn_out[dev].float() + res2[dev] for dev in x}  # f32 residual carry
+        h2 = {dev: rms_norm(res[dev], lps[first[dev]]["post_ln"], eps, out_dtype=x[dev].dtype) for dev in x}
+        x = rank_sum([_dense_mlp(lps[r], h2[rank.device]) for r, rank in enumerate(ranks)], devices)
+    return x, res
+
+
+def forward_tp(
+    cfg: ModelConfig, ranks, kv_caches, tokens: torch.Tensor, positions: torch.Tensor, slots: torch.Tensor,
+    attn_fn, attn_args: tuple, kv_write_fns,
+) -> dict:
+    """``forward`` over a tensor-parallel group: the inputs (on any device)
+    go to each device that holds a rank, the embedding is a masked lookup
+    per vocab shard summed over the ranks, then ``run_layers_tp``; returns
+    the final-normed hidden {device: [N, H]}, one copy per such device."""
+    devices = [rank.device for rank in ranks]
+    toks, pos, slot, args = (to_devices(a, devices) for a in (tokens, positions, slots, attn_args))
+    rope = {}
+    for rank in ranks:
+        if rank.device not in rope:
+            table = rank.rope_table
+            rope[rank.device] = table[torch.clamp(pos[rank.device].long(), max=table.shape[0] - 1)]
+    x = _embed_tp(ranks, toks, devices)
+    res = {dev: torch.zeros(t.shape, dtype=torch.float32, device=dev) for dev, t in x.items()}
+    x, res = run_layers_tp(cfg, ranks, kv_caches, x, res, rope, slot, attn_fn, args, kv_write_fns)
+    final_ln = {rank.device: rank.params["final_ln"] for rank in reversed(ranks)}
+    return {dev: rms_norm(x[dev].float() + res[dev], final_ln[dev], cfg.rms_norm_eps, out_dtype=x[dev].dtype)
+            for dev in x}
+
+
+def compute_logits_tp(cfg: ModelConfig, ranks, hidden: dict, out_device) -> torch.Tensor:
+    """``compute_logits`` over a tensor-parallel group: each rank's vocab
+    shard of the LM head, the shards' logits concatenated on
+    ``out_device`` in rank order, then f32 with the padded vocab masked."""
+    parts = [mm_t(hidden[rank.device], rank.params["lm_head"]).to(out_device) for rank in ranks]
+    return mask_invalid_logits(torch.cat(parts, dim=-1).float(), cfg.valid_vocab_size)

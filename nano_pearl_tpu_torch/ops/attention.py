@@ -215,33 +215,36 @@ def paged_attention_grouped_partials_ref(
     rows_per_group: int,
 ):
     """Flash partials of packed-verify attention over one shard's blocks
-    (``paged_attention_pallas_grouped_partials`` of the JAX package): (o
-    normalised by its own sum, in q's dtype; m, the row max floored at
-    ``M_FLOOR``; l, the sum of exp(s - m)), m and l f32 [B*R, Hq]. Key p of
-    a row is visible iff p < its context and its table slot is local; a row
-    with no visible key gives o = 0, m = M_FLOOR and l = 0. A quantized
-    shard is dequantized and rounded to q's dtype, as the K9 plain versions
-    read it."""
-    n, hq, d = q.shape
-    b, r = group_tables.shape[0], rows_per_group
-    k, v = _gather_kv(cache, layer_idx, group_tables, d, q.dtype)  # [B, S, Hkv, D]
-    s, hkv = k.shape[1], k.shape[2]
-    bs = s // group_tables.shape[1]
-    qg = q.reshape(b, r, hkv, hq // hkv, d).float()
-    scores = torch.einsum("brkgd,bskd->brkgs", qg, k.float()) * scale
-    ctx = context_lens.reshape(b, r)
-    local = is_local.bool().repeat_interleave(bs, dim=1)  # [B, S]
-    vis = (torch.arange(s, device=q.device)[None, None, :] < ctx[:, :, None]) & local[:, None, :]
-    return _flash_partials(scores, vis, v.float(), q.dtype)
+    (``paged_attention_pallas_grouped_partials`` of the JAX package): the
+    decode partials (``paged_attention_partials_ref``) of every row with
+    its group's table and ``is_local`` row repeated, as the JAX package's
+    jnp branch repeats the tables. Each row is then computed by the very
+    products the decode runs, whatever shapes the host's BLAS rounds
+    alike, so a verify row equals its decode row bit for bit."""
+    r = rows_per_group
+    return paged_attention_partials_ref(
+        q, cache, layer_idx, group_tables.repeat_interleave(r, 0), context_lens,
+        is_local.repeat_interleave(r, 0), scale,
+    )
 
 
 def paged_attention_partials_ref(q, cache, layer_idx, block_tables, context_lens, is_local, scale):
     """Decode flash partials over one shard (``paged_attention_pallas_partials``
-    of the JAX package): ``paged_attention_grouped_partials_ref`` with one
-    row per block-table row."""
-    return paged_attention_grouped_partials_ref(
-        q, cache, layer_idx, block_tables, context_lens, is_local, scale, 1
-    )
+    of the JAX package): (o normalised by its own sum, in q's dtype; m, the
+    row max floored at ``M_FLOOR``; l, the sum of exp(s - m)), m and l f32
+    [N, Hq]. Key p of a row is visible iff p < its context and its table
+    slot is local; a row with no visible key gives o = 0, m = M_FLOOR and
+    l = 0. A quantized shard is dequantized and rounded to q's dtype, as
+    the K9 plain versions read it."""
+    n, hq, d = q.shape
+    k, v = _gather_kv(cache, layer_idx, block_tables, d, q.dtype)  # [N, S, Hkv, D]
+    s, hkv = k.shape[1], k.shape[2]
+    bs = s // block_tables.shape[1]
+    qg = q.reshape(n, 1, hkv, hq // hkv, d).float()
+    scores = torch.einsum("nrkgd,nskd->nrkgs", qg, k.float()) * scale
+    local = is_local.bool().repeat_interleave(bs, dim=1)  # [N, S]
+    vis = (torch.arange(s, device=q.device)[None, None, :] < context_lens[:, None, None]) & local[:, None, :]
+    return _flash_partials(scores, vis, v.float(), q.dtype)
 
 
 def fresh_window_partials(

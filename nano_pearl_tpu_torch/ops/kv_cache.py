@@ -29,6 +29,12 @@ lands in the last shard). Each shard's rows sit in a flat buffer with one
 more row, a sink that ``parallel/sp.sp_write_kv`` sends the rows of the
 other shards to (the JAX package's always-out-of-bounds ``mode="drop"``
 index); no kernel reads it.
+
+Under tensor parallelism a model's cache is a ``TPKVCache``: one cache of
+either kind per rank, on the rank's device, holding the rank's
+``Hkv / tp`` KV heads (the JAX package shards the folded head axis over
+``tp``, and a quantized cache's scales by head, as its
+``kv_scale_stride`` does): ``[L, 2, NB+1, BS, (Hkv / tp) * D]``.
 """
 
 from __future__ import annotations
@@ -110,6 +116,39 @@ class ShardedKVCache(NamedTuple):
         return torch.Size((l, two, nb1 * self.sp_size, bs, hd))
 
 
+class TPKVCache(NamedTuple):
+    """A paged cache whose KV heads are split over tensor-parallel ranks:
+    ``ranks[r]`` is rank r's cache (a tensor or a ``QuantKVCache``) of its
+    ``Hkv / tp`` heads, on its device."""
+
+    ranks: tuple
+
+    @property
+    def tp_size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def shape(self) -> torch.Size:
+        """The whole cache's shape, [L, 2, NB+1, BS, Hkv*D]."""
+        l, two, nb1, bs, hd = self.ranks[0].shape
+        return torch.Size((l, two, nb1, bs, hd * self.tp_size))
+
+
+def split_kv_heads(cache, tp: int, devices=None) -> TPKVCache:
+    """A copy of ``cache``'s KV heads split over ``tp`` ranks (rank r's on
+    ``devices[r]``, default: the cache's device): values by columns of the
+    folded head axis, a quantized cache's scales by head."""
+    devices = list(devices) if devices is not None else [None] * tp
+
+    def part(t, r):
+        c = torch.chunk(t, tp, dim=-1)[r]
+        return (c if devices[r] is None else c.to(devices[r])).contiguous()
+
+    if cache_is_quantized(cache):
+        return TPKVCache(tuple(QuantKVCache(part(cache.q, r), part(cache.s, r)) for r in range(tp)))
+    return TPKVCache(tuple(part(cache, r) for r in range(tp)))
+
+
 def make_sharded_kv_cache(
     num_layers: int,
     num_blocks: int,
@@ -152,14 +191,18 @@ def make_sharded_kv_cache(
 def cache_is_quantized(cache) -> bool:
     if isinstance(cache, ShardedKVCache):
         return cache_is_quantized(cache.shards[0])
+    if isinstance(cache, TPKVCache):
+        return cache_is_quantized(cache.ranks[0])
     return isinstance(cache, QuantKVCache)
 
 
 def cache_nbytes(cache) -> int:
     """Bytes the cache's tensors take (a sharded cache's flat buffers, sink
-    rows included)."""
+    rows included; every tensor-parallel rank's cache)."""
     if isinstance(cache, ShardedKVCache):
         return sum(cache_nbytes(f) for f in cache.flats)
+    if isinstance(cache, TPKVCache):
+        return sum(cache_nbytes(c) for c in cache.ranks)
     parts = (cache.q, cache.s) if cache_is_quantized(cache) else (cache,)
     return sum(t.numel() * t.element_size() for t in parts)
 

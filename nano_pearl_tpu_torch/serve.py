@@ -28,6 +28,7 @@ pre-verify state, without draining it.
     python -m nano_pearl_tpu_torch.serve --layer-share          # on the GPU
     python -m nano_pearl_tpu_torch.serve --layer-share --cpu    # plain versions, f32
     python -m nano_pearl_tpu_torch.serve -d DRAFT_DIR -t TARGET_DIR   # HF checkpoints
+    python -m nano_pearl_tpu_torch.serve --layer-share --draft-tp 2 --target-tp 2  # tensor parallel
 
 Without ``--cpu`` the engine needs a CUDA device and raises without one.
 """
@@ -336,9 +337,9 @@ def build_engine(args, **config):
     else:
         raise ValueError("--draft-model/--target-model required without --layer-share")
     cfg = PearlConfig(
-        draft_model=draft, target_model=target, max_model_len=args.max_model_len,
-        gamma=args.gamma, seed=args.seed, perf_profile="ceiling" if args.layer_share else "throughput",
-        dtype=draft.dtype, **config,
+        draft_model=draft, target_model=target, draft_tp=args.draft_tp, target_tp=args.target_tp,
+        max_model_len=args.max_model_len, gamma=args.gamma, seed=args.seed,
+        perf_profile="ceiling" if args.layer_share else "throughput", dtype=draft.dtype, **config,
     )
     return PearlEngine(cfg, dparams, tparams, device="cpu" if args.cpu else None)
 
@@ -351,6 +352,9 @@ def parse_args(argv=None):
                    help="serve the weightless layer-share pair (random weights)")
     p.add_argument("--draft-layers", type=int, default=3)
     p.add_argument("--target-layers", type=int, default=36)
+    p.add_argument("--draft-tp", type=int, default=1,
+                   help="tensor-parallel ranks of the draft (placed with the target's on the devices)")
+    p.add_argument("--target-tp", type=int, default=1, help="tensor-parallel ranks of the target")
     p.add_argument("--max-model-len", type=int, default=4096)
     p.add_argument("--gamma", type=int, default=8)
     p.add_argument("--fused-rounds", type=int, default=8)

@@ -149,6 +149,25 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     return {"embed": (v, h), "layers": layers, "final_ln": (h,), "lm_head": (v, h)}
 
 
+def pad_params(tree: dict, cfg: ModelConfig) -> dict:
+    """A parameter tree of numpy arrays (the JAX package's layout) with
+    every plain array zero-padded at its tail to ``cfg``'s shapes: weights
+    of the unpadded model handed to an engine whose tensor parallelism
+    padded the heads, ffn or vocab (``ModelConfig.pad_for_tp``), as the
+    loader pads a checkpoint. Arrays already at their shapes, quantized
+    leaves and keys the shapes do not name pass as they are."""
+    shapes = _expected_shapes(cfg)
+
+    def pad(a, shape):
+        return _pad_to(a, shape) if isinstance(a, np.ndarray) and shape is not None else a
+
+    out = {k: pad(v, shapes.get(k)) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: pad(v, shapes["layers"].get(k)) for k, v in tree["layers"].items()}
+    if tree.get("lm_head") is tree.get("embed"):
+        out["lm_head"] = out["embed"]
+    return out
+
+
 def load_params(cfg: ModelConfig, path: str, dtype=np.float32) -> dict:
     """The HF checkpoint directory ``path`` as the JAX package's parameter
     pytree of numpy ``dtype`` arrays (float32 by default, which holds every

@@ -47,6 +47,15 @@ def test_import_loads_no_jax_in_fresh_process():
     ) == []
 
 
+def test_parallel_and_native_modules_load_no_jax_in_fresh_process():
+    """Tensor parallelism, data parallelism and the native block manager's
+    binding import no JAX either."""
+    assert _modules_loaded_by(
+        "from nano_pearl_tpu_torch.parallel import sharding, tp_attn\n"
+        "from nano_pearl_tpu_torch.engine import dp, native"
+    ) == []
+
+
 def test_server_import_loads_no_jax_in_fresh_process():
     assert _modules_loaded_by("import nano_pearl_tpu_torch.serve") == []
 

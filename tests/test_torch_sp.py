@@ -360,12 +360,12 @@ def test_group_placements_follow_jax():
 
     devs = [torch.device("cpu", i) for i in range(3)]
     for d_sp, t_sp in ((2, 1), (2, 2), (1, 1)):
-        draft, target = build_group_placements(devs, d_sp, t_sp)
+        draft, target = build_group_placements(devs, draft_sp=d_sp, target_sp=t_sp)
         jd, jt = build_group_meshes(1, 1, jax.devices()[:3], draft_sp=d_sp, target_sp=t_sp)
         assert [d.index for d in draft.devices] == [d.id for d in jd.mesh.devices.flat]
         assert [d.index for d in target.devices] == [d.id for d in jt.mesh.devices.flat]
         assert (draft.sp_size, target.sp_size) == (d_sp, t_sp)
-    draft, target = build_group_placements(devs[:1], 2, 2)
+    draft, target = build_group_placements(devs[:1], draft_sp=2, target_sp=2)
     assert draft.distinct_devices == target.distinct_devices == (devs[0],)
 
 

@@ -3,7 +3,7 @@
 torch.profiler.
 
     python3 tools/profile_torch_port.py [--paths main,throughput,split,deferred_db,fresh_kernel,sp,fallback,quant,
-                                                 qthr,overlap,moe,moe_thr,fused,prefill]
+                                                 qthr,overlap,moe,moe_thr,fused,tp,prefill]
                                         [--unprofiled] [--pearl-only] [--tree ROOT]
 
 For each path builds the bench's bf16 3L/36L layer-share pair at B=32,
@@ -36,7 +36,10 @@ verify of 32 x 14 rows takes the sorted dispatch, one host read of its
 segment sizes per MoE layer: the ``moe_sorted_dispatch`` stage's calls per
 round); "fused" chip_smoke.py's fuse_proj_path (the main path's pair with
 fused projections, bench.py --fuse-proj: one qkv and one gate|up product a
-layer). An
+layer); "tp" chip_smoke.py's tp_path (main with draft_tp = target_tp = 2 in
+union placement, both ranks on the one card: each rank's products and
+K1/K2/K3 over one KV head, the ranks' sums on the host: the ``tp_rank_sum``
+stage). An
 override path and the overlap path run their PEARL rounds only: the
 override's AR is the base path's program, and AR runs the fused AR loop
 in every mode. Each loop runs twice:
@@ -226,7 +229,10 @@ PATHS = {
     "moe": ("ceiling", 0.0, None, 1),
     "moe_thr": ("throughput", 0.005, None, 1),
     "fused": ("ceiling", 0.0, None, 1),
+    "tp": ("ceiling", 0.0, None, 1),
 }
+# path -> draft_tp = target_tp (union placement on the one card) where not 1
+TP = {"tp": 2}
 # path -> (target layers, the pair's widths, their name) where not the bench's pair
 PAIRS = {"fallback": (32, SMOLLM2_360M, "SmolLM2-360M"), "moe": (36, MOE_WIDTHS, "bench.py --moe"),
          "moe_thr": (36, MOE_WIDTHS, "bench.py --moe"), "fused": (36, FUSED_WIDTHS, "fused projections")}
@@ -265,6 +271,9 @@ HOST_STAGES = {
     "k11c_wrapper": ("nano_pearl_tpu_torch.ops.cuda.paged_attention_partials", "paged_verify_partials"),
     "sp_write_rows": ("nano_pearl_tpu_torch.parallel.sp", "store_rows"),
     "lm_head": ("nano_pearl_tpu_torch.engine.runner", "compute_logits"),
+    "lm_head_tp": ("nano_pearl_tpu_torch.engine.runner", "compute_logits_tp"),
+    # the ranks' partial products summed in rank order (wo, wdown, the embedding)
+    "tp_rank_sum": ("nano_pearl_tpu_torch.models.transformer", "rank_sum"),
     "moe_block": ("nano_pearl_tpu_torch.models.transformer", "moe_mlp"),
     # one host read of the segment sizes a call
     "moe_sorted_dispatch": ("nano_pearl_tpu_torch.ops.moe", "_moe_mlp_sorted"),
@@ -370,7 +379,7 @@ def profile_path(dev, path: str, profiled: bool = True, pearl_only: bool = False
     kv_quant, quant = QUANT.get(path, (None, None))
     mode = "overlap" if path in OVERLAP else "auto"
     engine = pair_engine(3, layers, "bfloat16", BATCH, GAMMA, ROUNDS, PROMPT, dev, profile, noise, kv_quant=kv_quant,
-                         quant=quant, env=env, sp=sp, widths=widths, mode=mode)
+                         quant=quant, env=env, sp=sp, widths=widths, mode=mode, tp=TP.get(path, 1))
     fused = engine.orchestrator.fused
     # warm-up, as chip_smoke.py does, not measured
     add_requests(engine, np.random.default_rng(0), BATCH, PROMPT, ROUNDS * (GAMMA + 1))
@@ -382,6 +391,7 @@ def profile_path(dev, path: str, profiled: bool = True, pearl_only: bool = False
 
     head = {"path": path, "profile": profile, "draft_noise": noise, **({"env": env} if env else {}),
             **({"draft_sp": sp, "target_sp": sp} if sp > 1 else {}),
+            **({"draft_tp": TP[path], "target_tp": TP[path]} if path in TP else {}),
             **({"target_layers": layers, "widths": pair} if widths else {}),
             **({"kv_quant": kv_quant, "quant": quant} if kv_quant else {}),
             **({"execution_mode": mode} if mode != "auto" else {})}
